@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA H100.
+
+    python3 chip_smoke.py [--rounds T] [--out results.json]
+
+Phases, each fatal on failure (nonzero exit):
+
+1. the card (``nvidia-smi`` name and power limit) and the software versions;
+2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all at once; ``-Xptxas -v`` output printed);
+3. each of the four kernels at the main path's real shapes -- every run of
+   the full smollm-360m wire layout, n = 4 clients, 8-bit quant (plus 2 and
+   4 bits on the largest run) -- held against its plain PyTorch version on
+   the card, and timed with CUDA events beside its plain version, the
+   nearest single PyTorch call (where there is one) and its bound;
+4. a small-input reference check: one reduced round on the card against the
+   same round on the CPU, for each uplink;
+5. the main path: full-width smollm-360m federated training (d =
+   361,821,120) on ``comm="pallas"``, T rounds with ``--uplink quant`` then T
+   with ``--uplink topk`` (4 clients, batch 2, seq 64), through the
+   launcher's ``setup`` and ``engine.rounds.run_rounds``.  Launch counts are
+   zeroed just before each phase and read just after: each kernel of the
+   phase must have launched 8 times (once per wire run) per round;
+   f and g_hat must be finite.  One more round per uplink then runs under
+   ``torch.profiler`` for the device time by operator and the device's busy
+   share.
+
+The last three lines are the kernels' JSON record, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.  Without a card, or
+without the rest of the repository beside it, it exits nonzero and prints
+no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (published)
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+N_CLIENTS = 4
+REPS = 3
+D_FULL = 361_821_120           # smollm-360m parameters = the flat buffer
+
+# kernel -> (source, the Pallas call site it replaces)
+KERNELS = {
+    "block_topk": ("src/repro_torch/csrc/topk_block.cu",
+                   "src/repro/kernels/topk_block.py:49"),
+    "scatter_agg": ("src/repro_torch/csrc/scatter_agg.cu",
+                    "src/repro/kernels/scatter_agg.py:74"),
+    "quantize_ef_pack": ("src/repro_torch/csrc/quantize_ef_pack.cu",
+                         "src/repro/kernels/quantize_ef_pack.py:70"),
+    "unpack_mma": ("src/repro_torch/csrc/unpack_mma.cu",
+                   "src/repro/kernels/unpack_mma.py:59"),
+}
+PHASE_KERNELS = {"quant": ("quantize_ef_pack", "unpack_mma"),
+                 "topk": ("block_topk", "scatter_agg")}
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn) -> float:
+    """Mean milliseconds of ``fn()`` on the card: one warm-up call, then
+    REPS calls between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(torch, got, want) -> float:
+    """Integer outputs must be equal; the largest float difference."""
+    err = 0.0
+    for a, b in zip(got, want):
+        if a.dtype.is_floating_point:
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+        else:
+            if a.dtype in (torch.uint16, torch.uint32):
+                signed = torch.int16 if a.dtype == torch.uint16 \
+                    else torch.int32
+                a, b = a.view(signed), b.view(signed)
+            if not torch.equal(a, b):
+                raise AssertionError("integer outputs differ")
+    return err
+
+
+def check_kernels(torch, dev, layout):
+    """Phase 3: each kernel at the main path's shapes (every run, n = 4)
+    against its plain version, with timings.  Returns {name: record}."""
+    from repro_torch.comm import payloads
+    from repro_torch.comm.flat import run_view
+    from repro_torch.kernels import (quantize_ef_pack, scatter_agg,
+                                     topk_block, unpack_mma)
+    runs = layout.runs
+    n = N_CLIENTS
+    d = sum(r.span for r in runs)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+
+    def record(name, kernel, plain, library, nbytes, ops, tol):
+        """``kernel()`` / ``plain()`` return one tuple of outputs per run."""
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max(max_err(torch, a, b) for a, b in zip(got, want))
+        if err > tol:
+            raise AssertionError(f"{name}: max |kernel - plain| = {err} "
+                                 f"> {tol}")
+        del got, want
+        bnd, by = bound_ms(nbytes, ops)
+        rec = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+               "replaces": KERNELS[name][1], "max_abs_err": err,
+               "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+               "bound_ms": bnd, "bound_by": by,
+               "library_ms": (time_ms(torch, library)
+                              if library is not None else None)}
+        print(json.dumps({"kernel_check": rec, "tolerance": tol}), flush=True)
+        out[name] = rec
+
+    # -- top-k encode and select reduce (one round: 8 runs) ---------------
+    x = torch.randn((n, d), generator=g, device=dev)
+    xs = [run_view(x, r) for r in runs]
+    record("block_topk",
+           lambda: [topk_block.block_topk(v, r.k) for v, r in zip(xs, runs)],
+           lambda: [topk_block.block_topk_plain(v, r.k)
+                    for v, r in zip(xs, runs)],
+           None, sum(n * r.nblocks * (4 * r.block + 8 * r.k) for r in runs),
+           sum(n * r.nblocks * r.block for r in runs), 0.0)
+    absx = [v.abs() for v in xs]
+    out["block_topk"]["library_ms"] = time_ms(
+        torch, lambda: [torch.topk(a, r.k, dim=-1) for a, r in
+                        zip(absx, runs)])
+    del absx
+    sel = [topk_block.block_topk(v, r.k) for v, r in zip(xs, runs)]
+    del x, xs
+    vals = [v for v, _ in sel]
+    idx = [payloads.to_u16(i) for _, i in sel]
+    del sel
+    weight = torch.ones(n, device=dev)
+    pos = [(torch.arange(r.nblocks, device=dev)[:, None] * r.block
+            + payloads.u16_to_i64(i)).reshape(-1) for i, r in zip(idx, runs)]
+    wv = [(v * weight[:, None, None]).reshape(-1) for v in vals]
+    accs = [torch.zeros(r.nblocks * r.block, device=dev) for r in runs]
+    # duplicate offsets cannot occur in top-k payloads: exact
+    record("scatter_agg",
+           lambda: [(scatter_agg.scatter_agg(v, i, weight, r.block),)
+                    for v, i, r in zip(vals, idx, runs)],
+           lambda: [(scatter_agg.scatter_agg_plain(v, i, weight, r.block),)
+                    for v, i, r in zip(vals, idx, runs)],
+           lambda: [a.index_add_(0, p, s) for a, p, s in zip(accs, pos, wv)],
+           sum(n * r.nblocks * r.k * 6 + 4 * n + r.nblocks * r.block * 4
+               for r in runs),
+           sum(2 * n * r.nblocks * r.k for r in runs), 0.0)
+    del vals, idx, pos, wv, accs
+
+    # -- fused quant encode and unpack reduce (8-bit main path) -----------
+    e = torch.randn((n, d), generator=g, device=dev) * 0.01
+    delta = torch.randn((n, d), generator=g, device=dev)
+    es = [run_view(e, r) for r in runs]
+    ds = [run_view(delta, r) for r in runs]
+    record("quantize_ef_pack",
+           lambda: [quantize_ef_pack.quantize_ef_pack(a, b, 8)
+                    for a, b in zip(es, ds)],
+           lambda: [quantize_ef_pack.quantize_ef_pack_plain(a, b, 8)
+                    for a, b in zip(es, ds)],
+           None,
+           sum(n * r.nblocks * (12 * r.block + 4 * r.W + 4) for r in runs),
+           sum(8 * n * r.nblocks * r.block for r in runs), 0.0)
+    msgs = [quantize_ef_pack.quantize_ef_pack(a, b, 8)[:2]
+            for a, b in zip(es, ds)]
+    record("unpack_mma",
+           lambda: [(unpack_mma.unpack_mma(w, s[..., 0], weight, 8,
+                                           r.block),)
+                    for (w, s), r in zip(msgs, runs)],
+           lambda: [(unpack_mma.unpack_mma_plain(w, s[..., 0], weight, 8,
+                                                 r.block),)
+                    for (w, s), r in zip(msgs, runs)],
+           None,
+           sum(n * r.nblocks * (4 * r.W + 4) + 4 * n + 4 * r.nblocks * r.block
+               for r in runs),
+           sum(3 * n * r.nblocks * r.block for r in runs), 0.0)
+    del msgs
+    # 2 and 4 bits on the largest run: checked, not timed
+    big = max(range(len(runs)), key=lambda i: runs[i].nblocks * runs[i].block)
+    for bits in (2, 4):
+        got = quantize_ef_pack.quantize_ef_pack(es[big], ds[big], bits)
+        want = quantize_ef_pack.quantize_ef_pack_plain(es[big], ds[big], bits)
+        err = max_err(torch, got, want)
+        acc = unpack_mma.unpack_mma(got[0], got[1][..., 0], weight, bits,
+                                    runs[big].block)
+        acc_plain = unpack_mma.unpack_mma_plain(got[0], got[1][..., 0],
+                                                weight, bits, runs[big].block)
+        err = max(err, max_err(torch, [acc], [acc_plain]))
+        if err != 0.0:
+            raise AssertionError(f"{bits}-bit quant kernels differ: {err}")
+        print(json.dumps({"kernel_check": f"quantize_ef_pack+unpack_mma "
+                          f"bits={bits} block={runs[big].block} rows="
+                          f"{n * runs[big].nblocks}", "max_abs_err": err}),
+              flush=True)
+    return out
+
+
+def reference_check(torch):
+    """Phase 4: one reduced round on the card against the same round on the
+    CPU (plain versions), for each uplink."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.engine import rounds
+    from repro_torch.launch import train
+    from repro_torch.tasks import lm
+    for uplink in ("quant", "topk"):
+        args = train.parser().parse_args(
+            ["--reduced", "--seq", "16", "--device", "cpu", "--uplink",
+             uplink])
+        state, _, loss_pair, fed, cfg, _ = train.setup(args)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2, 16)))
+        mask = torch.zeros((4, 2, 16))
+        mask[..., -2:] = 1.0
+        res = {}
+        for device in ("cuda", "cpu"):
+            on = state._replace(**{f: getattr(state, f).to(device) for f in
+                                   ("w", "e_up", "wbar_sum", "wbar_weight")})
+            new, met = rounds.round_step(
+                on, lm.LMBatch(toks.to(device), mask.to(device)), loss_pair,
+                fed, device=device)
+            res[device] = (new.w.cpu(), float(met.f), float(met.g_hat))
+        far = ~torch.isclose(res["cuda"][0], res["cpu"][0], rtol=1e-4,
+                             atol=1e-6)
+        ok = (math.isclose(res["cuda"][1], res["cpu"][1], rel_tol=1e-4)
+              and math.isclose(res["cuda"][2], res["cpu"][2], rel_tol=1e-4)
+              and float(far.float().mean()) <= 1e-3)
+        print(json.dumps({"reference_check": uplink,
+                          "f": [res["cuda"][1], res["cpu"][1]],
+                          "g_hat": [res["cuda"][2], res["cpu"][2]],
+                          "w_far_fraction": float(far.float().mean()),
+                          "ok": ok}), flush=True)
+        if not ok:
+            raise AssertionError(f"reduced {uplink} round: card and CPU "
+                                 "disagree")
+    kernels.reset_launches()
+
+
+def train_phase(torch, uplink: str, T: int) -> dict:
+    """Phase 5: full-width training rounds through the launcher's setup and
+    ``run_rounds``; returns the phase record (launch counts included)."""
+    from repro_torch import kernels
+    from repro_torch.engine import rounds
+    from repro_torch.launch import train
+    args = train.parser().parse_args(["--uplink", uplink, "--rounds",
+                                      str(T)])
+    state, batch_fn, loss_pair, fed, cfg, dev = train.setup(args)
+    if state.spec.d != D_FULL:
+        raise AssertionError(f"d = {state.spec.d}, expected {D_FULL}")
+    stamps = []
+
+    def timed_batches(t, gen):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return batch_fn(t, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, hist = rounds.run_rounds(state, timed_batches, loss_pair, fed,
+                                    T=T, device=dev)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    counts = kernels.launch_counts()
+    per_round = [b - a for a, b in zip(stamps, stamps[1:])]
+    rec = {"phase": f"smollm-360m uplink={uplink}", "d": state.spec.d,
+           "rounds": T, "s_per_round": per_round,
+           "s_per_round_after_first": (sum(per_round[1:]) / (T - 1)
+                                       if T > 1 else None),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "f": hist.f.tolist(), "g_hat": hist.g_hat.tolist(),
+           "sigma": hist.sigma.tolist(), "up_bytes": int(hist.up_bytes[0]),
+           "launches": counts}
+    print(json.dumps(rec), flush=True)
+    if not (all(math.isfinite(v) for v in rec["f"])
+            and all(math.isfinite(v) for v in rec["g_hat"])):
+        raise AssertionError(f"{uplink}: non-finite f or g_hat")
+    for name, cnt in counts.items():
+        want = 8 * T if name in PHASE_KERNELS[uplink] else 0
+        if cnt != want:
+            raise AssertionError(f"{uplink}: {name} launched {cnt} times, "
+                                 f"expected {want}")
+    rec["profile"] = profile_round(torch, state, batch_fn, loss_pair, fed,
+                                   dev, rec["s_per_round_after_first"])
+    print(json.dumps({"profile": rec["phase"], **rec["profile"]}), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
+    """One more round (after the counted ones) under ``torch.profiler``:
+    the device time by operator and the device's busy share of an
+    unprofiled round's wall time ``s_round``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine import rounds
+    batches = batch_fn(0, torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rounds.round_step(state, batches, loss_pair, fed, device=dev)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # device-side entries only: an operator's entry repeats the time of
+    # the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    return {"device_ms": total_ms, "kernel_launches":
+            sum(e.count for e in kernels),
+            "busy_share": (total_ms / 1e3 / s_round if s_round else None),
+            "top_ms": {e.key[:120]: dev_us(e) / 1e3 for e in top},
+            "top_calls": {e.key[:120]: e.count for e in top}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="full-width rounds per uplink")
+    ap.add_argument("--out", default=None,
+                    help="also write every record to this JSON file")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: the port (src/repro_torch) is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs, resolve_device
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import CompressorConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer
+
+    t_start = time.time()
+    card = card_line()
+    dev = resolve_device("cuda")
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+          f"{sys.version.split()[0]}, device "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
+          flush=True)
+
+    t0 = time.time()
+    logs = build.build_all(force=True)
+    for name, log in logs.items():
+        print(f"--- nvcc {name} ---\n{log.strip()}", flush=True)
+    print(f"build: {len(logs)} kernels in {time.time() - t0:.1f} s",
+          flush=True)
+
+    cfg = configs.get_config("smollm-360m")
+    meta = {}
+
+    def walk(tree, node):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, node.setdefault(k, {}))
+            else:
+                node[k] = torch.empty(v, device="meta")
+    walk(transformer.param_shapes(cfg), meta)
+    spec = flat.spec_of(meta)
+    layout = flat.wire_layout(spec, CompressorConfig(kind="topk", ratio=0.1))
+    print(f"layout: d={spec.d}, {len(layout.runs)} runs, blocks "
+          f"{[r.block for r in layout.runs]}, k {[r.k for r in layout.runs]}",
+          flush=True)
+    records = check_kernels(torch, dev, layout)
+    torch.cuda.empty_cache()
+    reference_check(torch)
+    phases = [train_phase(torch, uplink, args.rounds)
+              for uplink in ("quant", "topk")]
+    for uplink, phase in zip(("quant", "topk"), phases):
+        for name in PHASE_KERNELS[uplink]:
+            records[name]["launches"] = phase["launches"][name]
+    kern = {"kernels": [records[name] for name in KERNELS]}
+    if args.out:
+        path = pathlib.Path(args.out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                                    "cuda": torch.version.cuda,
+                                    "kernels": kern["kernels"],
+                                    "phases": phases,
+                                    "seconds": time.time() - t_start},
+                                   indent=1))
+    print(f"total: {time.time() - t_start:.1f} s", flush=True)
+    print(json.dumps(kern), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Configuration dataclasses (port of ``repro.configs.base``, the part the
+dense LM trainer on the compressed wire needs).
+
+Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
+full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0               # 0 => d_model // n_heads
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    window: int = 0                 # 0 => full attention
+    local_global_ratio: int = 0
+    cross_attn_every: int = 0
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def n_params(self) -> int:
+        """Parameter count of the dense stack (embeddings included)."""
+        d, L, V = self.d_model, self.n_layers, self.vocab
+        hd = self.resolved_head_dim
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        return emb + L * per_layer + d
+
+
+# ---------------------------------------------------------------------------
+# Federated / FedSGM configuration (Algorithm 1)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CompressorConfig:
+    kind: str = "none"              # none | topk | quant
+    ratio: float = 0.1              # topk: k/block
+    bits: int = 8                   # quant: bits per code
+    block: int = 1024               # preferred block (largest divisor <= it)
+    shards: int = 1                 # blocks divide D/shards when possible
+
+
+@dataclass(frozen=True)
+class SwitchConfig:
+    mode: str = "hard"              # hard | soft
+    eps: float = 0.05               # constraint tolerance epsilon
+    beta: float = 40.0              # soft sharpness
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    sampler: str = "uniform"        # client-sampling law (uniform ported)
+
+
+@dataclass(frozen=True)
+class FedConfig:
+    n_clients: int = 8
+    m: int = 8                      # participating clients per round
+    local_steps: int = 1            # E
+    lr: float = 0.1                 # eta
+    switch: SwitchConfig = field(default_factory=SwitchConfig)
+    uplink: CompressorConfig = field(default_factory=CompressorConfig)
+    downlink: CompressorConfig = field(default_factory=CompressorConfig)
+    comm: str = "pallas"            # the compressed wire (dense/packed: not
+                                    # ported yet)
+    proj_radius: float = 0.0        # Pi_X: L2 ball radius (0 => none)
+    track_wbar: bool = True         # keep the averaged-iterate accumulator
+    seed: int = 0
+    strategy: str = "fedsgm"        # engine.strategies registry key
+    participation: str = "mask"     # mask (gather: not ported yet)
+    lean_metrics: bool = False      # skip the per-round delta_norm reduction
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+
+    def replace(self, **kw) -> "FedConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """The reduced smoke-test variant of a full dense config."""
+    kw = dict(
+        n_layers=2,
+        d_model=min(cfg.d_model, 128),
+        n_heads=min(cfg.n_heads, 4),
+        n_kv_heads=min(cfg.n_kv_heads, 2),
+        d_ff=min(cfg.d_ff, 256),
+        vocab=min(cfg.vocab, 512),
+        head_dim=32 if cfg.head_dim else 0,
+    )
+    if cfg.window:
+        kw["window"] = 32
+    kw.update(overrides)
+    return dataclasses.replace(cfg, **kw)

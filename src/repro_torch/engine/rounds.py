@@ -1,0 +1,231 @@
+"""The federation round engine (port of ``repro.engine.rounds``).
+
+One :func:`round_step` is a full communication round:
+
+  1. sample S_t (``cfg.fleet.sampler``; mask mode),
+  2. constraint query: (f_j, g_j) at w_t for every client, aggregated over
+     the participants (and over all clients for the ``*_full`` metrics),
+  3. strategy switch weight sigma_t,
+  4. E local steps per client on the strategy's objective,
+  5. uplink EF14 compression of Delta_j = (w_t - w_{j,E}) / eta through the
+     flat transport (the wire kernels),
+  6. strategy server update x_{t+1},
+  7. downlink broadcast w_{t+1} (the identity downlink).
+
+Between sampling and the next :class:`FedState` the model is ONE contiguous
+``[d]`` buffer.  Unlike the reference's pytree ``FedState.w``, the port's
+state holds that flat buffer itself; ``flat.unflatten(state.spec, state.w)``
+gives the parameter views.  Clients run one after another; each client's
+gradient comes from autograd on a flat leaf, through the views of
+``unflatten``.  This is the reference's unfused path with
+``full_eval=True`` (a separate eval forward over all n clients); its fused
+eval/step-1 path, and with it the ``full_eval`` switch, is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.comm import flat, transports
+from repro_torch.comm.flat import flat_transports_for
+from repro_torch.engine import participation, strategies
+from repro_torch.fleet import samplers
+from repro_torch.optim.sgd import axpy
+
+
+class FedState(NamedTuple):
+    w: torch.Tensor               # broadcast model w_t, flat [d]
+    e_up: Optional[torch.Tensor]  # uplink EF residuals [n_clients, d]
+    wbar_sum: Optional[torch.Tensor]  # weighted sum of w_t, flat [d]
+    wbar_weight: torch.Tensor
+    t: int
+    gen: torch.Generator          # participation draws (CPU)
+    spec: flat.FlatSpec
+
+
+class RoundMetrics(NamedTuple):
+    f: torch.Tensor           # mean client objective at w_t (participating)
+    g_hat: torch.Tensor       # aggregated constraint estimate
+    g_full: torch.Tensor      # constraint over all clients
+    sigma: torch.Tensor       # switching weight used
+    feasible: torch.Tensor    # 1{G_hat <= eps}
+    delta_norm: torch.Tensor
+    up_bytes: torch.Tensor    # wire bytes of one client's uplink message
+    down_bytes: torch.Tensor  # wire bytes of one broadcast
+    f_full: torch.Tensor      # mean objective over all clients
+
+
+def check_ported(cfg) -> None:
+    """Raise for the parts of a FedConfig the port does not run yet."""
+    if cfg.participation not in participation.MODES:
+        raise NotImplementedError(
+            f"participation mode {cfg.participation!r} is not ported yet")
+    if cfg.uplink.kind != "none" and cfg.comm != "pallas":
+        raise NotImplementedError(
+            f"comm={cfg.comm!r} is not ported yet: only comm='pallas'")
+    samplers.get_sampler(cfg.fleet.sampler)
+    strategies.get_strategy(cfg.strategy)
+    if cfg.downlink.kind != "none":
+        raise NotImplementedError("downlink compression is not ported yet")
+
+
+def transports_for(cfg):
+    """(uplink, downlink) capability transports for a federation config."""
+    backend = transports.backend_for(cfg.comm)
+    return (transports.get_transport(cfg.uplink, backend),
+            transports.get_transport(cfg.downlink, backend))
+
+
+def init_state(params, cfg, device="cuda") -> FedState:
+    """Round-0 state: the flattened ``params`` on ``device`` (``cuda``
+    unless the caller asks for the CPU) and the zero uplink residual."""
+    dev = resolve_device(device)
+    check_ported(cfg)
+    spec = flat.spec_of(params)
+    w = flat.flatten(spec, params).to(dev).contiguous()
+    uplink, _ = transports_for(cfg)
+    e_up = (torch.zeros((cfg.n_clients, spec.d), dtype=spec.dtype,
+                        device=dev) if uplink.needs_residual else None)
+    return FedState(
+        w=w, e_up=e_up,
+        wbar_sum=torch.zeros_like(w) if cfg.track_wbar else None,
+        wbar_weight=torch.zeros((), dtype=torch.float32, device=dev),
+        t=0, gen=torch.Generator().manual_seed(cfg.seed), spec=spec)
+
+
+def sample_round(state: FedState, cfg) -> participation.Participation:
+    """Stage 1: draw S_t with the configured sampler law."""
+    mask, weights = samplers.get_sampler(cfg.fleet.sampler).sample(
+        state.gen, cfg)
+    dev = state.w.device
+    mask_d = mask.to(dev)
+    weights_d = mask_d if weights is mask else weights.to(dev)
+    return participation.finalize(mask_d, weights_d, cfg)
+
+
+def client_batch(batches, j: int):
+    """Client j's rows of a stacked ``[n, ...]`` batch NamedTuple."""
+    return type(batches)(*(x[j] for x in batches))
+
+
+def eval_clients(params, batches, loss_pair: Callable, n: int):
+    """Stage 2's per-client eval forward: ``(f_j, g_j)`` for j < n."""
+    with torch.no_grad():
+        pairs = [loss_pair(params, client_batch(batches, j))
+                 for j in range(n)]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
+
+
+def _eval_aggregates(part, f_ev, g_ev, m: int):
+    w_agg = participation.agg_weights(part)
+    g_hat = torch.sum(w_agg * g_ev) / m
+    f_part = torch.sum(w_agg * f_ev) / m
+    return f_part, g_hat, g_ev.mean(), f_ev.mean()
+
+
+def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
+                 n: int) -> torch.Tensor:
+    """Stage 4: E local SGD steps per client on the strategy objective,
+    ``Delta_j = (wf - w_{j,E}) / eta`` as one ``[n, d]`` stack."""
+    E, eta = cfg.local_steps, cfg.lr
+    obj = strat.local_objective(loss_pair, sigma, cfg)
+    deltas = torch.empty((n, spec.d), dtype=wf.dtype, device=wf.device)
+    for j in range(n):
+        batch = client_batch(local_b, j)
+        w = wf
+        for _ in range(E):
+            leaf = w.detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(
+                obj(flat.unflatten(spec, leaf), batch), leaf)
+            w = w - eta * grad
+        torch.sub(wf, w, out=deltas[j])
+        deltas[j].div_(eta)
+    return deltas
+
+
+def compute_round(state: FedState, wf, spec, batches, part, strat,
+                  loss_pair: Callable, cfg):
+    """Stages 2-4 on the flat buffer: the constraint query, the switch
+    weight and the E local steps.  Returns ``(f_part, g_hat, g_full, f_full,
+    sigma, deltas)``."""
+    f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), batches, loss_pair,
+                              cfg.n_clients)
+    f_part, g_hat, g_full, f_full = _eval_aggregates(part, f_ev, g_ev, cfg.m)
+    sigma = strat.switch_weight(g_hat, cfg)
+    deltas = local_deltas(wf, spec, strat, sigma, batches, loss_pair, cfg,
+                          cfg.n_clients)
+    return f_part, g_hat, g_full, f_full, sigma, deltas
+
+
+def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
+                 e_up, uplink, downlink, f_part, g_hat, g_full, f_full,
+                 sigma) -> tuple[FedState, RoundMetrics]:
+    """Stages 6-7 + bookkeeping: server update on the aggregated direction,
+    downlink broadcast, averaged-iterate accounting, metrics."""
+    x_new = strat.server_update(wf, v_bar, cfg, spec)
+    w_new = downlink.broadcast(wf, x_new)
+    alpha = strat.iterate_weight(g_hat, cfg)
+    wbar_sum = (axpy(alpha, state.w, state.wbar_sum)
+                if state.wbar_sum is not None else None)
+    dev = wf.device
+    delta_norm = torch.zeros((), device=dev) if cfg.lean_metrics else \
+        flat.tree_norm(spec, participation.aggregate(part, deltas))
+    metrics = RoundMetrics(
+        f=f_part, g_hat=g_hat, g_full=g_full, sigma=sigma,
+        feasible=(g_hat <= cfg.switch.eps).to(torch.float32),
+        delta_norm=delta_norm,
+        up_bytes=torch.tensor(float(uplink.wire_bytes()), device=dev),
+        down_bytes=torch.tensor(float(downlink.wire_bytes()), device=dev),
+        f_full=f_full)
+    new_state = FedState(
+        w=w_new, e_up=e_up, wbar_sum=wbar_sum,
+        wbar_weight=state.wbar_weight + alpha, t=state.t + 1,
+        gen=state.gen, spec=spec)
+    return new_state, metrics
+
+
+def round_step(state: FedState, batches, loss_pair: Callable, cfg,
+               device="cuda") -> tuple[FedState, RoundMetrics]:
+    """One engine round on ``device`` (``cuda`` unless the caller asks for
+    the CPU; the state must live there).  ``batches`` is a NamedTuple of
+    ``[n_clients, ...]`` tensors.
+
+    The uplink residual ``state.e_up`` is updated in place (the ``[n, d]``
+    buffer is the largest state of a round); the returned state holds it."""
+    dev = resolve_device(device)
+    if state.w.device != dev:
+        raise ValueError(f"round_step on {dev}: the state lives on "
+                         f"{state.w.device}")
+    check_ported(cfg)
+    strat = strategies.get_strategy(cfg.strategy)
+    part = sample_round(state, cfg)
+    spec, wf = state.spec, state.w
+    f_part, g_hat, g_full, f_full, sigma, deltas = compute_round(
+        state, wf, spec, batches, part, strat, loss_pair, cfg)
+    uplink, downlink = flat_transports_for(cfg, spec)
+    v_bar, e_up = participation.transmit(uplink, state.e_up, deltas, part)
+    return finish_round(state, strat, cfg, spec, wf, part, deltas, v_bar,
+                        e_up, uplink, downlink, f_part, g_hat, g_full,
+                        f_full, sigma)
+
+
+def run_rounds(state: FedState, batch_fn: Callable, loss_pair: Callable,
+               cfg, T: int, device="cuda"):
+    """Drive T rounds; ``batch_fn(t, gen) -> batches`` supplies per-round
+    data from a ``torch.Generator`` on ``device`` seeded ``cfg.seed + 1``.
+    Metrics stay on the device and move to the host once, at the end, as
+    numpy arrays with a leading ``[T]`` axis."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    history = []
+    for t in range(T):
+        state, metrics = round_step(state, batch_fn(t, gen), loss_pair, cfg,
+                                    device=dev)
+        history.append(metrics)
+    stacked = RoundMetrics(*(
+        torch.stack([getattr(h, f) for h in history]).cpu().numpy()
+        for f in RoundMetrics._fields))
+    return state, stacked

@@ -1,0 +1,89 @@
+"""Strategy registry for the engine round (port of
+``repro.engine.strategies``: ``fedsgm`` and ``fedsgm-soft``).
+
+A :class:`Strategy` supplies only the round's pluggable math:
+
+* ``switch_weight(g_hat, cfg) -> sigma_t``,
+* ``local_objective(loss_pair, sigma, cfg) -> (params, batch) -> scalar``,
+* ``server_update(x, v_bar, cfg, spec) -> x_{t+1}``,
+* ``iterate_weight(g_hat, cfg) -> alpha_t``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.comm import flat
+from repro_torch.core import switching
+
+_STRATEGIES: dict = {}
+
+
+def register_strategy(cls):
+    _STRATEGIES[cls.name] = cls
+    return cls
+
+
+def get_strategy(name: str) -> "Strategy":
+    try:
+        cls = _STRATEGIES[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"strategy {name!r} is not ported yet; ported: "
+            f"{sorted(_STRATEGIES)}") from None
+    return cls()
+
+
+class Strategy:
+    name: str = "?"
+
+    def switch_weight(self, g_hat, cfg):
+        raise NotImplementedError
+
+    def blend_values(self, f, g, sigma, cfg):
+        """The local objective as a function of the (f, g) pair."""
+        raise NotImplementedError
+
+    def local_objective(self, loss_pair, sigma, cfg):
+        def obj(params, batch):
+            f, g = loss_pair(params, batch)
+            return self.blend_values(f, g, sigma, cfg)
+        return obj
+
+    def server_update(self, x, v_bar, cfg, spec):
+        """x_{t+1} = Pi_X(x_t - eta * v_bar) on flat buffers."""
+        return flat.project_ball(spec, x - cfg.lr * v_bar, cfg.proj_radius)
+
+    def iterate_weight(self, g_hat, cfg):
+        raise NotImplementedError
+
+
+@register_strategy
+class FedSGM(Strategy):
+    """Algorithm 1: blended-objective local steps with switching weight."""
+
+    name = "fedsgm"
+
+    def _switch_cfg(self, cfg):
+        return cfg.switch
+
+    def switch_weight(self, g_hat, cfg):
+        return switching.switch_weight(g_hat, self._switch_cfg(cfg))
+
+    def blend_values(self, f, g, sigma, cfg):
+        # sigma_t is round-constant, so grad-of-blend == blend-of-grads
+        return (1.0 - sigma) * f + sigma * g
+
+    def iterate_weight(self, g_hat, cfg):
+        return switching.averaged_iterate_weight(g_hat, self._switch_cfg(cfg))
+
+
+@register_strategy
+class FedSGMSoft(FedSGM):
+    """FedSGM with the trimmed-hinge soft switch forced on."""
+
+    name = "fedsgm-soft"
+
+    def _switch_cfg(self, cfg):
+        if cfg.switch.mode == "soft":
+            return cfg.switch
+        return dataclasses.replace(cfg.switch, mode="soft")

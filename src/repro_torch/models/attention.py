@@ -1,0 +1,63 @@
+"""Causal GQA self-attention with RoPE, training mode (port of the train
+path of ``repro.models.attention``).  Written plainly, as the reference is:
+grouped scores, a ``-1e30`` causal bias and an f32 softmax."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import common
+
+
+def attn_shapes(d: int, n_heads: int, n_kv: int, head_dim: int) -> dict:
+    return {"wq": (d, n_heads * head_dim), "wk": (d, n_kv * head_dim),
+            "wv": (d, n_kv * head_dim), "wo": (n_heads * head_dim, d)}
+
+
+def init_attn(gen, d: int, n_heads: int, n_kv: int, head_dim: int,
+              device=None) -> dict:
+    return {name: common.dense_init(gen, shape, device=device)
+            for name, shape in attn_shapes(d, n_heads, n_kv,
+                                           head_dim).items()}
+
+
+def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta):
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, S, n_kv, head_dim)
+    v = (x @ p["wv"]).reshape(B, S, n_kv, head_dim)
+    q = common.apply_rope(q, positions, theta)
+    k = common.apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def attend(q, k, v, bias):
+    """q ``[B,Sq,H,hd]``; k, v ``[B,Skv,KV,hd]``; bias broadcastable to
+    ``[B,KV,R,Sq,Skv]``."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    R = H // KV
+    qg = q.reshape(B, Sq, KV, R, hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qg * (1.0 / math.sqrt(hd)), k)
+    scores = scores.to(torch.float32) + bias
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkrqs,bskh->bqkrh", probs, v)
+    return out.reshape(B, Sq, H * hd)
+
+
+def causal_bias(q_pos, kv_pos, window: int = 0):
+    """Additive bias ``[1,1,1,Sq,Skv]``: 0 allowed, -1e30 blocked."""
+    allowed = kv_pos[None, :] <= q_pos[:, None]
+    if window:
+        allowed &= kv_pos[None, :] > (q_pos[:, None] - window)
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(allowed, zero, -1e30)[None, None, None]
+
+
+def self_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,
+                   window: int = 0):
+    """Full-sequence causal attention (training / scoring)."""
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta)
+    out = attend(q, k, v, causal_bias(positions, positions, window))
+    return out @ p["wo"]

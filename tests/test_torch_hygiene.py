@@ -1,0 +1,104 @@
+"""Hygiene of the port: it imports neither JAX nor the JAX package, its
+entry points run on ``cuda`` unless asked for the CPU, and its kernel
+wrappers run the plain versions on CPU tensors without counting a launch."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs.base import CompressorConfig, FedConfig
+from repro_torch.engine import rounds
+from repro_torch.kernels.quantize_ef_pack import quantize_ef_pack
+from repro_torch.kernels.scatter_agg import scatter_agg
+from repro_torch.kernels.topk_block import block_topk
+from repro_torch.kernels.unpack_mma import unpack_mma
+from repro_torch.launch import train
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.exists()
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # tiny shapes: one intra-op thread beats contending with the other
+    # test workers for the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _fed():
+    return FedConfig(n_clients=2, m=2, lr=0.03,
+                     uplink=CompressorConfig(kind="quant"), comm="pallas")
+
+
+def test_launcher_needs_a_card_unless_asked_for_cpu(no_card):
+    argv = ["--reduced", "--seq", "8", "--batch", "1", "--clients", "2",
+            "--rounds", "1", "--uplink", "quant"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    state = train.main(argv + ["--device", "cpu"])
+    assert state.w.device.type == "cpu" and state.t == 10
+    assert torch.isfinite(state.w).all()
+
+
+def test_round_step_needs_a_card_unless_asked_for_cpu(no_card):
+    args = train.parser().parse_args(["--reduced", "--seq", "8", "--batch",
+                                      "1", "--device", "cpu", "--clients",
+                                      "2"])
+    state, batch_fn, loss_pair, _, _, _ = train.setup(args)
+    fed = _fed()
+    batches = batch_fn(0, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rounds.round_step(state, batches, loss_pair, fed)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rounds.init_state({"w": torch.zeros(3)}, fed)
+    new, met = rounds.round_step(state, batches, loss_pair, fed,
+                                 device="cpu")
+    assert new.t == 1 and np.isfinite(float(met.f))
+
+
+def test_not_ported_paths_raise():
+    for flag in (["--comm", "dense"], ["--participation", "gather"],
+                 ["--fleet"], ["--async-buffer"], ["--wire", "2"], ["--obs"],
+                 ["--ef-slots", "4"]):
+        args = train.parser().parse_args(["--device", "cpu"] + flag)
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            train.setup(args)
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    kernels.reset_launches()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 42)).astype(np.float32))
+    vals, idx = block_topk(x, 4)
+    words, scale, _ = quantize_ef_pack(x, x, 8)
+    unpack_mma(words, scale[..., 0], torch.ones(2), 8, 42)
+    scatter_agg(vals, idx.to(torch.int16).view(torch.uint16), torch.ones(2),
+                42)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}

@@ -1,0 +1,178 @@
+"""Each kernel's plain PyTorch version (what the port's wrapper runs on CPU
+tensors) against the JAX package's Pallas kernel, called directly and run as
+the JAX tests run it off-TPU (interpret mode).
+
+Tolerances: integer outputs (words, offsets, top-k indices) and top-k
+values and scales are bit-equal.  The EF residual ``e' = buf - v`` may
+differ by 2 ulp of the row's scale ``max|buf|``: XLA rewrites the
+reference's ``codes / L * scale`` as ``codes * (1/L) * scale`` (DESIGN.md
+§Transport, EF fusion), two roundings more than the port's IEEE divide, so
+``v`` moves by up to ~1.5 ulp and the cancellation in ``buf - v`` keeps
+that absolute error (measured: at most 1.19 ulp of the scale on these
+inputs).  Sums are allclose at rtol 1e-5 (the reference's own contract for
+reordered aggregation)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.comm.payloads import pack_codes as jax_pack_codes
+from repro.comm.payloads import select_topk_blocks as jax_select
+from repro.kernels.quantize_ef_pack import quantize_ef_pack as jax_qef_pack
+from repro.kernels.scatter_agg import scatter_agg as jax_scatter_agg
+from repro.kernels.topk_block import block_topk as jax_block_topk
+from repro.kernels.unpack_mma import unpack_mma as jax_unpack_mma
+from repro_torch import kernels
+from repro_torch.comm import payloads
+from repro_torch.kernels import ref
+from repro_torch.kernels.quantize_ef_pack import quantize_ef_pack
+from repro_torch.kernels.scatter_agg import scatter_agg
+from repro_torch.kernels.topk_block import block_topk
+from repro_torch.kernels.unpack_mma import unpack_mma
+from torch_port_util import assert_bits_equal, assert_within_ulp, t
+
+# (nblocks, block, k): the reduced config's blocks 42/126 and the full
+# config's 960/640/320 at ratio 0.1
+TOPK_SHAPES = [(5, 42, 4), (3, 126, 13), (2, 960, 96), (2, 640, 64),
+               (2, 320, 32)]
+
+
+def _rows(nblocks, block, seed, special=True):
+    """Normal rows, plus (when there is room) an all-zero row, a row of
+    heavy ties, and a row mixing -0.0/+0.0 with a few values."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((nblocks, block)).astype(np.float32)
+    if special and nblocks >= 3:
+        x[0] = 0.0
+        x[1] = np.round(x[1] * 2) / 2          # magnitudes tie in groups
+        x[2] = np.where(rng.random(block) < 0.5, -0.0, 0.0)
+        x[2, ::7] = rng.standard_normal(len(x[2, ::7]))
+    return x
+
+
+@pytest.mark.parametrize("nblocks,block,k", TOPK_SHAPES)
+def test_block_topk_matches_pallas(nblocks, block, k):
+    x = _rows(nblocks, block, seed=block + k)
+    vj, ij = jax_block_topk(jnp.asarray(x), k)
+    vt, it = block_topk(t(x), k)
+    assert it.dtype == torch.int32
+    assert_bits_equal(vt, vj)
+    assert_bits_equal(it, ij)
+
+
+@pytest.mark.parametrize("block", [42, 126, 960, 640])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_ef_pack_matches_pallas(block, bits):
+    rng = np.random.default_rng(block * 10 + bits)
+    nblocks = 4
+    e = (rng.standard_normal((nblocks, block)) * 0.1).astype(np.float32)
+    d = rng.standard_normal((nblocks, block)).astype(np.float32)
+    e[0] = 0.0
+    d[0] = 0.0                                # scale 0: codes L, v 0
+    d[1] = np.round(d[1] * 4) / 4             # exact ties on the grid
+    e[1] = 0.0
+    wj, sj, ej = jax_qef_pack(jnp.asarray(e), jnp.asarray(d), bits)
+    wt, st, et = quantize_ef_pack(t(e), t(d), bits)
+    assert wt.dtype == torch.uint32 and wt.shape == wj.shape
+    assert_bits_equal(wt, wj)
+    assert_bits_equal(st, sj)
+    assert_within_ulp(et, ej, 2, 
+                      of=np.broadcast_to(np.asarray(sj), e.shape))
+
+
+@pytest.mark.parametrize("block", [42, 126, 960, 640])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_unpack_mma_matches_pallas(block, bits):
+    rng = np.random.default_rng(block + bits)
+    n_cl, nblocks = 3, 4
+    L = 2 ** (bits - 1) - 1
+    codes = rng.integers(-L, L + 1, size=(n_cl, nblocks, block))
+    words = np.asarray(jax_pack_codes(jnp.asarray(codes, jnp.int32), bits))
+    scale = rng.random((n_cl, nblocks)).astype(np.float32)
+    scale[1, 2] = 0.0
+    weight = np.array([1.0, 0.0, 0.5], np.float32)
+    want = jax_unpack_mma(jnp.asarray(words), jnp.asarray(scale),
+                          jnp.asarray(weight), bits, block)
+    got = unpack_mma(t(words), t(scale), t(weight), bits, block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("block,k", [(42, 4), (126, 13), (960, 96),
+                                     (640, 64)])
+def test_scatter_agg_matches_pallas(block, k):
+    rng = np.random.default_rng(block)
+    n_cl, nblocks = 3, 5
+    vals = rng.standard_normal((n_cl, nblocks, k)).astype(np.float32)
+    idx = rng.integers(0, block, size=(n_cl, nblocks, k)).astype(np.uint16)
+    idx[0, 0, :] = idx[0, 0, 0]               # every slot on one offset
+    idx[1, :, 1] = idx[1, :, 0]               # a duplicate in each row
+    weight = np.array([1.0, 0.25, 0.0], np.float32)
+    want = jax_scatter_agg(jnp.asarray(vals), jnp.asarray(idx),
+                           jnp.asarray(weight), block)
+    got = scatter_agg(t(vals), t(idx), t(weight), block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_plain_versions_take_strided_run_views():
+    """The wrappers take run views of ``[n, d]`` buffers (free leading
+    stride), as the flat codecs pass them, with the same results as
+    contiguous copies."""
+    rng = np.random.default_rng(0)
+    buf = t(rng.standard_normal((3, 5 * 42 + 7)).astype(np.float32))
+    view = buf[:, 7:].reshape(3, 5, 42)
+    assert not view.is_contiguous()
+    for a, b in zip(block_topk(view, 4), block_topk(view.contiguous(), 4)):
+        assert torch.equal(a, b)
+    zero = torch.zeros_like(view)
+    for a, b in zip(quantize_ef_pack(zero, view, 4),
+                    quantize_ef_pack(zero.contiguous(), view.contiguous(), 4)):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.uint32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.uint32 else b)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("block", [42, 126, 960])
+def test_pack_codes_round_trip_and_reference_words(bits, block):
+    rng = np.random.default_rng(bits)
+    L = 2 ** (bits - 1) - 1
+    codes = rng.integers(-L, L + 1, size=(3, block))
+    words = payloads.pack_codes(t(codes), bits)
+    assert_bits_equal(words, jax_pack_codes(jnp.asarray(codes, jnp.int32),
+                                            bits))
+    back = payloads.unpack_codes(words, bits, block)
+    assert np.array_equal(back.numpy(), codes)
+
+
+@pytest.mark.parametrize("block,k", [(42, 4), (126, 13), (126, 126)])
+def test_select_topk_blocks_exact_regime_matches_reference(block, k):
+    x = _rows(3, block, seed=k)
+    jv, ji = jax_select(jnp.asarray(x), k, False)
+    v, i = payloads.select_topk_blocks(t(x), k, False)
+    assert i.dtype == torch.uint16
+    assert_bits_equal(v, jv)
+    assert_bits_equal(i, ji)
+
+
+def test_plain_versions_agree_with_the_oracles():
+    """``kernels.ref``: torch.topk on tie-free rows, and the unfused EF14
+    step's residual."""
+    rng = np.random.default_rng(5)
+    x = t(rng.standard_normal((6, 126)).astype(np.float32))
+    for a, b in zip(block_topk(x, 13), ref.block_topk_ref(x, 13)):
+        assert torch.equal(a, b)
+    e = t((rng.standard_normal((4, 960)) * 0.1).astype(np.float32))
+    d = t(rng.standard_normal((4, 960)).astype(np.float32))
+    _, scale, e_new = quantize_ef_pack(e, d, 8)
+    _, e_ref = ref.quantize_ef_ref(e, d, 8)
+    assert_within_ulp(e_new, e_ref, 2, of=scale.expand_as(e))
+
+
+def test_wrappers_on_cpu_do_not_launch():
+    kernels.reset_launches()
+    x = torch.randn(2, 3, 42)
+    block_topk(x, 4)
+    quantize_ef_pack(x, x, 8)
+    assert set(kernels.launch_counts().values()) == {0}
