@@ -9,22 +9,36 @@ Phases, each fatal on failure (nonzero exit):
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
 2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once; ``-Xptxas -v`` output printed);
-3. each of the four kernels at the main path's real shapes -- every run of
+3. each of the seven kernels at the main paths' real shapes -- every run of
    the full smollm-360m wire layout, n = 4 clients, 8-bit quant (plus 2 and
-   4 bits on the largest run) -- held against its plain PyTorch version on
-   the card, and timed with CUDA events beside its plain version, the
-   nearest single PyTorch call (where there is one) and its bound;
+   4 bits on the largest run); ``segment_rows`` at the gather phases' m = 4
+   of n = 8 rows (the top-k values and the ``[4, d]`` deltas, plus a case
+   with duplicate and out-of-range ids and the quant scales, checked);
+   ``quantize_ef`` and ``switch_blend`` on the flat ``[d]`` buffer -- held
+   against its plain PyTorch version on the card, and timed with CUDA
+   events beside its plain version, the nearest single PyTorch call (where
+   there is one) and its bound;
 4. a small-input reference check: one reduced round on the card against the
    same round on the CPU, for each uplink;
-5. the main path: full-width smollm-360m federated training (d =
+5. the mask paths: full-width smollm-360m federated training (d =
    361,821,120) on ``comm="pallas"``, T rounds with ``--uplink quant`` then T
    with ``--uplink topk`` (4 clients, batch 2, seq 64), through the
-   launcher's ``setup`` and ``engine.rounds.run_rounds``.  Launch counts are
-   zeroed just before each phase and read just after: each kernel of the
-   phase must have launched 8 times (once per wire run) per round;
-   f and g_hat must be finite.  One more round per uplink then runs under
-   ``torch.profiler`` for the device time by operator and the device's busy
-   share.
+   launcher's ``setup`` and ``engine.rounds.run_rounds``;
+6. gather against mask on the card: full width at 2 layers, 8 clients,
+   4 of them in each of 2 rounds replayed through the ``fixed`` sampler,
+   top-k and quant up and down; state and per-round metrics bit-equal;
+7. the gather paths: full-width smollm-360m, 8 clients, 4 sampled per round
+   (``--participation gather``, ``uniform`` sampler), the same compressor
+   up and down (top-k 0.1, then 8-bit quant) through the engine API, T
+   rounds each.
+
+In phases 5 and 7 the launch counts are zeroed just before each phase and
+read just after: each kernel must have launched exactly as often per round
+as the wire layout demands (the encode kernel once per wire run and
+direction, the reduce kernel once per run, ``segment_rows`` twice in a
+gather round); f and g_hat must be finite and ``down_bytes`` the downlink's
+wire bytes.  One more round per phase then runs under ``torch.profiler``
+for the device time by operator and the device's busy share.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -34,6 +48,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -45,6 +60,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (published)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 N_CLIENTS = 4
+N_GATHER, M_GATHER = 8, 4      # gather phases: m of n clients
 REPS = 3
 D_FULL = 361_821_120           # smollm-360m parameters = the flat buffer
 
@@ -58,7 +74,14 @@ KERNELS = {
                          "src/repro/kernels/quantize_ef_pack.py:70"),
     "unpack_mma": ("src/repro_torch/csrc/unpack_mma.cu",
                    "src/repro/kernels/unpack_mma.py:59"),
+    "segment_rows": ("src/repro_torch/csrc/segment_rows.cu",
+                     "src/repro/kernels/scatter_agg.py:116"),
+    "quantize_ef": ("src/repro_torch/csrc/quantize_ef.cu",
+                    "src/repro/kernels/quantize_ef.py:39"),
+    "switch_blend": ("src/repro_torch/csrc/switch_blend.cu",
+                     "src/repro/kernels/switch_blend.py:34"),
 }
+# uplink -> (encode kernel, reduce kernel)
 PHASE_KERNELS = {"quant": ("quantize_ef_pack", "unpack_mma"),
                  "topk": ("block_topk", "scatter_agg")}
 
@@ -219,7 +242,69 @@ def check_kernels(torch, dev, layout):
                           f"bits={bits} block={runs[big].block} rows="
                           f"{n * runs[big].nblocks}", "max_abs_err": err}),
               flush=True)
+    del e, delta, es, ds
+    torch.cuda.empty_cache()
+    check_gather_kernels(torch, dev, layout, d, g, record)
     return out
+
+
+def check_gather_kernels(torch, dev, layout, d, g, record):
+    """Phase 3, second part: ``segment_rows`` at one gather round's shapes
+    (m = 4 rows into n = 8: the top-k values, then the ``[4, d]`` deltas of
+    ``delta_norm``), and ``quantize_ef`` / ``switch_blend`` on the flat
+    ``[d]`` buffer (their ``kernels.ops`` entry points block it by 1024 and
+    take it whole)."""
+    from repro_torch.kernels import quantize_ef, ref, scatter_agg, switch_blend
+    m, n = M_GATHER, N_GATHER
+    idx = torch.tensor([1, 2, 5, 7], device=dev)     # sorted, unique
+    vals = torch.randn((m, layout.K_total), generator=g, device=dev)
+    deltas = torch.randn((m, d), generator=g, device=dev)
+    rows = (vals, deltas)
+    sinks = [torch.zeros((n, r.shape[1]), device=dev) for r in rows]
+    # unique ids: bit-equal (rows add in the same order)
+    record("segment_rows",
+           lambda: [(scatter_agg.segment_rows(r, idx, n),) for r in rows],
+           lambda: [(scatter_agg.segment_rows_plain(r, idx, n),)
+                    for r in rows],
+           lambda: [o.index_add_(0, idx, r) for o, r in zip(sinks, rows)],
+           sum(4 * (m + n) * r.shape[1] + 8 * m for r in rows),
+           sum(m * r.shape[1] for r in rows), 0.0)
+    del sinks
+    # duplicate and out-of-range ids, and the quant phase's scales: checked
+    scales = torch.rand((m, layout.NB_total), generator=g, device=dev)
+    for name, r, ids in (
+            ("values, ids [3, 3, 9, -1]", vals,
+             torch.tensor([3, 3, 9, -1], device=dev)),
+            ("quant scales", scales, idx)):
+        err = max_err(torch, [scatter_agg.segment_rows(r, ids, n)],
+                      [scatter_agg.segment_rows_plain(r, ids, n)])
+        if err != 0.0:
+            raise AssertionError(f"segment_rows ({name}) differs: {err}")
+        print(json.dumps({"kernel_check": f"segment_rows {name} rows="
+                          f"{tuple(r.shape)} n={n}", "max_abs_err": err}),
+              flush=True)
+    del vals, deltas, rows, scales
+    torch.cuda.empty_cache()
+
+    nb = -(-d // 1024)
+    e = torch.randn((nb, 1024), generator=g, device=dev) * 0.01
+    delta = torch.randn((nb, 1024), generator=g, device=dev)
+    record("quantize_ef",
+           lambda: [quantize_ef.quantize_ef(e, delta, 8)],
+           lambda: [ref.quantize_ef_ref(e, delta, 8)],
+           None, 16 * nb * 1024, 9 * nb * 1024, 0.0)
+    del e, delta
+    torch.cuda.empty_cache()
+
+    gf = torch.randn(d, generator=g, device=dev)
+    gg = torch.randn(d, generator=g, device=dev)
+    sigma = torch.tensor(0.3, device=dev)
+    record("switch_blend",
+           lambda: [(switch_blend.switch_blend(gf, gg, sigma),)],
+           lambda: [(switch_blend.switch_blend_plain(gf, gg, sigma),)],
+           lambda: torch.lerp(gf, gg, sigma), 12 * d, 3 * d, 0.0)
+    del gf, gg
+    torch.cuda.empty_cache()
 
 
 def reference_check(torch):
@@ -263,17 +348,42 @@ def reference_check(torch):
     kernels.reset_launches()
 
 
-def train_phase(torch, uplink: str, T: int) -> dict:
-    """Phase 5: full-width training rounds through the launcher's setup and
-    ``run_rounds``; returns the phase record (launch counts included)."""
-    from repro_torch import kernels
+def setup_phase(torch, argv, downlink: bool):
+    """The launcher's ``setup`` for ``argv``; with ``downlink`` the uplink's
+    compressor runs on the downlink too, through the engine API (the
+    launcher keeps the identity downlink, as the reference's does)."""
+    from repro_torch.comm import flat
     from repro_torch.engine import rounds
     from repro_torch.launch import train
-    args = train.parser().parse_args(["--uplink", uplink, "--rounds",
-                                      str(T)])
-    state, batch_fn, loss_pair, fed, cfg, dev = train.setup(args)
+    state, batch_fn, loss_pair, fed, cfg, dev = train.setup(
+        train.parser().parse_args(argv))
+    if downlink:
+        fed = fed.replace(downlink=fed.uplink)
+        params = flat.unflatten(state.spec, state.w)
+        del state
+        state = rounds.init_state(params, fed, device=dev)
+        del params
+    return state, batch_fn, loss_pair, fed, dev
+
+
+def train_phase(torch, name: str, argv, T: int, downlink: bool = False):
+    """Phases 5 and 7: full-width training rounds through the launcher's
+    setup and ``run_rounds``; returns the phase record (launch counts
+    included).  Every kernel must launch as often as the wire layout
+    demands, and no other kernel may launch."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.engine import rounds
+    state, batch_fn, loss_pair, fed, dev = setup_phase(torch, argv,
+                                                        downlink)
     if state.spec.d != D_FULL:
         raise AssertionError(f"d = {state.spec.d}, expected {D_FULL}")
+    up, down = rounds.flat_transports_for(fed, state.spec)
+    runs = len(up.codec.layout.runs)
+    enc, red = PHASE_KERNELS[fed.uplink.kind]
+    want = {enc: runs * (2 if downlink else 1), red: runs}
+    if fed.participation == "gather":
+        want["segment_rows"] = 2    # payload floats + delta_norm deltas
     stamps = []
 
     def timed_batches(t, gen):
@@ -289,29 +399,107 @@ def train_phase(torch, uplink: str, T: int) -> dict:
     stamps.append(time.perf_counter())
     counts = kernels.launch_counts()
     per_round = [b - a for a, b in zip(stamps, stamps[1:])]
-    rec = {"phase": f"smollm-360m uplink={uplink}", "d": state.spec.d,
+    rec = {"phase": name, "d": state.spec.d, "clients": fed.n_clients,
+           "participating": fed.m, "participation": fed.participation,
+           "uplink": fed.uplink.kind, "downlink": fed.downlink.kind,
            "rounds": T, "s_per_round": per_round,
            "s_per_round_after_first": (sum(per_round[1:]) / (T - 1)
                                        if T > 1 else None),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "f": hist.f.tolist(), "g_hat": hist.g_hat.tolist(),
            "sigma": hist.sigma.tolist(), "up_bytes": int(hist.up_bytes[0]),
-           "launches": counts}
+           "down_bytes": int(hist.down_bytes[0]),
+           "up_wire_bytes": up.wire_bytes(),
+           "down_wire_bytes": down.wire_bytes(),
+           "alloc_retries": torch.cuda.memory_stats().get(
+               "num_alloc_retries", 0),
+           "launches": counts, "launches_per_round_expected": want}
     print(json.dumps(rec), flush=True)
     if not (all(math.isfinite(v) for v in rec["f"])
             and all(math.isfinite(v) for v in rec["g_hat"])):
-        raise AssertionError(f"{uplink}: non-finite f or g_hat")
-    for name, cnt in counts.items():
-        want = 8 * T if name in PHASE_KERNELS[uplink] else 0
-        if cnt != want:
-            raise AssertionError(f"{uplink}: {name} launched {cnt} times, "
-                                 f"expected {want}")
+        raise AssertionError(f"{name}: non-finite f or g_hat")
+    # RoundMetrics holds the bytes as float32 (as the reference does), which
+    # rounds counts above 2^24
+    if not (hist.down_bytes == np.float32(down.wire_bytes())).all():
+        raise AssertionError(f"{name}: down_bytes {rec['down_bytes']} is "
+                             f"not the downlink's {down.wire_bytes()}")
+    for kname, cnt in counts.items():
+        if cnt != want.get(kname, 0) * T:
+            raise AssertionError(f"{name}: {kname} launched {cnt} times, "
+                                 f"expected {want.get(kname, 0) * T}")
     rec["profile"] = profile_round(torch, state, batch_fn, loss_pair, fed,
                                    dev, rec["s_per_round_after_first"])
-    print(json.dumps({"profile": rec["phase"], **rec["profile"]}), flush=True)
+    print(json.dumps({"profile": name, **rec["profile"]}), flush=True)
     del state
     torch.cuda.empty_cache()
     return rec
+
+
+def gather_mask_check(torch, dev, R: int = 2, layers: int = 2):
+    """Phase 6: gather against mask on the card, from the same weights,
+    batches and recorded cohorts (``fixed`` sampler), for top-k and quant up
+    and down at full width and ``layers`` layers: w, x, e_up and every
+    per-round metric bit-equal."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          FleetConfig, SwitchConfig)
+    from repro_torch.data import synthetic
+    from repro_torch.engine import rounds
+    from repro_torch.fleet import samplers
+    from repro_torch.models import build
+    from repro_torch.tasks import lm
+    cfg = dataclasses.replace(configs.get_config("smollm-360m"),
+                              n_layers=layers)
+    fns = build(cfg)
+    loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
+    rng = np.random.default_rng(0)
+    masks = np.zeros((R, N_GATHER), np.float32)
+    for r in range(R):
+        masks[r, rng.choice(N_GATHER, M_GATHER, replace=False)] = 1.0
+
+    def batch_fn(t, g):
+        toks, mask = synthetic.client_token_batches(
+            g, N_GATHER, 2, 64, cfg.vocab, hetero=0.5, device=dev)
+        return lm.LMBatch(tokens=toks, minority_mask=mask)
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for kind in ("topk", "quant"):
+        cc = CompressorConfig(kind=kind, ratio=0.1, bits=8)
+        out = {}
+        for mode in ("gather", "mask"):
+            fed = FedConfig(
+                n_clients=N_GATHER, m=M_GATHER, local_steps=1, lr=0.03,
+                switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
+                uplink=cc, downlink=cc, comm="pallas", participation=mode,
+                fleet=FleetConfig(sampler="fixed"))
+            params = fns.init(torch.Generator(device=dev).manual_seed(0),
+                              cfg, device=dev)
+            state = rounds.init_state(params, fed, device=dev)
+            del params
+            state = state._replace(sampler=samplers.fixed_state(masks,
+                                                                masks))
+            out[mode] = rounds.run_rounds(state, batch_fn, loss_pair, fed,
+                                          T=R, device=dev)
+        (sg, hg), (sm, hm) = out["gather"], out["mask"]
+        same_state = all(torch.equal(bits(getattr(sg, f)),
+                                     bits(getattr(sm, f)))
+                         for f in ("w", "x", "e_up"))
+        same_metrics = all(np.array_equal(getattr(hg, f).view(np.uint32),
+                                          getattr(hm, f).view(np.uint32))
+                           for f in rounds.RoundMetrics._fields)
+        rec = {"gather_vs_mask": kind, "d": sg.spec.d, "layers": layers,
+               "rounds": R, "cohorts": masks.tolist(),
+               "f": hg.f.tolist(), "g_hat": hg.g_hat.tolist(),
+               "state_bit_equal": same_state,
+               "metrics_bit_equal": same_metrics}
+        print(json.dumps(rec), flush=True)
+        if not (same_state and same_metrics):
+            raise AssertionError(f"gather and mask differ ({kind})")
+        del out, sg, sm
+        torch.cuda.empty_cache()
 
 
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
@@ -347,7 +535,7 @@ def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3,
-                    help="full-width rounds per uplink")
+                    help="full-width rounds per training phase")
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
     args = ap.parse_args(argv)
@@ -401,11 +589,22 @@ def main(argv=None) -> int:
     records = check_kernels(torch, dev, layout)
     torch.cuda.empty_cache()
     reference_check(torch)
-    phases = [train_phase(torch, uplink, args.rounds)
+    phases = [train_phase(torch, f"smollm-360m uplink={uplink}",
+                          ["--uplink", uplink], args.rounds)
               for uplink in ("quant", "topk")]
-    for uplink, phase in zip(("quant", "topk"), phases):
-        for name in PHASE_KERNELS[uplink]:
-            records[name]["launches"] = phase["launches"][name]
+    gather_mask_check(torch, dev)
+    gather = ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
+              "--participation", "gather"]
+    phases += [train_phase(torch, f"smollm-360m gather {M_GATHER} of "
+                           f"{N_GATHER} {kind} up and down",
+                           gather + ["--uplink", kind], args.rounds,
+                           downlink=True)
+               for kind in ("topk", "quant")]
+    # launches on the main paths: each phase's count, and their sum
+    for name, rec in records.items():
+        rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
+                                    for p in phases}
+        rec["launches"] = sum(rec["launches_by_phase"].values())
     kern = {"kernels": [records[name] for name in KERNELS]}
     if args.out:
         path = pathlib.Path(args.out)

@@ -1,6 +1,6 @@
 """The flat hot path: contiguous parameter buffers + flat wire codecs (port
-of ``repro.comm.flat``: mask-mode ``FlatTransport`` on the ``pallas``
-backend, with the identity downlink).
+of ``repro.comm.flat``: ``FlatTransport`` on the ``pallas`` backend, in
+mask and gather mode, for the uplink and the primal-EF21 downlink).
 
 * :class:`FlatSpec` / :func:`flatten` / :func:`unflatten` -- the nested
   parameter dict <-> ``[d]`` buffer isomorphism.  Leaves go in the
@@ -12,9 +12,11 @@ backend, with the identity downlink).
   same-geometry leaves merged into *runs*: one kernel launch per run, the
   client axis folded into the run's rows.
 * :class:`FlatTransport` -- EF14 encode + payload-domain reduce over
-  ``[n, d]`` stacks: :class:`FlatPacked` (``block_topk`` encode,
-  ``scatter_agg`` reduce) for top-k and :class:`FlatQuant` (fused
-  ``quantize_ef_pack`` encode, ``unpack_mma`` reduce) for quant.
+  ``[n, d]`` stacks (or the m gathered rows, scattered back into ``[n,
+  ...]`` through ``segment_rows``): :class:`FlatPacked` (``block_topk``
+  encode, ``scatter_agg`` reduce) for top-k and :class:`FlatQuant` (fused
+  ``quantize_ef_pack`` encode, ``unpack_mma`` reduce) for quant; the
+  downlink packs one ``[d]`` buffer with the same encode kernels.
 """
 from __future__ import annotations
 
@@ -209,15 +211,12 @@ def run_view(flat: torch.Tensor, r: RunSpec) -> torch.Tensor:
         lead + (r.nblocks, r.block))
 
 
-_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
-
-
 def _cat(xs):
     """Concatenate along the last axis (unsigned wire dtypes through their
     signed views: CUDA ``cat`` does not take every unsigned dtype)."""
     if len(xs) == 1:
         return xs[0]
-    signed = _SIGNED.get(xs[0].dtype)
+    signed = transports.SIGNED_VIEWS.get(xs[0].dtype)
     if signed is None:
         return torch.cat(xs, dim=-1)
     return torch.cat([x.view(signed) for x in xs], dim=-1).view(xs[0].dtype)
@@ -376,9 +375,9 @@ def _make_codec(t: transports.Transport, spec: FlatSpec):
 # ---------------------------------------------------------------------------
 
 class FlatTransport:
-    """One direction of the wire path over flat ``[d]`` buffers (mask
-    mode): ``e``/``deltas`` are ``[n, d]`` stacks, messages are flat
-    payloads.
+    """One direction of the wire path over flat ``[d]`` buffers:
+    ``e``/``deltas`` are ``[n, d]`` stacks (mask mode) or the m
+    participants' ``[m, d]`` rows (gather mode), messages are flat payloads.
 
     Usage::
 
@@ -399,6 +398,10 @@ class FlatTransport:
         return self.t.is_identity
 
     @property
+    def tracks_center(self) -> bool:
+        return self.t.tracks_center
+
+    @property
     def wire(self) -> str:
         return "dense" if self.codec is None else "packed"
 
@@ -410,6 +413,21 @@ class FlatTransport:
             itemsize = torch.empty((), dtype=self.spec.dtype).element_size()
             return int(self.spec.d * itemsize)
         return self.codec.wire_bytes()
+
+    # -- wire primitives ----------------------------------------------------
+
+    def compress(self, buf: torch.Tensor):
+        """Flat message for one ``[d]`` buffer (the operator C)."""
+        if self.codec is None:
+            return buf
+        return self.codec.pack(buf)
+
+    def decompress(self, message) -> torch.Tensor:
+        if self.codec is None:
+            return message
+        return self.codec.decode(message)
+
+    # -- round-level call sites ---------------------------------------------
 
     def _ef_clients(self, e, deltas):
         if self.codec.fused_ef:
@@ -428,6 +446,21 @@ class FlatTransport:
         msgs, e_stack = self._ef_clients(e, deltas)
         return msgs, transports.mask_where(mask, e_stack, e, out=e)
 
+    def encode_gathered(self, e, deltas, idx, mask, unique: bool = True):
+        """Compute-sparse encode: ``deltas`` holds the m participants' rows
+        (``idx``, sorted); per-client results match :meth:`encode`'s.  The
+        participants' residual rows are written back into ``e`` in place
+        (``index_copy_``: any write wins, so the repeated ids of a short
+        cohort write the same row) and the messages are scattered into the
+        ``[n, ...]`` layout (``unique=False`` for a short cohort: see
+        :func:`transports.scatter_rows`)."""
+        n = mask.shape[0]
+        if self.is_identity:
+            return transports.scatter_rows(deltas, idx, n, unique), e
+        msgs, e_stack = self._ef_clients(e.index_select(0, idx), deltas)
+        e.index_copy_(0, idx, e_stack)
+        return transports.scatter_rows(msgs, idx, n, unique), e
+
     def reduce(self, msgs, weights, m) -> torch.Tensor:
         """Weighted aggregation of stacked messages into ``[d]``:
         ``sum_j weights_j * decode(msgs_j) / m``, in the payload domain."""
@@ -441,11 +474,17 @@ class FlatTransport:
         msgs, e_out = self.encode(e, deltas, mask)
         return self.reduce(msgs, mask, m), e_out
 
+    def transmit_gathered(self, e, deltas, idx, mask, m,
+                          unique: bool = True):
+        msgs, e_out = self.encode_gathered(e, deltas, idx, mask, unique)
+        return self.reduce(msgs, mask, m), e_out
+
     def broadcast(self, w: torch.Tensor, x_new: torch.Tensor) -> torch.Tensor:
-        """Primal-EF21 downlink; only the identity is ported yet."""
+        """Primal-EF21 downlink on flat buffers: ``w' = w + C(x_new - w)``
+        (the identity returns ``x_new``)."""
         if self.is_identity:
             return x_new
-        raise NotImplementedError("downlink compression is not ported yet")
+        return w + self.decompress(self.compress(x_new - w))
 
 
 def flat_transports_for(cfg, spec: FlatSpec):

@@ -1,5 +1,6 @@
 """Transport capability flags and stacked-client helpers (port of the part
-of ``repro.comm.transports`` the flat engine needs).
+of ``repro.comm.transports`` the flat engine needs: the flags,
+``masked_mean``, ``mask_where`` and ``scatter_rows``).
 
 A :class:`Transport` names one direction's compressor (``kind``) and wire
 backend; the flat engine's :class:`repro_torch.comm.flat.FlatTransport`
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import CompressorConfig
+from repro_torch.kernels import ops
 
 BACKENDS = ("ref", "packed", "pallas")
 _COMM_TO_BACKEND = {"dense": "ref", "packed": "packed", "pallas": "pallas"}
@@ -37,6 +39,34 @@ def mask_where(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
     ``new``, the rest keep ``old``.  ``out=old`` selects in place."""
     m = mask.reshape((mask.shape[0],) + (1,) * (new.dim() - 1))
     return torch.where(m > 0, new, old, out=out)
+
+
+# unsigned wire dtypes -> the same-width signed views that CUDA's copy, cat
+# and index kernels take
+SIGNED_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def scatter_rows(tree, idx: torch.Tensor, n: int, unique: bool = True):
+    """``[m, ...]`` participant rows -> the full ``[n, ...]`` layout, zeros
+    elsewhere.  ``tree`` is a tensor or a payload NamedTuple (every field
+    carries the leading client axis).
+
+    Float fields of a cohort with unique ids go through the segment-sum
+    kernel (:func:`repro_torch.kernels.ops.segment_rows`), as the
+    reference's TPU plan does.  Integer fields (uint16 offsets, uint32
+    words) are copied bit for bit by ``index_copy_``, the reference's
+    ``.at[idx].set``; so are float fields when ``unique`` is False (a short
+    cohort whose padded ids repeat a row: any write wins, where a segment
+    sum would double it)."""
+    if not isinstance(tree, torch.Tensor):
+        return type(tree)(*(scatter_rows(x, idx, n, unique) for x in tree))
+    if tree.dtype.is_floating_point and unique:
+        return ops.segment_rows(tree, idx, n)
+    signed = SIGNED_VIEWS.get(tree.dtype)
+    rows = tree if signed is None else tree.view(signed)
+    out = rows.new_zeros((n,) + tuple(rows.shape[1:]))
+    out.index_copy_(0, idx, rows)
+    return out if signed is None else out.view(tree.dtype)
 
 
 class Transport:

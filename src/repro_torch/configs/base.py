@@ -69,7 +69,7 @@ class SwitchConfig:
 
 @dataclass(frozen=True)
 class FleetConfig:
-    sampler: str = "uniform"        # client-sampling law (uniform ported)
+    sampler: str = "uniform"        # client-sampling law: uniform | fixed
 
 
 @dataclass(frozen=True)
@@ -87,7 +87,10 @@ class FedConfig:
     track_wbar: bool = True         # keep the averaged-iterate accumulator
     seed: int = 0
     strategy: str = "fedsgm"        # engine.strategies registry key
-    participation: str = "mask"     # mask (gather: not ported yet)
+    participation: str = "mask"     # mask (dense simulation) | gather
+                                    # (compute-sparse: local steps over m)
+    full_eval: bool = True          # eval forward over all n clients (False,
+                                    # the fused eval path: not ported yet)
     lean_metrics: bool = False      # skip the per-round delta_norm reduction
     fleet: FleetConfig = field(default_factory=FleetConfig)
 

@@ -1,9 +1,19 @@
-"""Client participation (port of ``repro.engine.participation``, mask mode).
+"""Client participation (port of ``repro.engine.participation``).
 
-``mask`` is the paper-faithful dense simulation: every per-client
-computation runs over all n clients and is mask-multiplied down to the m
-participants afterwards.  (``gather``, the compute-sparse mode, is not
-ported yet.)
+Two executions of the same sample S_t (m of n clients):
+
+* ``mask``   -- the paper-faithful dense simulation: every per-client
+  computation runs over all n clients and is mask-multiplied down to the m
+  participants afterwards.
+* ``gather`` -- compute-sparse: the sorted indices of the m sampled clients
+  select their batches and uplink EF residuals, the E local steps and the
+  EF step run over m rows only, residuals are written back, and the
+  messages are scattered into the full ``[n, ...]`` layout, so aggregation
+  is the same operation as in mask mode (the two are bit-equal).
+
+The indices are computed on the CPU, where the samplers draw the mask, and
+move to the round's device with it: the round never waits on the device
+for them.
 """
 from __future__ import annotations
 
@@ -13,24 +23,73 @@ import torch
 
 from repro_torch.comm import transports
 
-MODES = ("mask",)
+MODES = ("mask", "gather")
 
 
 class Participation(NamedTuple):
-    """One round's sample S_t."""
-    mask: torch.Tensor                      # [n] 0/1, exactly m ones
+    """One round's sample S_t.  ``idx`` is None in mask mode; in gather mode
+    it holds the sorted indices of the m participants (``[m]`` int64 on the
+    round's device).  ``short`` says (from the host) that the mask has fewer
+    than m ones, so ``idx`` repeats an index."""
+    mask: torch.Tensor                      # [n] 0/1, m ones (or fewer)
+    idx: Optional[torch.Tensor]             # [m] sorted, or None
     n: int
     m: int
     weights: Optional[torch.Tensor] = None  # [n], zero off-support
+    short: bool = False
 
 
-def finalize(mask: torch.Tensor, weights: Optional[torch.Tensor],
-             cfg) -> Participation:
+def mask_indices(mask: torch.Tensor, m: int) -> torch.Tensor:
+    """Sorted indices of the m participants of a CPU mask (int64 ``[m]``).
+
+    A mask with FEWER than m ones (a realized cohort, e.g. replayed by the
+    ``fixed`` sampler) pads with the FIRST sampled index rather than 0: the
+    padded rows duplicate a sampled client whose per-row compute is
+    identical across duplicates, so an any-write-wins scatter-back writes
+    the same value however the duplicates race, and client 0's residual is
+    never clobbered when client 0 is not sampled.  Consumers scatter such a
+    cohort with any-write-wins semantics (``transports.scatter_rows``
+    with ``unique=False``); a segment sum would double the row."""
+    nz = torch.nonzero(mask > 0).flatten()[:m]
+    first = nz[0] if len(nz) else torch.zeros((), dtype=torch.int64)
+    pad = first.expand(m - len(nz))
+    return torch.cat([nz, pad]).to(torch.int64)
+
+
+def finalize(mask: torch.Tensor, weights: Optional[torch.Tensor], cfg,
+             device=None) -> Participation:
+    """Wrap a sampler's CPU (mask, weights) draw into a Participation on
+    ``device`` (the CPU when None), with the sorted participant indices
+    computed on the CPU in gather mode.  The uniform law's ``weights IS
+    mask`` survives the move."""
     if cfg.participation not in MODES:
         raise NotImplementedError(
             f"participation mode {cfg.participation!r} is not ported yet; "
             f"ported: {MODES}")
-    return Participation(mask, cfg.n_clients, cfg.m, weights)
+    idx, short = None, False
+    if cfg.participation == "gather":
+        idx = mask_indices(mask, cfg.m)
+        short = int((mask > 0).sum()) < cfg.m
+    mask_d = mask.to(device)
+    weights_d = mask_d if weights is mask else \
+        (None if weights is None else weights.to(device))
+    return Participation(mask_d, None if idx is None else idx.to(device),
+                         cfg.n_clients, cfg.m, weights_d, short)
+
+
+def gather(part: Participation, batches):
+    """Participants' rows of a stacked ``[n, ...]`` batch NamedTuple
+    (``[m, ...]`` in sorted-index order); identity in mask mode."""
+    if part.idx is None:
+        return batches
+    return type(batches)(*(x.index_select(0, part.idx) for x in batches))
+
+
+def scatter_rows(part: Participation, rows):
+    """``[m, ...]`` participant rows -> the full ``[n, ...]`` layout, zeros
+    elsewhere."""
+    return transports.scatter_rows(rows, part.idx, part.n,
+                                   unique=not part.short)
 
 
 def agg_weights(part: Participation) -> torch.Tensor:
@@ -39,11 +98,20 @@ def agg_weights(part: Participation) -> torch.Tensor:
 
 
 def aggregate(part: Participation, deltas: torch.Tensor) -> torch.Tensor:
-    """Participating weighted mean of per-client ``[n, d]`` deltas."""
-    return transports.masked_mean(deltas, agg_weights(part), part.m)
+    """Participating weighted mean of per-client deltas (gathered ``[m, d]``
+    or full ``[n, d]``), through the same masked reduction either way."""
+    w = agg_weights(part)
+    if part.idx is None:
+        return transports.masked_mean(deltas, w, part.m)
+    return transports.masked_mean(scatter_rows(part, deltas), w, part.m)
 
 
 def transmit(transport, e, deltas, part: Participation):
-    """The engine's single uplink call site: EF14 + aggregation over the
-    ``[n, d]`` stacks.  Returns ``(v_bar, e_new)``."""
-    return transport.transmit(e, deltas, agg_weights(part), part.m)
+    """The engine's single uplink call site: EF14 + aggregation, dispatched
+    to the transport's dense-mask or gathered execution.  Returns
+    ``(v_bar, e_new)``."""
+    w = agg_weights(part)
+    if part.idx is None:
+        return transport.transmit(e, deltas, w, part.m)
+    return transport.transmit_gathered(e, deltas, part.idx, w, part.m,
+                                       unique=not part.short)

@@ -1,16 +1,19 @@
 """The federation round engine (port of ``repro.engine.rounds``).
 
-One :func:`round_step` is a full communication round:
+One :func:`round_step` is a full communication round, the paper's
+Algorithm 1:
 
-  1. sample S_t (``cfg.fleet.sampler``; mask mode),
+  1. sample S_t (``cfg.fleet.sampler``), executed dense-mask or
+     compute-sparse gather (``cfg.participation``, engine.participation),
   2. constraint query: (f_j, g_j) at w_t for every client, aggregated over
      the participants (and over all clients for the ``*_full`` metrics),
   3. strategy switch weight sigma_t,
-  4. E local steps per client on the strategy's objective,
+  4. E local steps per client (all n in mask mode, the m participants in
+     gather mode) on the strategy's objective,
   5. uplink EF14 compression of Delta_j = (w_t - w_{j,E}) / eta through the
      flat transport (the wire kernels),
-  6. strategy server update x_{t+1},
-  7. downlink broadcast w_{t+1} (the identity downlink).
+  6. strategy server update x_{t+1} from the server center x_t,
+  7. downlink primal-EF21 broadcast w_{t+1} = w_t + C_0(x_{t+1} - w_t).
 
 Between sampling and the next :class:`FedState` the model is ONE contiguous
 ``[d]`` buffer.  Unlike the reference's pytree ``FedState.w``, the port's
@@ -19,7 +22,7 @@ gives the parameter views.  Clients run one after another; each client's
 gradient comes from autograd on a flat leaf, through the views of
 ``unflatten``.  This is the reference's unfused path with
 ``full_eval=True`` (a separate eval forward over all n clients); its fused
-eval/step-1 path, and with it the ``full_eval`` switch, is not ported yet.
+eval/step-1 path (``full_eval=False``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,12 +40,16 @@ from repro_torch.optim.sgd import axpy
 
 class FedState(NamedTuple):
     w: torch.Tensor               # broadcast model w_t, flat [d]
+    x: Optional[torch.Tensor]     # server center x_t, flat [d] (None unless
+                                  # the downlink compresses: then x == w)
     e_up: Optional[torch.Tensor]  # uplink EF residuals [n_clients, d]
     wbar_sum: Optional[torch.Tensor]  # weighted sum of w_t, flat [d]
     wbar_weight: torch.Tensor
     t: int
     gen: torch.Generator          # participation draws (CPU)
     spec: flat.FlatSpec
+    sampler: object = None        # client-sampler state (None for the
+                                  # stateless laws)
 
 
 class RoundMetrics(NamedTuple):
@@ -62,13 +69,15 @@ def check_ported(cfg) -> None:
     if cfg.participation not in participation.MODES:
         raise NotImplementedError(
             f"participation mode {cfg.participation!r} is not ported yet")
-    if cfg.uplink.kind != "none" and cfg.comm != "pallas":
+    compressed = cfg.uplink.kind != "none" or cfg.downlink.kind != "none"
+    if compressed and cfg.comm != "pallas":
         raise NotImplementedError(
             f"comm={cfg.comm!r} is not ported yet: only comm='pallas'")
+    if not cfg.full_eval:
+        raise NotImplementedError(
+            "full_eval=False (the fused eval/step-1 path) is not ported yet")
     samplers.get_sampler(cfg.fleet.sampler)
     strategies.get_strategy(cfg.strategy)
-    if cfg.downlink.kind != "none":
-        raise NotImplementedError("downlink compression is not ported yet")
 
 
 def transports_for(cfg):
@@ -85,24 +94,25 @@ def init_state(params, cfg, device="cuda") -> FedState:
     check_ported(cfg)
     spec = flat.spec_of(params)
     w = flat.flatten(spec, params).to(dev).contiguous()
-    uplink, _ = transports_for(cfg)
+    uplink, downlink = transports_for(cfg)
     e_up = (torch.zeros((cfg.n_clients, spec.d), dtype=spec.dtype,
                         device=dev) if uplink.needs_residual else None)
     return FedState(
-        w=w, e_up=e_up,
+        # x starts as w itself: no round updates either buffer in place
+        w=w, x=w if downlink.tracks_center else None, e_up=e_up,
         wbar_sum=torch.zeros_like(w) if cfg.track_wbar else None,
         wbar_weight=torch.zeros((), dtype=torch.float32, device=dev),
-        t=0, gen=torch.Generator().manual_seed(cfg.seed), spec=spec)
+        t=0, gen=torch.Generator().manual_seed(cfg.seed), spec=spec,
+        sampler=samplers.get_sampler(cfg.fleet.sampler).init(cfg))
 
 
-def sample_round(state: FedState, cfg) -> participation.Participation:
-    """Stage 1: draw S_t with the configured sampler law."""
-    mask, weights = samplers.get_sampler(cfg.fleet.sampler).sample(
-        state.gen, cfg)
-    dev = state.w.device
-    mask_d = mask.to(dev)
-    weights_d = mask_d if weights is mask else weights.to(dev)
-    return participation.finalize(mask_d, weights_d, cfg)
+def sample_round(state: FedState, cfg):
+    """Stage 1: draw S_t with the configured sampler law.  Returns
+    ``(part, sampler state)``."""
+    mask, weights, samp_state = samplers.get_sampler(
+        cfg.fleet.sampler).sample(state.gen, cfg, state.sampler)
+    return (participation.finalize(mask, weights, cfg, state.w.device),
+            samp_state)
 
 
 def client_batch(batches, j: int):
@@ -128,8 +138,9 @@ def _eval_aggregates(part, f_ev, g_ev, m: int):
 
 def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
                  n: int) -> torch.Tensor:
-    """Stage 4: E local SGD steps per client on the strategy objective,
-    ``Delta_j = (wf - w_{j,E}) / eta`` as one ``[n, d]`` stack."""
+    """Stage 4: E local SGD steps for each of the n rows of ``local_b`` on
+    the strategy objective, ``Delta_j = (wf - w_{j,E}) / eta`` as one
+    ``[n, d]`` stack."""
     E, eta = cfg.local_steps, cfg.lr
     obj = strat.local_objective(loss_pair, sigma, cfg)
     deltas = torch.empty((n, spec.d), dtype=wf.dtype, device=wf.device)
@@ -148,24 +159,29 @@ def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
 
 def compute_round(state: FedState, wf, spec, batches, part, strat,
                   loss_pair: Callable, cfg):
-    """Stages 2-4 on the flat buffer: the constraint query, the switch
-    weight and the E local steps.  Returns ``(f_part, g_hat, g_full, f_full,
-    sigma, deltas)``."""
+    """Stages 2-4 on the flat buffer: the constraint query over all n
+    clients, the switch weight and the E local steps over the local rows
+    (all n in mask mode, the m gathered participants in gather mode).
+    Returns ``(f_part, g_hat, g_full, f_full, sigma, deltas)``; ``deltas``
+    is ``[n, d]`` or ``[m, d]``."""
     f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), batches, loss_pair,
                               cfg.n_clients)
     f_part, g_hat, g_full, f_full = _eval_aggregates(part, f_ev, g_ev, cfg.m)
     sigma = strat.switch_weight(g_hat, cfg)
-    deltas = local_deltas(wf, spec, strat, sigma, batches, loss_pair, cfg,
-                          cfg.n_clients)
+    local_b = participation.gather(part, batches)
+    deltas = local_deltas(wf, spec, strat, sigma, local_b, loss_pair, cfg,
+                          local_b[0].shape[0])
     return f_part, g_hat, g_full, f_full, sigma, deltas
 
 
 def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
-                 e_up, uplink, downlink, f_part, g_hat, g_full, f_full,
-                 sigma) -> tuple[FedState, RoundMetrics]:
-    """Stages 6-7 + bookkeeping: server update on the aggregated direction,
-    downlink broadcast, averaged-iterate accounting, metrics."""
-    x_new = strat.server_update(wf, v_bar, cfg, spec)
+                 e_up, uplink, downlink, samp_state, f_part, g_hat, g_full,
+                 f_full, sigma) -> tuple[FedState, RoundMetrics]:
+    """Stages 6-7 + bookkeeping: server update of the center on the
+    aggregated direction, primal-EF21 downlink broadcast, averaged-iterate
+    accounting, metrics."""
+    xf = state.x if state.x is not None else wf
+    x_new = strat.server_update(xf, v_bar, cfg, spec)
     w_new = downlink.broadcast(wf, x_new)
     alpha = strat.iterate_weight(g_hat, cfg)
     wbar_sum = (axpy(alpha, state.w, state.wbar_sum)
@@ -181,9 +197,9 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
         down_bytes=torch.tensor(float(downlink.wire_bytes()), device=dev),
         f_full=f_full)
     new_state = FedState(
-        w=w_new, e_up=e_up, wbar_sum=wbar_sum,
-        wbar_weight=state.wbar_weight + alpha, t=state.t + 1,
-        gen=state.gen, spec=spec)
+        w=w_new, x=x_new if downlink.tracks_center else None, e_up=e_up,
+        wbar_sum=wbar_sum, wbar_weight=state.wbar_weight + alpha,
+        t=state.t + 1, gen=state.gen, spec=spec, sampler=samp_state)
     return new_state, metrics
 
 
@@ -194,22 +210,23 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
     ``[n_clients, ...]`` tensors.
 
     The uplink residual ``state.e_up`` is updated in place (the ``[n, d]``
-    buffer is the largest state of a round); the returned state holds it."""
+    buffer is the largest state of a round); the returned state holds it.
+    In gather mode the local steps run over the m participants only."""
     dev = resolve_device(device)
     if state.w.device != dev:
         raise ValueError(f"round_step on {dev}: the state lives on "
                          f"{state.w.device}")
     check_ported(cfg)
     strat = strategies.get_strategy(cfg.strategy)
-    part = sample_round(state, cfg)
+    part, samp_state = sample_round(state, cfg)
     spec, wf = state.spec, state.w
     f_part, g_hat, g_full, f_full, sigma, deltas = compute_round(
         state, wf, spec, batches, part, strat, loss_pair, cfg)
     uplink, downlink = flat_transports_for(cfg, spec)
     v_bar, e_up = participation.transmit(uplink, state.e_up, deltas, part)
     return finish_round(state, strat, cfg, spec, wf, part, deltas, v_bar,
-                        e_up, uplink, downlink, f_part, g_hat, g_full,
-                        f_full, sigma)
+                        e_up, uplink, downlink, samp_state, f_part, g_hat,
+                        g_full, f_full, sigma)
 
 
 def run_rounds(state: FedState, batch_fn: Callable, loss_pair: Callable,

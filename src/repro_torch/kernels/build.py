@@ -25,7 +25,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_block", "scatter_agg", "quantize_ef_pack", "unpack_mma")
+SOURCES = ("topk_block", "scatter_agg", "quantize_ef_pack", "unpack_mma",
+           "segment_rows", "quantize_ef", "switch_blend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,9 +1,60 @@
-"""The aggregation kernels the flat codecs reduce with (port of
+"""Shape-generic entry points around the kernels (port of
 ``repro.kernels.ops``).  The reference picks an implementation per shape
 through its tuner; the port has one implementation per kernel (the CUDA
-kernel of the TPU plan, ``tune.py:83-84``, with the plain version on CPU
-tensors), so this module only names the wrappers."""
+kernel of the TPU plan, ``tune.py:83-93``, with the plain version on CPU
+tensors), so these wrappers only reshape, pad and cast."""
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels.quantize_ef import quantize_ef
 from repro_torch.kernels.scatter_agg import scatter_agg  # noqa: F401
+from repro_torch.kernels.scatter_agg import segment_rows as _segment_rows
+from repro_torch.kernels.switch_blend import switch_blend
 from repro_torch.kernels.unpack_mma import unpack_mma as quant_agg  # noqa: F401
+
+
+def _to_blocks(x: torch.Tensor, block: int):
+    """Flatten ``x`` and zero-pad it to ``[-1, min(block, numel)]``."""
+    flat = x.reshape(-1)
+    d = flat.shape[0]
+    b = min(block, d)
+    pad = (-d) % b
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, b), d
+
+
+def quantize_ef_apply(e: torch.Tensor, delta: torch.Tensor, bits: int,
+                      block: int = 1024):
+    """Fused EF14 quantization (:func:`quantize_ef`) for arbitrary-shape
+    float32 arrays, blocked along the flattened array: ``(v, e_new)`` shaped
+    like ``e``."""
+    eb, d = _to_blocks(e, block)
+    db, _ = _to_blocks(delta, block)
+    v, e_new = quantize_ef(eb, db, bits)
+
+    def unblock(t):
+        return t.reshape(-1)[:d].reshape(e.shape)
+    return unblock(v), unblock(e_new)
+
+
+def segment_rows(rows: torch.Tensor, seg: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Segment-sum of ``[m, ...]`` rows into the ``[n, ...]`` population
+    layout: ``out[i] = sum_{seg[j] == i} rows[j]`` (duplicate ids add, ids
+    outside ``[0, n)`` drop), summed in float32 and cast back to
+    ``rows.dtype``."""
+    m = rows.shape[0]
+    out = _segment_rows(rows.reshape(m, -1).to(torch.float32), seg, n)
+    return out.reshape((n,) + tuple(rows.shape[1:])).to(rows.dtype)
+
+
+def switch_blend_tree(gf_tree, gg_tree, sigma: torch.Tensor):
+    """:func:`switch_blend` over a nested dict of gradient tensors (each leaf
+    blended flat, then given back its shape)."""
+    if isinstance(gf_tree, dict):
+        return {k: switch_blend_tree(gf_tree[k], gg_tree[k], sigma)
+                for k in gf_tree}
+    return switch_blend(gf_tree.reshape(-1), gg_tree.reshape(-1),
+                        sigma).reshape(gf_tree.shape)

@@ -15,7 +15,9 @@ def quantize_ef_ref(e: torch.Tensor, delta: torch.Tensor, bits: int):
     """EF14 step with per-block max-abs b-bit quantization: (v, e_new)."""
     buf = e + delta
     scale = buf.abs().amax(dim=-1, keepdim=True)
-    levels = float(2 ** (bits - 1) - 1)
+    # a tensor divisor: PyTorch's CUDA divide by a Python scalar multiplies
+    # by its reciprocal, and the kernel divides (IEEE)
+    levels = torch.tensor(float(2 ** (bits - 1) - 1), device=buf.device)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     v = torch.round(buf / safe * levels) / levels * safe
     v = torch.where(scale > 0, v, torch.zeros_like(v))

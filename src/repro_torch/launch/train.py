@@ -3,12 +3,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --comm pallas --uplink quant --rounds 20
+    # partial participation: 4 of 8 clients, local steps over the 4 only
+    PYTHONPATH=src python -m repro_torch.launch.train --clients 8 \\
+        --participating 4 --participation gather --comm pallas --uplink topk
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
 Rounds run in chunks of 10, as the reference's launcher does, so ``--rounds``
-below 10 still runs one chunk of 10.  Flags of the reference that the port
-does not run yet raise.
+below 10 still runs one chunk of 10.  Like the reference's launcher it keeps
+the identity downlink; the compressed downlink is reached through the engine
+API (``rounds.init_state`` / ``run_rounds`` with a ``FedConfig``).  Flags of
+the reference that the port does not run yet raise.
 """
 from __future__ import annotations
 
@@ -71,9 +76,6 @@ def setup(args):
     if args.comm != "pallas":
         raise NotImplementedError(
             f"--comm {args.comm} is not ported yet: only --comm pallas")
-    if args.participation != "mask":
-        raise NotImplementedError(
-            f"--participation {args.participation} is not ported yet")
     dev = resolve_device(args.device)
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get_config(args.arch)
@@ -104,8 +106,8 @@ def main(argv=None):
     args = parser().parse_args(argv)
     state, batch_fn, loss_pair, fed, cfg, dev = setup(args)
     print(f"{cfg.name}: d={state.spec.d} params on {dev}, "
-          f"{fed.n_clients} clients, uplink {fed.uplink.kind} on "
-          f"comm={fed.comm}", flush=True)
+          f"{fed.m} of {fed.n_clients} clients ({fed.participation}), "
+          f"uplink {fed.uplink.kind} on comm={fed.comm}", flush=True)
     t0 = time.time()
     done = 0
     for _ in range(max(args.rounds // 10, 1)):

@@ -9,7 +9,10 @@ Tolerances: top-k values/indices, words, scales and the EF residual are
 bit-equal (the kernels pin every rounding; built with -fmad=false);
 ``unpack_mma`` sums clients in the same order as its plain version, so it is
 bit-equal too; ``scatter_agg`` adds duplicate offsets of one client by
-shared-memory atomics, so it is allclose at rtol 1e-6.
+shared-memory atomics, so it is allclose at rtol 1e-6.  ``segment_rows``
+adds rows in order (duplicates included), ``quantize_ef`` pins every
+rounding and ``switch_blend`` rounds each step on its own, so all three
+are bit-equal to their plain versions.
 """
 import numpy as np
 import pytest
@@ -17,9 +20,14 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.comm import payloads
+from repro_torch.kernels import ops
+from repro_torch.kernels.quantize_ef import quantize_ef
 from repro_torch.kernels.quantize_ef_pack import (quantize_ef_pack,
                                                   quantize_ef_pack_plain)
-from repro_torch.kernels.scatter_agg import scatter_agg, scatter_agg_plain
+from repro_torch.kernels.ref import quantize_ef_ref
+from repro_torch.kernels.scatter_agg import (scatter_agg, scatter_agg_plain,
+                                             segment_rows, segment_rows_plain)
+from repro_torch.kernels.switch_blend import switch_blend, switch_blend_plain
 from repro_torch.kernels.topk_block import block_topk, block_topk_plain
 from repro_torch.kernels.unpack_mma import unpack_mma, unpack_mma_plain
 
@@ -96,6 +104,137 @@ def test_scatter_agg_kernel(dev, block, k):
     torch.cuda.synchronize()
     want = scatter_agg_plain(vals, idx, weight, block)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# (n, D, ids): unique, duplicate, negative and >= n ids; ragged D
+@pytest.mark.parametrize("n,D,ids", [(8, 1000, [1, 4, 6, 7]),
+                                     (4, 1025, [3, 3, 0, 3]),
+                                     (6, 37, [-1, 2, 6, 9, 2]),
+                                     (3, 5000, [2])])
+def test_segment_rows_kernel(dev, n, D, ids):
+    g = torch.Generator(device=dev).manual_seed(D)
+    rows = torch.randn((len(ids), D), generator=g, device=dev)
+    seg = torch.tensor(ids, device=dev)
+    kernels.reset_launches()
+    got = segment_rows(rows, seg, n)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["segment_rows"] == 1
+    _same(got, segment_rows_plain(rows, seg, n))
+    # a strided view of a wider buffer (free leading stride)
+    wide = torch.randn((len(ids), D + 3), generator=g, device=dev)
+    _same(segment_rows(wide[:, 3:], seg, n),
+          segment_rows_plain(wide[:, 3:], seg, n))
+
+
+@pytest.mark.parametrize("block", [42, 126, 1024, 4000])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_ef_kernel(dev, block, bits):
+    g = torch.Generator(device=dev).manual_seed(block + bits)
+    e = torch.randn((5, block), generator=g, device=dev) * 0.1
+    d = torch.randn((5, block), generator=g, device=dev)
+    e[0] = 0.0
+    d[0] = 0.0
+    d[1] = torch.round(d[1] * 4) / 4
+    e[1] = 0.0
+    got = quantize_ef(e, d, bits)
+    torch.cuda.synchronize()
+    for a, b in zip(got, quantize_ef_ref(e, d, bits)):
+        _same(a, b)
+    v, e_new = ops.quantize_ef_apply(e[:, :37], d[:, :37], bits, block=64)
+    for a, b in zip((v, e_new), quantize_ef_ref(
+            torch.cat([e[:, :37].reshape(-1), torch.zeros(7, device=dev)])
+            .reshape(3, 64),
+            torch.cat([d[:, :37].reshape(-1), torch.zeros(7, device=dev)])
+            .reshape(3, 64), bits)):
+        _same(a, b.reshape(-1)[:185].reshape(5, 37))
+
+
+@pytest.mark.parametrize("d", [1, 7, 4096, 100_003])
+@pytest.mark.parametrize("sigma", [0.0, 0.3, 1.0])
+def test_switch_blend_kernel(dev, d, sigma):
+    g = torch.Generator(device=dev).manual_seed(d)
+    gf = torch.randn(d + 1, generator=g, device=dev)
+    gg = torch.randn(d, generator=g, device=dev)
+    s = torch.tensor(sigma, device=dev)
+    _same(switch_blend(gf[:d], gg, s), switch_blend_plain(gf[:d], gg, s))
+    # a misaligned start takes the scalar loop
+    _same(switch_blend(gf[1:], gg, s), switch_blend_plain(gf[1:], gg, s))
+    tree = ops.switch_blend_tree({"a": gf[:d].reshape(1, d)},
+                                 {"a": gg.reshape(1, d)}, s)
+    _same(tree["a"], switch_blend_plain(gf[:d], gg, s).reshape(1, d))
+
+
+@pytest.mark.parametrize("uplink", ["topk", "quant"])
+def test_reduced_gather_round_launches_its_kernels(dev, uplink):
+    """A reduced gather round (2 of 4 clients) with the same compressor up
+    and down launches the encode kernel once per wire run in each
+    direction, the reduce kernel once per run, and ``segment_rows`` twice
+    (the float payload field and the ``delta_norm`` deltas)."""
+    from repro_torch.engine import rounds
+    from repro_torch.launch import train
+    args = train.parser().parse_args(
+        ["--reduced", "--seq", "16", "--clients", "4", "--participating",
+         "2", "--participation", "gather", "--uplink", uplink])
+    state, batch_fn, loss_pair, fed, _, _ = train.setup(args)
+    # the compressed downlink's center starts at w, as init_state sets it
+    fed = fed.replace(downlink=fed.uplink)
+    state = state._replace(x=state.w)
+    batches = batch_fn(0, torch.Generator(device=dev).manual_seed(0))
+    kernels.reset_launches()
+    rounds.round_step(state, batches, loss_pair, fed, device=dev)
+    torch.cuda.synchronize()
+    enc, red = ("block_topk", "scatter_agg") if uplink == "topk" else \
+        ("quantize_ef_pack", "unpack_mma")
+    n_runs = len(rounds.flat_transports_for(fed, state.spec)[0]
+                 .codec.layout.runs)
+    want = {name: 0 for name in kernels.WRAPPERS}
+    want.update({enc: 2 * n_runs, red: n_runs, "segment_rows": 2})
+    assert kernels.launch_counts() == want
+
+
+@pytest.mark.parametrize("kind", ["topk", "quant"])
+def test_reduced_gather_equals_mask_on_card(dev, kind):
+    """Two reduced rounds, 2 of 4 clients replayed through the ``fixed``
+    sampler, compressed up and down: gather and mask bit-equal on the card
+    (``chip_smoke.py`` phase 6 repeats this at full width)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          FleetConfig, SwitchConfig)
+    from repro_torch.engine import rounds
+    from repro_torch.fleet import samplers
+    from repro_torch.models import build
+    from repro_torch.tasks import lm
+    cfg = configs.get_reduced("smollm-360m")
+    fns = build(cfg)
+    pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
+    masks = np.array([[1, 0, 1, 0], [0, 1, 1, 0]], np.float32)
+    rng = np.random.default_rng(0)
+    batches = [lm.LMBatch(
+        torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2, 16))).to(dev),
+        torch.ones((4, 2, 16), device=dev)) for _ in range(2)]
+    cc = CompressorConfig(kind=kind, ratio=0.1, bits=8)
+    out = {}
+    for mode in ("gather", "mask"):
+        fed = FedConfig(n_clients=4, m=2, lr=0.03, uplink=cc, downlink=cc,
+                        switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
+                        participation=mode, fleet=FleetConfig(sampler="fixed"))
+        state = rounds.init_state(
+            fns.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev), fed, device=dev)
+        state = state._replace(sampler=samplers.fixed_state(masks, masks))
+        mets = []
+        for b in batches:
+            state, met = rounds.round_step(state, b, pair, fed, device=dev)
+            mets.append(met)
+        out[mode] = (state, mets)
+    (sg, mg), (sm, mm) = out["gather"], out["mask"]
+    for name in ("w", "x", "e_up", "wbar_sum"):
+        _same(getattr(sg, name).view(torch.int32),
+              getattr(sm, name).view(torch.int32))
+    for a, b in zip(mg, mm):
+        for name in rounds.RoundMetrics._fields:
+            _same(getattr(a, name).view(torch.int32),
+                  getattr(b, name).view(torch.int32))
 
 
 @pytest.mark.parametrize("uplink", ["topk", "quant"])

@@ -11,8 +11,10 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs.base import CompressorConfig, FedConfig
 from repro_torch.engine import rounds
+from repro_torch.kernels.quantize_ef import quantize_ef
 from repro_torch.kernels.quantize_ef_pack import quantize_ef_pack
-from repro_torch.kernels.scatter_agg import scatter_agg
+from repro_torch.kernels.scatter_agg import scatter_agg, segment_rows
+from repro_torch.kernels.switch_blend import switch_blend
 from repro_torch.kernels.topk_block import block_topk
 from repro_torch.kernels.unpack_mma import unpack_mma
 from repro_torch.launch import train
@@ -84,12 +86,27 @@ def test_round_step_needs_a_card_unless_asked_for_cpu(no_card):
 
 
 def test_not_ported_paths_raise():
-    for flag in (["--comm", "dense"], ["--participation", "gather"],
-                 ["--fleet"], ["--async-buffer"], ["--wire", "2"], ["--obs"],
-                 ["--ef-slots", "4"]):
+    for flag in (["--comm", "dense"], ["--fleet"], ["--async-buffer"],
+                 ["--wire", "2"], ["--obs"], ["--ef-slots", "4"]):
         args = train.parser().parse_args(["--device", "cpu"] + flag)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.setup(args)
+    for fed in (_fed().replace(full_eval=False),
+                _fed().replace(downlink=CompressorConfig(kind="topk"),
+                               uplink=CompressorConfig(), comm="dense")):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            rounds.init_state({"w": torch.zeros(3)}, fed, device="cpu")
+
+
+def test_gather_launcher_needs_a_card_unless_asked_for_cpu(no_card):
+    argv = ["--reduced", "--seq", "8", "--batch", "1", "--clients", "4",
+            "--participating", "2", "--participation", "gather", "--comm",
+            "pallas", "--uplink", "topk", "--rounds", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    state = train.main(argv + ["--device", "cpu"])
+    assert state.w.device.type == "cpu" and state.t == 10
+    assert torch.isfinite(state.w).all()
 
 
 def test_wrappers_take_plain_versions_on_cpu():
@@ -101,4 +118,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     unpack_mma(words, scale[..., 0], torch.ones(2), 8, 42)
     scatter_agg(vals, idx.to(torch.int16).view(torch.uint16), torch.ones(2),
                 42)
+    segment_rows(x[0], torch.tensor([2, 0, 5]), 4)
+    quantize_ef(x[0], x[1], 8)
+    switch_blend(x[0, 0], x[1, 0], torch.tensor(0.5))
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}

@@ -10,7 +10,11 @@ reference's ``codes / L * scale`` as ``codes * (1/L) * scale`` (DESIGN.md
 ``v`` moves by up to ~1.5 ulp and the cancellation in ``buf - v`` keeps
 that absolute error (measured: at most 1.19 ulp of the scale on these
 inputs).  Sums are allclose at rtol 1e-5 (the reference's own contract for
-reordered aggregation)."""
+reordered aggregation).  ``segment_rows`` adds rows in the same order as
+the reference's kernel, so it is bit-equal; ``quantize_ef``'s v and e'
+are within 2 ulp of the block scale for the reason above (ROADMAP Queue 3);
+``switch_blend`` is at rtol 1e-6, since XLA may contract the reference's
+multiply-add into an FMA."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,15 +22,21 @@ import torch
 
 from repro.comm.payloads import pack_codes as jax_pack_codes
 from repro.comm.payloads import select_topk_blocks as jax_select
+from repro.kernels.ops import switch_blend_tree as jax_switch_blend_tree
+from repro.kernels.quantize_ef import quantize_ef as jax_quantize_ef
 from repro.kernels.quantize_ef_pack import quantize_ef_pack as jax_qef_pack
 from repro.kernels.scatter_agg import scatter_agg as jax_scatter_agg
+from repro.kernels.scatter_agg import segment_rows as jax_segment_rows
+from repro.kernels.switch_blend import switch_blend as jax_switch_blend
 from repro.kernels.topk_block import block_topk as jax_block_topk
 from repro.kernels.unpack_mma import unpack_mma as jax_unpack_mma
 from repro_torch import kernels
 from repro_torch.comm import payloads
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.quantize_ef import quantize_ef
 from repro_torch.kernels.quantize_ef_pack import quantize_ef_pack
-from repro_torch.kernels.scatter_agg import scatter_agg
+from repro_torch.kernels.scatter_agg import scatter_agg, segment_rows
+from repro_torch.kernels.switch_blend import switch_blend
 from repro_torch.kernels.topk_block import block_topk
 from repro_torch.kernels.unpack_mma import unpack_mma
 from torch_port_util import assert_bits_equal, assert_within_ulp, t
@@ -176,3 +186,102 @@ def test_wrappers_on_cpu_do_not_launch():
     block_topk(x, 4)
     quantize_ef_pack(x, x, 8)
     assert set(kernels.launch_counts().values()) == {0}
+
+
+# (m, n, D, ids): unique ids, duplicates, negative and >= n ids; D not a
+# multiple of the reference's 512-column tile
+SEGMENT_CASES = [(3, 5, 700, [4, 0, 2]),
+                 (4, 4, 513, [1, 1, 3, 1]),
+                 (5, 6, 37, [-1, 2, 6, 9, 2]),
+                 (1, 3, 1024, [2])]
+
+
+@pytest.mark.parametrize("m,n,D,ids", SEGMENT_CASES)
+def test_segment_rows_matches_pallas(m, n, D, ids):
+    rng = np.random.default_rng(m * n + D)
+    rows = rng.standard_normal((m, D)).astype(np.float32)
+    rows[0, :5] = -0.0
+    seg = np.asarray(ids, np.int32)
+    want = jax_segment_rows(jnp.asarray(rows), jnp.asarray(seg), n,
+                            interpret=True)
+    got = segment_rows(t(rows), t(seg), n)
+    assert got.dtype == torch.float32 and got.shape == (n, D)
+    assert_bits_equal(got, want)
+    # the ops entry point takes any leading layout and the int64 ids the
+    # engine holds
+    got3 = ops.segment_rows(t(rows).reshape(m, 7, -1) if D % 7 == 0 else
+                            t(rows), t(seg).to(torch.int64), n)
+    assert_bits_equal(got3.reshape(n, D), want)
+
+
+@pytest.mark.parametrize("block", [42, 126, 1024])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_ef_matches_pallas(block, bits):
+    rng = np.random.default_rng(block * 3 + bits)
+    nblocks = 4
+    e = (rng.standard_normal((nblocks, block)) * 0.1).astype(np.float32)
+    d = rng.standard_normal((nblocks, block)).astype(np.float32)
+    e[0] = 0.0
+    d[0] = 0.0                                # scale 0: v 0, e' 0
+    d[1] = np.round(d[1] * 4) / 4             # exact ties on the grid
+    e[1] = 0.0
+    vj, ej = jax_quantize_ef(jnp.asarray(e), jnp.asarray(d), bits,
+                             interpret=True)
+    vt, et = quantize_ef(t(e), t(d), bits)
+    scale = np.abs(e + d).max(axis=-1, keepdims=True)
+    of = np.broadcast_to(scale, e.shape)
+    assert_within_ulp(vt, vj, 2, of=of)
+    assert_within_ulp(et, ej, 2, of=of)
+    assert not vt[0].any() and not et[0].any()
+
+
+def test_quantize_ef_apply_blocks_any_shape():
+    """The ops entry point pads the flattened array to whole blocks, and its
+    result is the blocked kernel's on the padded buffer, cut back."""
+    rng = np.random.default_rng(11)
+    e = t((rng.standard_normal((5, 77)) * 0.1).astype(np.float32))
+    d = t(rng.standard_normal((5, 77)).astype(np.float32))
+    v, e_new = ops.quantize_ef_apply(e, d, 8, block=128)
+    assert v.shape == e_new.shape == (5, 77)
+    pad = torch.zeros(4 * 128 - 385)
+    vb, eb = quantize_ef(torch.cat([e.reshape(-1), pad]).reshape(4, 128),
+                         torch.cat([d.reshape(-1), pad]).reshape(4, 128), 8)
+    assert torch.equal(v.reshape(-1), vb.reshape(-1)[:385])
+    assert torch.equal(e_new.reshape(-1), eb.reshape(-1)[:385])
+    assert torch.equal(v + e_new, e + d)
+
+
+@pytest.mark.parametrize("d", [1, 4096, 5000])
+@pytest.mark.parametrize("sigma", [0.0, 0.25, 1.0])
+def test_switch_blend_matches_pallas(d, sigma):
+    rng = np.random.default_rng(d)
+    gf = rng.standard_normal(d).astype(np.float32)
+    gg = rng.standard_normal(d).astype(np.float32)
+    s = np.float32(sigma)
+    want = jax_switch_blend(jnp.asarray(gf), jnp.asarray(gg), jnp.asarray(s),
+                            interpret=True)
+    got = switch_blend(t(gf), t(gg), t(s))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_switch_blend_tree_matches_pallas():
+    """The port of ``TestSwitchBlendParity``: the blend over a parameter
+    tree keeps every leaf's shape and matches the reference's tree blend."""
+    rng = np.random.default_rng(0)
+    gf = {"a": rng.standard_normal((130, 7)).astype(np.float32),
+          "b": {"c": rng.standard_normal(33).astype(np.float32)}}
+    gg = {"a": gf["a"] * 0.3 + 1.0, "b": {"c": gf["b"]["c"] * 0.3 + 1.0}}
+    tf = {"a": t(gf["a"]), "b": {"c": t(gf["b"]["c"])}}
+    tg = {"a": t(gg["a"]), "b": {"c": t(gg["b"]["c"])}}
+    for sigma in (0.0, 0.25, 1.0):
+        s = np.float32(sigma)
+        want = jax_switch_blend_tree(gf, gg, jnp.asarray(s), block=64,
+                                     interpret=True)
+        got = ops.switch_blend_tree(tf, tg, t(s))
+        assert got["a"].shape == (130, 7) and got["b"]["c"].shape == (33,)
+        np.testing.assert_allclose(got["a"].numpy(), np.asarray(want["a"]),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(got["b"]["c"].numpy(),
+                                   np.asarray(want["b"]["c"]), rtol=1e-6,
+                                   atol=1e-7)
