@@ -17,7 +17,9 @@ Phases, each fatal on failure (nonzero exit):
    ``quantize_ef`` and ``switch_blend`` on the flat ``[d]`` buffer -- held
    against its plain PyTorch version on the card, and timed with CUDA
    events beside its plain version, the nearest single PyTorch call (where
-   there is one) and its bound;
+   there is one) and its bound; ``block_topk`` also on the largest
+   960-block run with rows of ties and of NaNs written in (bits compared),
+   and the kernel variant each run takes is printed;
 4. a small-input reference check: one reduced round on the card against the
    same round on the CPU, for each uplink;
 5. the mask paths: full-width smollm-360m federated training (d =
@@ -176,7 +178,13 @@ def check_kernels(torch, dev, layout):
         torch, lambda: [torch.topk(a, r.k, dim=-1) for a, r in
                         zip(absx, runs)])
     del absx
+    out["block_topk"]["variants"] = [topk_block.variant(v, r.k)
+                                     for v, r in zip(xs, runs)]
+    print(json.dumps({"block_topk_variants": [
+        {"block": r.block, "k": r.k, "rows": n * r.nblocks, "variant": w}
+        for r, w in zip(runs, out["block_topk"]["variants"])]}), flush=True)
     sel = [topk_block.block_topk(v, r.k) for v, r in zip(xs, runs)]
+    check_topk_special_rows(torch, xs, runs)
     del x, xs
     vals = [v for v, _ in sel]
     idx = [payloads.to_u16(i) for _, i in sel]
@@ -186,7 +194,7 @@ def check_kernels(torch, dev, layout):
             + payloads.u16_to_i64(i)).reshape(-1) for i, r in zip(idx, runs)]
     wv = [(v * weight[:, None, None]).reshape(-1) for v in vals]
     accs = [torch.zeros(r.nblocks * r.block, device=dev) for r in runs]
-    # duplicate offsets cannot occur in top-k payloads: exact
+    # both add in slot order (no duplicate offsets in top-k payloads)
     record("scatter_agg",
            lambda: [(scatter_agg.scatter_agg(v, i, weight, r.block),)
                     for v, i, r in zip(vals, idx, runs)],
@@ -246,6 +254,38 @@ def check_kernels(torch, dev, layout):
     torch.cuda.empty_cache()
     check_gather_kernels(torch, dev, layout, d, g, record)
     return out
+
+
+def check_topk_special_rows(torch, xs, runs):
+    """Phase 3: ``block_topk`` on the largest run of the widest block with
+    rows of ties and rows of NaNs written into its view (tolerance 0; the
+    values compared as bits, so NaN payloads count)."""
+    from repro_torch.kernels import topk_block
+    top = max(r.block for r in runs)
+    i = max((i for i, r in enumerate(runs) if r.block == top),
+            key=lambda i: runs[i].nblocks)
+    v, r = xs[i], runs[i]
+    v[0, 0] = 1.5                                   # all magnitudes tie
+    v[0, 0, ::3] = -1.5
+    v[0, 1] = torch.round(v[0, 1] * 2) / 2          # ties at T
+    v[0, 2] = 0.0
+    v[0, 2, ::2] = -0.0
+    v[0, 3] = v[0, 3] * torch.pow(10.0, v[0, 4] * 8)   # many binades
+    pos = torch.arange(r.block, device=v.device, dtype=torch.int32)
+    v[1, 0].view(torch.int32).copy_(0x7FC00000 + pos)   # payload rises
+    v[1, 1, ::2].view(torch.int32).copy_(
+        -0x3E0000 - pos[::2])                       # -NaNs 0xFFC2...
+    v[1, 1, 1::7] = float("inf")
+    v[1, 2, ::5].view(torch.int32).fill_(0x7FC00001)
+    v[1, 2, 1::5].view(torch.int32).fill_(0x7FC00000)
+    got = topk_block.block_topk(v, r.k)
+    want = topk_block.block_topk_plain(v, r.k)
+    err = max_err(torch, [got[0].view(torch.int32), got[1]],
+                  [want[0].view(torch.int32), want[1]])
+    print(json.dumps({"kernel_check": f"block_topk ties and NaNs block="
+                      f"{r.block} k={r.k} rows={v.shape[0] * v.shape[1]} "
+                      f"variant={topk_block.variant(v, r.k)}",
+                      "max_abs_err": err}), flush=True)
 
 
 def check_gather_kernels(torch, dev, layout, d, g, record):

@@ -3,7 +3,13 @@ plain PyTorch version (port of ``repro.kernels.topk_block``).
 
 Per row: the k entries of largest |x|, in descending |x| order with ties to
 the lowest index -- the order the TPU kernel's k rounds of masked argmax
-emit -- as (values from x, int32 within-row indices).
+emit -- as (values from x, int32 within-row indices).  Every NaN counts as
+one magnitude above +inf, so NaNs tie and fall to index order.
+
+The kernel has two variants, chosen by shape alone (:func:`variant`): a
+warp-per-row radix select for the main path's shapes (block <= 1024,
+k <= 128; 16-byte loads when the rows are 16-byte aligned) and a whole-row
+bitonic sort for the rest.
 """
 from __future__ import annotations
 
@@ -17,13 +23,15 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 MAX_BLOCK = 2048
+VARIANTS = ("bitonic", "radix-scalar", "radix-vec4")
 
 
 def block_topk_plain(x: torch.Tensor, k: int):
     """``x [..., block]`` -> (values ``[..., k]``, int32 indices ``[..., k]``).
 
     A stable descending sort of |x| keeps equal magnitudes (``-0.0`` ties
-    ``+0.0``) in ascending index order."""
+    ``+0.0``, NaNs tie each other above ``inf``) in ascending index
+    order."""
     order = torch.sort(x.abs(), dim=-1, descending=True, stable=True).indices
     idx = order[..., :k]
     return torch.gather(x, -1, idx), idx.to(torch.int32)
@@ -63,3 +71,14 @@ def block_topk(x: torch.Tensor, k: int):
 
 
 block_topk.launches = 0
+
+
+def variant(x: torch.Tensor, k: int) -> str:
+    """The kernel variant :func:`block_topk` launches for the CUDA tensor
+    ``x`` and ``k`` (one of :data:`VARIANTS`), as ``block_topk_launch``
+    chooses it."""
+    x3 = build.rows3(x, "block_topk")
+    fn = build.load("topk_block").block_topk_variant
+    fn.argtypes = [_P, _LL, _I, _I]
+    fn.restype = _I
+    return VARIANTS[fn(x3.data_ptr(), x3.stride(0), x3.shape[-1], k)]

@@ -8,8 +8,9 @@ fixture, never at import).  Run them on the card with
 Tolerances: top-k values/indices, words, scales and the EF residual are
 bit-equal (the kernels pin every rounding; built with -fmad=false);
 ``unpack_mma`` sums clients in the same order as its plain version, so it is
-bit-equal too; ``scatter_agg`` adds duplicate offsets of one client by
-shared-memory atomics, so it is allclose at rtol 1e-6.  ``segment_rows``
+bit-equal too; ``scatter_agg`` adds in slot order, duplicate offsets
+included, as the plain version's ``index_add_`` does on the CPU, so it is
+bit-equal to the plain version run on the CPU.  ``segment_rows``
 adds rows in order (duplicates included), ``quantize_ef`` pins every
 rounding and ``switch_blend`` rounds each step on its own, so all three
 are bit-equal to their plain versions.
@@ -28,6 +29,7 @@ from repro_torch.kernels.ref import quantize_ef_ref
 from repro_torch.kernels.scatter_agg import (scatter_agg, scatter_agg_plain,
                                              segment_rows, segment_rows_plain)
 from repro_torch.kernels.switch_blend import switch_blend, switch_blend_plain
+from repro_torch.kernels import topk_block
 from repro_torch.kernels.topk_block import block_topk, block_topk_plain
 from repro_torch.kernels.unpack_mma import unpack_mma, unpack_mma_plain
 
@@ -49,19 +51,83 @@ def _same(a, b):
     assert torch.equal(a.cpu(), b.cpu())
 
 
-@pytest.mark.parametrize("block,k", [(42, 4), (126, 13), (320, 32),
-                                     (640, 64), (960, 96)])
-def test_block_topk_kernel(dev, block, k):
-    g = torch.Generator(device=dev).manual_seed(block)
-    x = torch.randn((3, 5, block), generator=g, device=dev)
+# (block, k): the reduced and full layouts' shapes (radix select), k = 1,
+# k = block, the radix variant's largest shape, and shapes past it (bitonic)
+TOPK_CARD_SHAPES = [(42, 4), (126, 13), (320, 32), (640, 64), (960, 96),
+                    (960, 1), (128, 128), (1024, 128), (300, 300),
+                    (1500, 150)]
+
+
+def _topk_rows(x):
+    """Special rows in place: zeros, magnitude ties in groups, all-equal
+    magnitudes, NaNs of two payloads (the lower payload at the lower
+    index) beside +-inf and +-0, and magnitudes spread over many
+    binades."""
+    block = x.shape[-1]
     x[0, 0] = 0.0
     x[0, 1] = torch.round(x[0, 1] * 2) / 2
+    x[0, 2] = 1.5
+    x[0, 2, ::3] = -1.5
+    row = x[0, 3]
+    row.view(torch.int32)[block // 3] = 0x7FC00000
+    row.view(torch.int32)[block // 2] = 0x7FC00001
+    row.view(torch.int32)[1] = 0xFFC1FFFF - 2 ** 32   # a -NaN
+    row[2], row[block - 1] = float("inf"), float("-inf")
+    row[3], row[4] = -0.0, 0.0
+    # magnitudes over many binades: T's exponent far below the row's top
+    x[0, 4] = x[0, 4] * torch.pow(10.0, x[1, 4] * 8)
+
+
+def _check_topk(x, k):
     kernels.reset_launches()
     got = block_topk(x, k)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["block_topk"] == 1
     for a, b in zip(got, block_topk_plain(x, k)):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
         _same(a, b)
+
+
+@pytest.mark.parametrize("block,k", TOPK_CARD_SHAPES)
+def test_block_topk_kernel(dev, block, k):
+    g = torch.Generator(device=dev).manual_seed(block)
+    x = torch.randn((3, 5, block), generator=g, device=dev)
+    _topk_rows(x)
+    want = "bitonic" if block > 1024 or k > 128 else \
+        "radix-vec4" if block % 4 == 0 else "radix-scalar"
+    assert topk_block.variant(x, k) == want
+    _check_topk(x, k)
+
+
+def test_block_topk_kernel_nan_payload_order(dev):
+    """NaNs tie with each other whatever their payload (index order, ahead
+    of +-inf), in each variant: a key built from the payload bits puts
+    0x7FC00001 at index 9 ahead of 0x7FC00000 at index 3."""
+    for block, k in [(16, 5), (42, 5), (1100, 5), (200, 190)]:
+        x = torch.randn((2, 2, block), device=dev)
+        x[:, :, 3].view(torch.int32).fill_(0x7FC00000)
+        x[:, :, 9].view(torch.int32).fill_(0x7FC00001)
+        x[:, :, 5], x[:, :, 12] = float("inf"), float("-inf")
+        _check_topk(x, k)
+        assert block_topk(x, k)[1][0, 0, :4].tolist() == [3, 9, 5, 12]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_block_topk_kernel_run_views(dev, offset):
+    """Run views of an ``[n, d]`` buffer: a row start that is not 16-byte
+    aligned takes scalar loads; the ``[1, nb, block]`` downlink shape and
+    a 2-D ``[nb, block]`` view run as well."""
+    g = torch.Generator(device=dev).manual_seed(offset)
+    buf = torch.randn((3, 7 * 960 + 8), generator=g, device=dev)
+    view = buf[:, offset:offset + 7 * 960].reshape(3, 7, 960)
+    _topk_rows(view)
+    assert topk_block.variant(view, 96) == (
+        "radix-vec4" if offset % 4 == 0 else "radix-scalar")
+    _check_topk(view, 96)
+    _check_topk(view[:1], 96)
+    _check_topk(view[1], 96)
+    _check_topk(buf[:1, offset:offset + 5 * 640].reshape(1, 5, 640), 64)
 
 
 @pytest.mark.parametrize("block", [42, 126, 640, 960])
@@ -92,18 +158,37 @@ def test_unpack_mma_kernel(dev, block, bits):
     _same(got, unpack_mma_plain(words, scale, weight, bits, block))
 
 
-@pytest.mark.parametrize("block,k", [(42, 4), (640, 64), (960, 96)])
-def test_scatter_agg_kernel(dev, block, k):
-    rng = np.random.default_rng(block)
-    vals = torch.from_numpy(
-        rng.standard_normal((3, 5, k)).astype(np.float32)).to(dev)
-    idx = payloads.to_u16(torch.from_numpy(
-        rng.integers(0, block, size=(3, 5, k)))).to(dev)
-    weight = torch.tensor([1.0, 0.25, 0.0], device=dev)
-    got = scatter_agg(vals, idx, weight, block)
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("block,k", [(42, 4), (640, 64), (960, 96),
+                                     (100, 300)])
+def test_scatter_agg_kernel(dev, n, block, k):
+    """Duplicate offsets (inside one client's row, and a row of one offset)
+    and offsets >= block (dropped), on strided views; bit-equal to the
+    plain version on the CPU, which adds in slot order."""
+    rng = np.random.default_rng(block + n)
+    vals = rng.standard_normal((n, 5, k + 3)).astype(np.float32)
+    idx = rng.integers(0, block + 20, size=(n, 5, k + 3)).astype(np.uint16)
+    idx[0, 0, :] = idx[0, 0, 0] % block
+    idx[-1, 1, : k // 2] = idx[-1, 1, k // 2: 2 * (k // 2)]
+    idx[:, 2, 0] = 65535
+    weight = rng.random(n).astype(np.float32)
+    weight[-1] = 0.25
+    # run views of wider device buffers: a free leading stride, the inner
+    # [nb, k] contiguous
+    vd = torch.from_numpy(vals.reshape(n, -1)).to(dev)[:, 3:3 + 5 * k]
+    id_ = payloads.to_u16(torch.from_numpy(idx.astype(np.int64))
+                          .reshape(n, -1).to(dev))[:, 1:1 + 5 * k]
+    vd, id_ = vd.reshape(n, 5, k), id_.reshape(n, 5, k)
+    assert n == 1 or not (vd.is_contiguous() or id_.is_contiguous())
+    wd = torch.from_numpy(weight).to(dev)
+    want = scatter_agg_plain(vd.cpu(), id_.cpu(), wd.cpu(), block)
+    kernels.reset_launches()
+    got = scatter_agg(vd, id_, wd, block)
     torch.cuda.synchronize()
-    want = scatter_agg_plain(vals, idx, weight, block)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert kernels.launch_counts()["scatter_agg"] == 1
+    _same(got.view(torch.int32), want.view(torch.int32))
+    got = scatter_agg(vd.contiguous(), id_.contiguous(), wd, block)
+    _same(got.view(torch.int32), want.view(torch.int32))
 
 
 # (n, D, ids): unique, duplicate, negative and >= n ids; ragged D

@@ -70,6 +70,41 @@ def test_block_topk_matches_pallas(nblocks, block, k):
     assert_bits_equal(it, ij)
 
 
+def _special_rows(block, seed):
+    """NaNs of two payloads (``0x7FC00000`` at a lower index than
+    ``0x7FC00001``, and a negative one) beside +-inf and +-0; a row of
+    equal magnitudes; a row of +-0; a normal row."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, block)).astype(np.float32)
+    bits = x[0].view(np.uint32)
+    bits[[2, block // 2, block - 3]] = [0x7FC00000, 0x7FC00001, 0xFFC1FFFF]
+    x[0, [1, block - 1]] = [np.inf, -np.inf]
+    x[0, [3, 4]] = [-0.0, 0.0]
+    x[1] = 1.5
+    x[1, ::3] = -1.5
+    x[2] = np.where(rng.random(block) < 0.5, -0.0, 0.0)
+    return x
+
+
+@pytest.mark.parametrize("block,k", [(16, 1), (16, 5), (16, 16), (42, 1),
+                                     (42, 42), (126, 13), (126, 126),
+                                     (960, 1), (960, 96)])
+def test_block_topk_special_rows_match_pallas(block, k):
+    """NaNs tie whatever their payload (index order, ahead of +-inf),
+    -0.0 ties +0.0, equal magnitudes go in index order; k = 1 and
+    k = block.  Indices and values bit-equal, except that the reference
+    reads a value out by a masked sum, which turns a chosen -0.0 into
+    +0.0: zeros are compared by value."""
+    x = _special_rows(block, seed=block + k)
+    vj, ij = jax_block_topk(jnp.asarray(x), k)
+    vt, it = block_topk(t(x), k)
+    assert_bits_equal(it, ij)
+    assert_bits_equal(vt + 0.0, vj)
+    if k >= 5:
+        assert it[0, :5].tolist() == [2, block // 2, block - 3, 1,
+                                      block - 1]
+
+
 @pytest.mark.parametrize("block", [42, 126, 960, 640])
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_quantize_ef_pack_matches_pallas(block, bits):
@@ -123,6 +158,55 @@ def test_scatter_agg_matches_pallas(block, k):
     got = scatter_agg(t(vals), t(idx), t(weight), block)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("dups", [False, True])
+@pytest.mark.parametrize("block,k", [(42, 4), (126, 13), (960, 96)])
+def test_scatter_agg_drops_offsets_past_the_block(block, k, dups):
+    """Offsets >= block (up to 65535) drop, as the reference's one-hot
+    drops them; with distinct offsets in a row every output gets one
+    product per client, added client by client as in the reference, so
+    the sums are bit-equal; with duplicate offsets inside one client's
+    row they are reordered sums (allclose, as above)."""
+    rng = np.random.default_rng(block + k)
+    n_cl, nblocks = 3, 4
+    vals = rng.standard_normal((n_cl, nblocks, k)).astype(np.float32)
+    idx = np.stack([np.stack([rng.permutation(block + 40)[:k]
+                              for _ in range(nblocks)])
+                    for _ in range(n_cl)]).astype(np.uint16)
+    idx[:, 0, 0] = 65535
+    if dups:
+        idx[0, 1, 1:] = idx[0, 1, 0]
+        idx[2, :, 0] = idx[2, :, 1]
+    weight = np.array([1.0, 0.3, 2.0], np.float32)
+    want = jax_scatter_agg(jnp.asarray(vals), jnp.asarray(idx),
+                           jnp.asarray(weight), block)
+    got = scatter_agg(t(vals), t(idx), t(weight), block)
+    if dups:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-6)
+    else:
+        assert_bits_equal(got, want)
+
+
+def test_scatter_agg_plain_adds_in_slot_order():
+    """The plain version (the kernel's specification) adds client by
+    client and, within a client, slot by slot, duplicates included: the
+    sums equal numpy's unbuffered sequential ``add.at`` bit for bit."""
+    rng = np.random.default_rng(3)
+    n_cl, nblocks, k, block = 3, 4, 64, 40
+    vals = (rng.standard_normal((n_cl, nblocks, k))
+            * 10.0 ** rng.uniform(-4, 4, (n_cl, nblocks, k))) \
+        .astype(np.float32)
+    idx = rng.integers(0, block + 8, size=(n_cl, nblocks, k))
+    weight = np.array([1.0, 0.7, 3.0], np.float32)
+    want = np.zeros((nblocks, block), np.float32)
+    for j in range(n_cl):
+        for b in range(nblocks):
+            keep = idx[j, b] < block
+            np.add.at(want[b], idx[j, b][keep], vals[j, b][keep] * weight[j])
+    got = scatter_agg(t(vals), payloads.to_u16(t(idx)), t(weight), block)
+    assert_bits_equal(got, want)
 
 
 def test_plain_versions_take_strided_run_views():
