@@ -21,26 +21,43 @@ Phases, each fatal on failure (nonzero exit):
    960-block run with rows of ties and of NaNs written in (bits compared),
    and the kernel variant each run takes is printed;
 4. a small-input reference check: one reduced round on the card against the
-   same round on the CPU, for each uplink;
-5. the mask paths: full-width smollm-360m federated training (d =
-   361,821,120) on ``comm="pallas"``, T rounds with ``--uplink quant`` then T
-   with ``--uplink topk`` (4 clients, batch 2, seq 64), through the
-   launcher's ``setup`` and ``engine.rounds.run_rounds``;
+   same round on the CPU for each wire -- ``comm="pallas"`` with a top-k
+   or quant uplink; ``comm="dense"`` and ``"packed"`` with top-k or 8-bit
+   quant up and down; 6-bit quant up and down on ``"packed"`` (the dense
+   fallback); penalty-fedavg; centralized-sgm at n = m = 1 -- and, for
+   rand-k and natural compression, whose card streams differ from the
+   CPU's, a round that must be finite and a compressor that must contract;
+5. the mask paths on ``comm="pallas"``: full-width smollm-360m federated
+   training (d = 361,821,120), T rounds with ``--uplink quant`` then T with
+   ``--uplink topk`` (4 clients, all participating: the fused eval/step-1
+   round), through the launcher's ``setup`` and
+   ``engine.rounds.run_rounds``;
 6. gather against mask on the card: full width at 2 layers, 8 clients,
    4 of them in each of 2 rounds replayed through the ``fixed`` sampler,
-   top-k and quant up and down; state and per-round metrics bit-equal;
-7. the gather paths: full-width smollm-360m, 8 clients, 4 sampled per round
-   (``--participation gather``, ``uniform`` sampler), the same compressor
-   up and down (top-k 0.1, then 8-bit quant) through the engine API, T
-   rounds each.
+   top-k and quant up and down on ``comm="pallas"`` and rand-k up and down
+   on ``comm="packed"`` (per-client streams); state and per-round metrics
+   bit-equal;
+7. the gather paths on ``comm="pallas"``: full-width smollm-360m, 8
+   clients, 4 sampled per round (``--participation gather``, ``uniform``
+   sampler), the same compressor up and down (top-k 0.1, then 8-bit quant)
+   through the engine API, T rounds each;
+8. the dense and packed wires at full width, T rounds each: the reference
+   launcher's default wire (``comm="dense"``, top-k up and down, mask 4 of
+   4, fused), packed top-k up and down in gather mode (4 of 8,
+   ``full_eval=False``: the fused sparse eval, the library sort, the
+   sort-free embedding run), and packed 8-bit quant up and down (mask 4 of
+   4).
 
-In phases 5 and 7 the launch counts are zeroed just before each phase and
-read just after: each kernel must have launched exactly as often per round
-as the wire layout demands (the encode kernel once per wire run and
-direction, the reduce kernel once per run, ``segment_rows`` twice in a
-gather round); f and g_hat must be finite and ``down_bytes`` the downlink's
-wire bytes.  One more round per phase then runs under ``torch.profiler``
-for the device time by operator and the device's busy share.
+In phases 5, 7 and 8 the launch counts are zeroed just before each phase
+and read just after: each kernel must have launched exactly as often per
+round as the wire layout demands (on ``comm="pallas"`` the encode kernel
+once per wire run and direction; the reduce kernel once per run on the
+pallas and packed wires; ``segment_rows`` twice in a gather round; no
+kernel on the dense wire), and ``loss_pair`` as often as the round's
+forwards (n*E fused, n + m*E unfused); f and g_hat must be finite and
+``up_bytes`` / ``down_bytes`` the wires' bytes.  One more round per phase
+then runs under ``torch.profiler`` for the device time by operator and
+the device's busy share.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -347,27 +364,71 @@ def check_gather_kernels(torch, dev, layout, d, g, record):
     torch.cuda.empty_cache()
 
 
-def reference_check(torch):
-    """Phase 4: one reduced round on the card against the same round on the
-    CPU (plain versions), for each uplink."""
-    import numpy as np
-    from repro_torch import kernels
+# phase 4: (name, launcher arguments, compressed downlink, FedConfig changes)
+REFERENCE_CASES = [
+    ("pallas quant", ["--comm", "pallas", "--uplink", "quant"], False, {}),
+    ("pallas topk", ["--comm", "pallas", "--uplink", "topk"], False, {}),
+    ("dense topk up/down", ["--uplink", "topk"], True, {}),
+    ("dense quant up/down", ["--uplink", "quant"], True, {}),
+    ("packed topk up/down", ["--comm", "packed", "--uplink", "topk"], True,
+     {}),
+    ("packed quant up/down", ["--comm", "packed", "--uplink", "quant"], True,
+     {}),
+    ("packed quant6 up/down (dense fallback)",
+     ["--comm", "packed", "--uplink", "quant"], True, {"bits": 6}),
+    ("penalty-fedavg dense topk", ["--uplink", "topk", "--strategy",
+                                   "penalty-fedavg"], False, {}),
+    ("centralized-sgm dense topk", ["--uplink", "topk", "--clients", "1",
+                                    "--strategy", "centralized-sgm"], False,
+     {}),
+]
+# phase 4: random kinds, checked for finite values and contraction only
+RANDOM_CASES = [("packed randk up/down", "packed", "randk"),
+                ("dense natural up/down", "dense", "natural")]
+
+
+def reference_case(torch, argv, downlink, device="cpu", **over):
+    """The launcher's reduced setup on ``device`` for ``argv``, with the
+    uplink's compressor changed by ``over`` (kind, bits) and, with
+    ``downlink``, the same compressor on the downlink."""
+    from repro_torch.comm import flat
     from repro_torch.engine import rounds
     from repro_torch.launch import train
+    state, _, loss_pair, fed, cfg, _ = train.setup(train.parser().parse_args(
+        ["--reduced", "--seq", "16", "--device", device] + argv))
+    cc = dataclasses.replace(fed.uplink, **over)
+    fed = fed.replace(uplink=cc, downlink=cc if downlink else fed.downlink)
+    state = rounds.init_state(flat.unflatten(state.spec, state.w), fed,
+                              device=device)
+    return state, loss_pair, fed, cfg
+
+
+def reference_check(torch):
+    """Phase 4: one reduced round on the card against the same round on the
+    CPU (plain versions) for each wire, strategy and kind of
+    ``REFERENCE_CASES``; the random kinds of ``RANDOM_CASES`` must give a
+    finite round and a contractive compressor."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.comm import flat, transports
+    from repro_torch.engine import rounds
     from repro_torch.tasks import lm
-    for uplink in ("quant", "topk"):
-        args = train.parser().parse_args(
-            ["--reduced", "--seq", "16", "--device", "cpu", "--uplink",
-             uplink])
-        state, _, loss_pair, fed, cfg, _ = train.setup(args)
+    for name, argv, downlink, over in REFERENCE_CASES:
+        state, loss_pair, fed, cfg = reference_case(torch, argv, downlink,
+                                                    **over)
+        nc = fed.n_clients
         rng = np.random.default_rng(0)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2, 16)))
-        mask = torch.zeros((4, 2, 16))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (nc, 2, 16)))
+        mask = torch.zeros((nc, 2, 16))
         mask[..., -2:] = 1.0
         res = {}
         for device in ("cuda", "cpu"):
             on = state._replace(**{f: getattr(state, f).to(device) for f in
-                                   ("w", "e_up", "wbar_sum", "wbar_weight")})
+                                   ("w", "x", "e_up", "wbar_sum",
+                                    "wbar_weight")
+                                   if getattr(state, f) is not None})
+            if on.x is not None:
+                on = on._replace(x=on.w)
             new, met = rounds.round_step(
                 on, lm.LMBatch(toks.to(device), mask.to(device)), loss_pair,
                 fed, device=device)
@@ -377,26 +438,56 @@ def reference_check(torch):
         ok = (math.isclose(res["cuda"][1], res["cpu"][1], rel_tol=1e-4)
               and math.isclose(res["cuda"][2], res["cpu"][2], rel_tol=1e-4)
               and float(far.float().mean()) <= 1e-3)
-        print(json.dumps({"reference_check": uplink,
+        print(json.dumps({"reference_check": name, "comm": fed.comm,
+                          "strategy": fed.strategy,
                           "f": [res["cuda"][1], res["cpu"][1]],
                           "g_hat": [res["cuda"][2], res["cpu"][2]],
                           "w_far_fraction": float(far.float().mean()),
                           "ok": ok}), flush=True)
         if not ok:
-            raise AssertionError(f"reduced {uplink} round: card and CPU "
+            raise AssertionError(f"reduced round ({name}): card and CPU "
                                  "disagree")
+    for name, comm, kind in RANDOM_CASES:
+        state, loss_pair, fed, cfg = reference_case(
+            torch, ["--comm", comm], True, device="cuda", kind=kind)
+        cc = fed.uplink
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2, 16)))
+        mask = torch.zeros((4, 2, 16))
+        mask[..., -2:] = 1.0
+        new, met = rounds.round_step(
+            state, lm.LMBatch(toks.cuda(), mask.cuda()), loss_pair, fed,
+            device="cuda")
+        up = flat.FlatTransport(transports.get_transport(
+            cc, transports.backend_for(comm)), state.spec)
+        x = torch.randn(state.spec.d, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+        cx = up.decompress(up.compress(
+            x, transports.WireKey(0, 0, 0).generator(0, x.device)))
+        ratio = float(((cx - x) ** 2).sum() / (x ** 2).sum())
+        ok = (math.isfinite(float(met.f)) and math.isfinite(float(met.g_hat))
+              and bool(torch.isfinite(new.w).all()) and ratio < 1.0)
+        print(json.dumps({"random_check": name, "f": float(met.f),
+                          "g_hat": float(met.g_hat),
+                          "contraction_gap_ratio": ratio, "ok": ok}),
+              flush=True)
+        if not ok:
+            raise AssertionError(f"reduced round ({name}): not finite or "
+                                 "not contractive")
     kernels.reset_launches()
 
 
-def setup_phase(torch, argv, downlink: bool):
+def setup_phase(torch, argv, downlink: bool, **fed_over):
     """The launcher's ``setup`` for ``argv``; with ``downlink`` the uplink's
-    compressor runs on the downlink too, through the engine API (the
-    launcher keeps the identity downlink, as the reference's does)."""
+    compressor runs on the downlink too, and ``fed_over`` changes the
+    FedConfig, through the engine API (the launcher keeps the identity
+    downlink and the full eval, as the reference's does)."""
     from repro_torch.comm import flat
     from repro_torch.engine import rounds
     from repro_torch.launch import train
     state, batch_fn, loss_pair, fed, cfg, dev = train.setup(
         train.parser().parse_args(argv))
+    fed = fed.replace(**fed_over)
     if downlink:
         fed = fed.replace(downlink=fed.uplink)
         params = flat.unflatten(state.spec, state.w)
@@ -406,24 +497,52 @@ def setup_phase(torch, argv, downlink: bool):
     return state, batch_fn, loss_pair, fed, dev
 
 
-def train_phase(torch, name: str, argv, T: int, downlink: bool = False):
-    """Phases 5 and 7: full-width training rounds through the launcher's
+def expected_launches(fed, runs: int) -> dict:
+    """Kernel launches per round that the wire layout demands: on
+    ``comm="pallas"`` the uplink kind's encode kernel once per run and
+    compressed direction; the reduce kernel once per run on the pallas and
+    packed wires (the reference reaches neither on its dense wire); in a
+    gather round ``segment_rows`` twice (the message's float field and the
+    ``delta_norm`` deltas)."""
+    enc, red = PHASE_KERNELS[fed.uplink.kind]
+    want = {}
+    if fed.comm == "pallas":
+        want[enc] = runs * (2 if fed.downlink.kind != "none" else 1)
+    if fed.comm in ("pallas", "packed"):
+        want[red] = runs
+    if fed.participation == "gather":
+        want["segment_rows"] = 2
+    return want
+
+
+def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
+                **fed_over):
+    """Phases 5, 7 and 8: full-width training rounds through the launcher's
     setup and ``run_rounds``; returns the phase record (launch counts
     included).  Every kernel must launch as often as the wire layout
-    demands, and no other kernel may launch."""
+    demands, no other kernel may launch, and ``loss_pair`` must run once
+    per forward of the round (fused or not)."""
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.engine import rounds
-    state, batch_fn, loss_pair, fed, dev = setup_phase(torch, argv,
-                                                        downlink)
+    from repro_torch.comm import flat
+    from repro_torch.engine import participation, rounds, strategies
+    state, batch_fn, pair, fed, dev = setup_phase(torch, argv, downlink,
+                                                  **fed_over)
     if state.spec.d != D_FULL:
         raise AssertionError(f"d = {state.spec.d}, expected {D_FULL}")
     up, down = rounds.flat_transports_for(fed, state.spec)
-    runs = len(up.codec.layout.runs)
-    enc, red = PHASE_KERNELS[fed.uplink.kind]
-    want = {enc: runs * (2 if downlink else 1), red: runs}
-    if fed.participation == "gather":
-        want["segment_rows"] = 2    # payload floats + delta_norm deltas
+    runs = len(flat.wire_layout(state.spec, fed.uplink).runs)
+    want = expected_launches(fed, runs)
+    part = participation.finalize(torch.ones(fed.n_clients), None, fed)
+    fused = rounds.fuses(part, strategies.get_strategy(fed.strategy), fed)
+    local = fed.m if fed.participation == "gather" else fed.n_clients
+    want_pairs = local * fed.local_steps + (0 if fused else fed.n_clients)
+    calls = []
+
+    def loss_pair(params, batch):
+        calls.append(1)
+        return pair(params, batch)
+
     stamps = []
 
     def timed_batches(t, gen):
@@ -439,9 +558,11 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False):
     stamps.append(time.perf_counter())
     counts = kernels.launch_counts()
     per_round = [b - a for a, b in zip(stamps, stamps[1:])]
-    rec = {"phase": name, "d": state.spec.d, "clients": fed.n_clients,
-           "participating": fed.m, "participation": fed.participation,
-           "uplink": fed.uplink.kind, "downlink": fed.downlink.kind,
+    rec = {"phase": name, "d": state.spec.d, "comm": fed.comm,
+           "clients": fed.n_clients, "participating": fed.m,
+           "participation": fed.participation, "full_eval": fed.full_eval,
+           "fused": fused, "uplink": fed.uplink.kind,
+           "downlink": fed.downlink.kind,
            "rounds": T, "s_per_round": per_round,
            "s_per_round_after_first": (sum(per_round[1:]) / (T - 1)
                                        if T > 1 else None),
@@ -451,6 +572,8 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False):
            "down_bytes": int(hist.down_bytes[0]),
            "up_wire_bytes": up.wire_bytes(),
            "down_wire_bytes": down.wire_bytes(),
+           "loss_pair_per_round": len(calls) / T,
+           "loss_pair_per_round_expected": want_pairs,
            "alloc_retries": torch.cuda.memory_stats().get(
                "num_alloc_retries", 0),
            "launches": counts, "launches_per_round_expected": want}
@@ -460,14 +583,20 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False):
         raise AssertionError(f"{name}: non-finite f or g_hat")
     # RoundMetrics holds the bytes as float32 (as the reference does), which
     # rounds counts above 2^24
-    if not (hist.down_bytes == np.float32(down.wire_bytes())).all():
-        raise AssertionError(f"{name}: down_bytes {rec['down_bytes']} is "
-                             f"not the downlink's {down.wire_bytes()}")
+    for field, t in (("up_bytes", up), ("down_bytes", down)):
+        if not (getattr(hist, field) == np.float32(t.wire_bytes())).all():
+            raise AssertionError(f"{name}: {field} {rec[field]} is not the "
+                                 f"wire's {t.wire_bytes()}")
+    if len(calls) != want_pairs * T:
+        raise AssertionError(f"{name}: loss_pair ran {len(calls)} times, "
+                             f"expected {want_pairs * T}")
     for kname, cnt in counts.items():
         if cnt != want.get(kname, 0) * T:
             raise AssertionError(f"{name}: {kname} launched {cnt} times, "
                                  f"expected {want.get(kname, 0) * T}")
-    rec["profile"] = profile_round(torch, state, batch_fn, loss_pair, fed,
+    if rec["peak_mem_gb"] >= 80:
+        raise AssertionError(f"{name}: peak {rec['peak_mem_gb']} GB")
+    rec["profile"] = profile_round(torch, state, batch_fn, pair, fed,
                                    dev, rec["s_per_round_after_first"])
     print(json.dumps({"profile": name, **rec["profile"]}), flush=True)
     del state
@@ -506,14 +635,15 @@ def gather_mask_check(torch, dev, R: int = 2, layers: int = 2):
     def bits(x):
         return x.view(torch.int32) if x.dtype == torch.float32 else x
 
-    for kind in ("topk", "quant"):
+    for kind, comm in (("topk", "pallas"), ("quant", "pallas"),
+                       ("randk", "packed")):
         cc = CompressorConfig(kind=kind, ratio=0.1, bits=8)
         out = {}
         for mode in ("gather", "mask"):
             fed = FedConfig(
                 n_clients=N_GATHER, m=M_GATHER, local_steps=1, lr=0.03,
                 switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
-                uplink=cc, downlink=cc, comm="pallas", participation=mode,
+                uplink=cc, downlink=cc, comm=comm, participation=mode,
                 fleet=FleetConfig(sampler="fixed"))
             params = fns.init(torch.Generator(device=dev).manual_seed(0),
                               cfg, device=dev)
@@ -530,14 +660,16 @@ def gather_mask_check(torch, dev, R: int = 2, layers: int = 2):
         same_metrics = all(np.array_equal(getattr(hg, f).view(np.uint32),
                                           getattr(hm, f).view(np.uint32))
                            for f in rounds.RoundMetrics._fields)
-        rec = {"gather_vs_mask": kind, "d": sg.spec.d, "layers": layers,
+        rec = {"gather_vs_mask": kind, "comm": comm, "d": sg.spec.d,
+               "layers": layers,
                "rounds": R, "cohorts": masks.tolist(),
                "f": hg.f.tolist(), "g_hat": hg.g_hat.tolist(),
                "state_bit_equal": same_state,
                "metrics_bit_equal": same_metrics}
         print(json.dumps(rec), flush=True)
         if not (same_state and same_metrics):
-            raise AssertionError(f"gather and mask differ ({kind})")
+            raise AssertionError(f"gather and mask differ ({kind} on "
+                                 f"{comm})")
         del out, sg, sm
         torch.cuda.empty_cache()
 
@@ -630,16 +762,28 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     reference_check(torch)
     phases = [train_phase(torch, f"smollm-360m uplink={uplink}",
-                          ["--uplink", uplink], args.rounds)
+                          ["--comm", "pallas", "--uplink", uplink],
+                          args.rounds)
               for uplink in ("quant", "topk")]
     gather_mask_check(torch, dev)
     gather = ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
               "--participation", "gather"]
     phases += [train_phase(torch, f"smollm-360m gather {M_GATHER} of "
                            f"{N_GATHER} {kind} up and down",
-                           gather + ["--uplink", kind], args.rounds,
-                           downlink=True)
+                           gather + ["--comm", "pallas", "--uplink", kind],
+                           args.rounds, downlink=True)
                for kind in ("topk", "quant")]
+    phases += [
+        train_phase(torch, "smollm-360m dense topk up and down",
+                    ["--comm", "dense", "--uplink", "topk"], args.rounds,
+                    downlink=True),
+        train_phase(torch, f"smollm-360m packed gather {M_GATHER} of "
+                    f"{N_GATHER} topk up and down, full_eval=False",
+                    gather + ["--comm", "packed", "--uplink", "topk"],
+                    args.rounds, downlink=True, full_eval=False),
+        train_phase(torch, "smollm-360m packed quant up and down",
+                    ["--comm", "packed", "--uplink", "quant"], args.rounds,
+                    downlink=True)]
     # launches on the main paths: each phase's count, and their sum
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]

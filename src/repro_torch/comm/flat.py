@@ -11,12 +11,21 @@ mask and gather mode, for the uplink and the primal-EF21 downlink).
 * :class:`WireLayout` -- static per-leaf block geometry with consecutive
   same-geometry leaves merged into *runs*: one kernel launch per run, the
   client axis folded into the run's rows.
-* :class:`FlatTransport` -- EF14 encode + payload-domain reduce over
-  ``[n, d]`` stacks (or the m gathered rows, scattered back into ``[n,
-  ...]`` through ``segment_rows``): :class:`FlatPacked` (``block_topk``
-  encode, ``scatter_agg`` reduce) for top-k and :class:`FlatQuant` (fused
-  ``quantize_ef_pack`` encode, ``unpack_mma`` reduce) for quant; the
-  downlink packs one ``[d]`` buffer with the same encode kernels.
+* :class:`FlatTransport` -- EF14 encode + reduce over ``[n, d]`` stacks
+  (or the m gathered rows, scattered back into ``[n, ...]`` through
+  ``segment_rows``), for the uplink and the primal-EF21 downlink:
+
+  - dense wires (``comm="dense"``, ``natural``, quant at bit widths that
+    do not pack) run the per-leaf operators of
+    :mod:`repro_torch.core.compression` on the unflattened buffer (all
+    clients at once, or one client stream at a time for the random kinds)
+    and reduce with one weighted contraction over the client axis;
+  - packed wires reduce in the payload domain: :class:`FlatPacked`
+    (values + uint16 offsets, ``scatter_agg``) for top-k and rand-k and
+    :class:`FlatQuant` (bit-packed words, ``unpack_mma``) for quant.  On
+    ``comm="packed"`` top-k selects by a stable sort per block (sort-free
+    on giant leaves) and quant packs unfused; on ``comm="pallas"`` the
+    ``block_topk`` and fused ``quantize_ef_pack`` kernels encode.
 """
 from __future__ import annotations
 
@@ -26,13 +35,13 @@ import torch
 
 from repro_torch.comm import payloads, transports
 from repro_torch.comm.payloads import (FlatPacked, FlatQuant, PACK_BITS,
-                                       choose_block, to_u16, u16_to_i64,
-                                       unpack_codes, words_per_block,
-                                       _SORT_FREE_MIN)
+                                       choose_block, pack_codes, to_u16,
+                                       u16_to_i64, unpack_codes,
+                                       words_per_block, _SORT_FREE_MIN)
+from repro_torch.core import compression
+from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_ef_pack import quantize_ef_pack
-from repro_torch.kernels.scatter_agg import scatter_agg
 from repro_torch.kernels.topk_block import block_topk
-from repro_torch.kernels.unpack_mma import unpack_mma
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +125,13 @@ def tree_norm(spec: FlatSpec, flat: torch.Tensor) -> torch.Tensor:
     parts = [flat[ls.offset:ls.offset + ls.size].to(torch.float32)
              .square().sum() for ls in spec.leaves]
     return torch.sqrt(sum(parts))
+
+
+def struct_tree(spec: FlatSpec) -> dict:
+    """The parameter tree's shapes and dtypes as ``meta`` tensors (for the
+    tree transports' wire accounting)."""
+    return unflatten(spec, torch.empty(spec.d, dtype=spec.dtype,
+                                       device="meta"))
 
 
 def project_ball(spec: FlatSpec, flat: torch.Tensor, radius: float):
@@ -229,20 +245,23 @@ def _cat(xs):
 class _SelectCodec:
     """FlatPacked (values + uint16 offsets) for block top-k."""
 
+    per_client_keys = False
     fused_ef = False
 
-    def __init__(self, cfg, spec: FlatSpec, layout: WireLayout):
-        self.cfg, self.spec, self.layout = cfg, spec, layout
+    def __init__(self, cfg, spec: FlatSpec, layout: WireLayout,
+                 pallas: bool = False):
+        self.cfg, self.spec, self.layout, self.pallas = \
+            cfg, spec, layout, pallas
 
-    def pack(self, buf: torch.Tensor) -> FlatPacked:
-        """``[*lead, d]`` -> FlatPacked ``[*lead, K_total]``: one
-        ``block_topk`` launch per run, the client axis folded into the
-        run's rows."""
+    def pack(self, buf: torch.Tensor, gen=None) -> FlatPacked:
+        """``[*lead, d]`` -> FlatPacked ``[*lead, K_total]``: one selection
+        per run (one ``block_topk`` launch on the pallas backend), the
+        client axis folded into the run's rows."""
         lead = tuple(buf.shape[:-1])
         vs, js = [], []
         for r in self.layout.runs:
             blocks = run_view(buf, r)
-            if r.k < r.block:
+            if self.pallas and r.k < r.block:
                 vals, idx = block_topk(blocks, r.k)
                 idx = to_u16(idx)
             else:
@@ -269,15 +288,15 @@ class _SelectCodec:
 
     def reduce(self, p: FlatPacked, weights: torch.Tensor, m) -> torch.Tensor:
         """Payload-domain aggregation: per run, the stacked (value, offset)
-        streams reduce into dense destination blocks (``scatter_agg``)."""
+        streams reduce into dense destination blocks (``ops.scatter_agg``:
+        the ``scatter_agg`` kernel on the card)."""
         n = p.values.shape[0]
-        weights = weights.to(torch.float32)
         outs = []
         for r in self.layout.runs:
             sl = slice(r.koff, r.koff + r.nblocks * r.k)
             vals = p.values[:, sl].reshape(n, r.nblocks, r.k)
             idx = p.indices[:, sl].reshape(n, r.nblocks, r.k)
-            acc = scatter_agg(vals, idx, weights, r.block)
+            acc = ops.scatter_agg(vals, idx, weights, r.block)
             outs.append(acc.reshape(r.span))
         return _cat(outs).to(self.spec.dtype) / m
 
@@ -286,15 +305,51 @@ class _SelectCodec:
         return int(self.layout.K_total * (itemsize + 2))
 
 
+class _RandkCodec(_SelectCodec):
+    """Rand-k in the FlatPacked format (decode and reduce shared); packing
+    draws each leaf's uniforms from one client's generator, leaf by leaf as
+    the tree packer does, so it runs one client row at a time."""
+
+    per_client_keys = True
+
+    def pack(self, buf: torch.Tensor, gen=None) -> FlatPacked:
+        if gen is None:
+            raise ValueError("randk needs a generator")
+        vs, js = [], []
+        for ls in self.spec.leaves:
+            leaf = buf[ls.offset:ls.offset + ls.size].reshape(
+                ls.shape if ls.shape else (1,))
+            p = payloads.block_randk_pack(leaf, self.cfg, gen)
+            vs.append(p.values.reshape(-1))
+            js.append(p.indices.reshape(-1))
+        return FlatPacked(_cat(vs), _cat(js))
+
+
 class _QuantCodec:
     """FlatQuant (bit-packed uint32 words + per-block scales); reduce is the
-    fused unpack-multiply-add over the client axis (``unpack_mma``)."""
+    unpack-multiply-add over the client axis (``ops.quant_agg``: the
+    ``unpack_mma`` kernel on the card)."""
 
+    per_client_keys = False
     fused_ef = False
 
-    def __init__(self, cfg, spec: FlatSpec, layout: WireLayout):
-        self.cfg, self.spec, self.layout = cfg, spec, layout
+    def __init__(self, cfg, spec: FlatSpec, layout: WireLayout,
+                 pallas: bool = False):
+        self.cfg, self.spec, self.layout, self.pallas = \
+            cfg, spec, layout, pallas
         self.levels = float(2 ** (cfg.bits - 1) - 1)
+
+    def pack(self, buf: torch.Tensor, gen=None) -> FlatQuant:
+        """Unfused: quantize each run's blocks, then pack the codes."""
+        lead = tuple(buf.shape[:-1])
+        ws, ss = [], []
+        for r in self.layout.runs:
+            codes, scale = payloads.quant_blocks(run_view(buf, r),
+                                                 self.cfg.bits)
+            words = pack_codes(codes, self.cfg.bits)
+            ws.append(words.reshape(lead + (r.nblocks * r.W,)))
+            ss.append(scale.to(torch.float32).reshape(lead + (r.nblocks,)))
+        return FlatQuant(_cat(ws), _cat(ss))
 
     def decode(self, q: FlatQuant) -> torch.Tensor:
         lead = tuple(q.words.shape[:-1])
@@ -312,13 +367,13 @@ class _QuantCodec:
 
     def reduce(self, q: FlatQuant, weights: torch.Tensor, m) -> torch.Tensor:
         n = q.words.shape[0]
-        weights = weights.to(torch.float32)
         outs = []
         for r in self.layout.runs:
             words = q.words[:, r.woff:r.woff + r.nblocks * r.W].reshape(
                 n, r.nblocks, r.W)
             scale = q.scale[:, r.boff:r.boff + r.nblocks]
-            acc = unpack_mma(words, scale, weights, self.cfg.bits, r.block)
+            acc = ops.quant_agg(words, scale, weights, self.cfg.bits,
+                                r.block)
             outs.append(acc.reshape(r.span))
         return _cat(outs).to(self.spec.dtype) / m
 
@@ -346,28 +401,30 @@ class _QuantPallasCodec(_QuantCodec):
             es.append(e_new.reshape(lead + (r.span,)))
         return FlatQuant(_cat(ws), _cat(ss)), _cat(es)
 
-    def pack(self, buf: torch.Tensor) -> FlatQuant:
+    def pack(self, buf: torch.Tensor, gen=None) -> FlatQuant:
         msg, _ = self.ef(torch.zeros_like(buf), buf)
         return msg
 
 
 def _make_codec(t: transports.Transport, spec: FlatSpec):
-    """The flat wire codec for a transport, or None for the identity."""
-    if t.kind == "none":
+    """The flat wire codec for a transport, or None for a dense wire (the
+    ref backend, ``none``, ``natural``, quant at a bit width that does not
+    pack)."""
+    if t.backend == "ref" or t.kind in ("none", "natural"):
         return None
-    if t.backend != "pallas":
-        raise NotImplementedError(
-            f"the {t.backend!r} backend ({t.kind} on comm="
-            f"{'dense' if t.backend == 'ref' else t.backend}) is not ported "
-            "yet: only comm='pallas'")
     layout = wire_layout(spec, t.cfg)
+    pallas = t.backend == "pallas"
     if t.kind == "topk":
-        return _SelectCodec(t.cfg, spec, layout)
-    if t.cfg.bits not in PACK_BITS:
-        raise NotImplementedError(
-            f"quant at bits={t.cfg.bits} (the dense-wire fallback) is not "
-            f"ported yet; packable widths: {PACK_BITS}")
-    return _QuantPallasCodec(t.cfg, spec, layout)
+        return _SelectCodec(t.cfg, spec, layout, pallas)
+    if t.kind == "randk":
+        return _RandkCodec(t.cfg, spec, layout)
+    if t.kind == "quant":
+        if t.cfg.bits not in PACK_BITS:
+            return None
+        if pallas:
+            return _QuantPallasCodec(t.cfg, spec, layout, pallas=True)
+        return _QuantCodec(t.cfg, spec, layout)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -377,21 +434,29 @@ def _make_codec(t: transports.Transport, spec: FlatSpec):
 class FlatTransport:
     """One direction of the wire path over flat ``[d]`` buffers:
     ``e``/``deltas`` are ``[n, d]`` stacks (mask mode) or the m
-    participants' ``[m, d]`` rows (gather mode), messages are flat payloads.
+    participants' ``[m, d]`` rows (gather mode), messages are dense
+    ``[*, d]`` buffers or flat payloads.  ``key`` is the round's
+    :class:`repro_torch.comm.transports.WireKey` (used by the random kinds
+    only).
 
     Usage::
 
-        >>> up = FlatTransport(get_transport(cfg, "pallas"), spec_of(params))
-        >>> v_bar, e_new = up.transmit(e, deltas, mask, m)
+        >>> up = FlatTransport(get_transport(cfg, "packed"), spec_of(params))
+        >>> v_bar, e_new = up.transmit(e, deltas, mask, m, key=key)
     """
 
     def __init__(self, t: transports.Transport, spec: FlatSpec):
-        self.t = t
         self.cfg = t.cfg
         self.kind = t.kind
         self.backend = t.backend
         self.spec = spec
         self.codec = _make_codec(t, spec)
+        if self.codec is None and t.kind == "quant" and t.backend != "ref":
+            # quant at a bit width that does not pack, on the packed or
+            # pallas backend: the dense wire of the ref transport (the same
+            # values as the dense quantizer, bit for bit)
+            t = transports.get_transport(t.cfg, "ref")
+        self.t = t
 
     @property
     def is_identity(self) -> bool:
@@ -402,89 +467,122 @@ class FlatTransport:
         return self.t.tracks_center
 
     @property
+    def needs_key(self) -> bool:
+        return self.t.needs_key
+
+    @property
     def wire(self) -> str:
         return "dense" if self.codec is None else "packed"
 
     def wire_bytes(self) -> int:
         """True wire bytes of one message: packed formats count their
-        arrays (uint32 words, uint16 offsets), the identity the dense
-        buffer."""
+        arrays (uint32 words, uint16 offsets); dense wires take the tree
+        transport's accounting."""
         if self.codec is None:
-            itemsize = torch.empty((), dtype=self.spec.dtype).element_size()
-            return int(self.spec.d * itemsize)
+            return self.t.wire_bytes(struct_tree(self.spec))
         return self.codec.wire_bytes()
 
     # -- wire primitives ----------------------------------------------------
 
-    def compress(self, buf: torch.Tensor):
-        """Flat message for one ``[d]`` buffer (the operator C)."""
-        if self.codec is None:
+    def compress(self, buf: torch.Tensor, gen=None):
+        """Flat message of one ``[d]`` buffer (the operator C); ``gen`` is
+        the random kinds' generator."""
+        if self.is_identity:
             return buf
-        return self.codec.pack(buf)
+        if self.codec is None:
+            return self._dense(buf, gen)
+        return self.codec.pack(buf, gen)
 
     def decompress(self, message) -> torch.Tensor:
         if self.codec is None:
             return message
         return self.codec.decode(message)
 
+    def _dense(self, buf: torch.Tensor, gen=None) -> torch.Tensor:
+        """A dense wire's message of ``[*lead, d]``: every dense wire's
+        operator is :func:`repro_torch.core.compression.compress`, run on
+        the unflattened buffer with the lead axes as batch axes."""
+        batch = buf.dim() - 1
+        return flatten(self.spec, compression.compress(
+            unflatten(self.spec, buf), self.cfg, gen, batch))
+
     # -- round-level call sites ---------------------------------------------
 
-    def _ef_clients(self, e, deltas):
-        if self.codec.fused_ef:
+    def _ef_clients(self, e, deltas, key, ids):
+        """EF14 over the rows of the client ids ``ids``: ``(msgs,
+        e_new)``."""
+        if self.codec is not None and self.codec.fused_ef:
             return self.codec.ef(e, deltas)
         buf = e + deltas
-        msgs = self.codec.pack(buf)
-        return msgs, buf.sub_(self.codec.decode(msgs))   # buf is ours
+        if self.needs_key:
+            if key is None:
+                raise ValueError(f"{self.kind} needs the round's WireKey")
+            rows = [self.compress(buf[i], key.generator(j, buf.device))
+                    for i, j in enumerate(ids)]
+            msgs = torch.stack(rows) if self.codec is None else \
+                type(rows[0])(*(torch.stack(f) for f in zip(*rows)))
+        elif self.codec is None:
+            msgs = self._dense(buf)
+        else:
+            msgs = self.codec.pack(buf)
+        return msgs, buf.sub_(self.decompress(msgs))      # buf is ours
 
-    def encode(self, e, deltas, mask):
+    def encode(self, e, deltas, mask, key=None):
         """Per-client EF14 encode over the ``[n, d]`` stacks: ``(msgs,
         e_new)``; rows with ``mask == 0`` keep their residual.  The residual
         ``e`` is updated in place (the ``[n, d]`` buffer is the largest
         state of a round) and returned."""
         if self.is_identity:
             return deltas, e
-        msgs, e_stack = self._ef_clients(e, deltas)
+        msgs, e_stack = self._ef_clients(e, deltas, key,
+                                         range(deltas.shape[0]))
         return msgs, transports.mask_where(mask, e_stack, e, out=e)
 
-    def encode_gathered(self, e, deltas, idx, mask, unique: bool = True):
+    def encode_gathered(self, e, deltas, idx, mask, unique: bool = True,
+                        key=None):
         """Compute-sparse encode: ``deltas`` holds the m participants' rows
-        (``idx``, sorted); per-client results match :meth:`encode`'s.  The
-        participants' residual rows are written back into ``e`` in place
-        (``index_copy_``: any write wins, so the repeated ids of a short
-        cohort write the same row) and the messages are scattered into the
-        ``[n, ...]`` layout (``unique=False`` for a short cohort: see
-        :func:`transports.scatter_rows`)."""
+        (``idx``, sorted); per-client results, random streams included,
+        match :meth:`encode`'s.  The participants' residual rows are
+        written back into ``e`` in place (``index_copy_``: any write wins,
+        so the repeated ids of a short cohort write the same row) and the
+        messages are scattered into the ``[n, ...]`` layout (``unique=False``
+        for a short cohort: see :func:`transports.scatter_rows`)."""
         n = mask.shape[0]
         if self.is_identity:
             return transports.scatter_rows(deltas, idx, n, unique), e
-        msgs, e_stack = self._ef_clients(e.index_select(0, idx), deltas)
+        ids = idx.tolist() if self.needs_key else None
+        msgs, e_stack = self._ef_clients(e.index_select(0, idx), deltas, key,
+                                         ids)
         e.index_copy_(0, idx, e_stack)
         return transports.scatter_rows(msgs, idx, n, unique), e
 
     def reduce(self, msgs, weights, m) -> torch.Tensor:
         """Weighted aggregation of stacked messages into ``[d]``:
-        ``sum_j weights_j * decode(msgs_j) / m``, in the payload domain."""
+        ``sum_j weights_j * decode(msgs_j) / m``, in the payload domain on
+        a packed wire."""
         if self.wire == "dense":
             return transports.masked_mean(msgs, weights, m)
         return self.codec.reduce(msgs, weights, m)
 
-    def transmit(self, e, deltas, mask, m):
+    def transmit(self, e, deltas, mask, m, key=None):
         if self.is_identity:
             return self.reduce(deltas, mask, m), e
-        msgs, e_out = self.encode(e, deltas, mask)
+        msgs, e_out = self.encode(e, deltas, mask, key)
         return self.reduce(msgs, mask, m), e_out
 
     def transmit_gathered(self, e, deltas, idx, mask, m,
-                          unique: bool = True):
-        msgs, e_out = self.encode_gathered(e, deltas, idx, mask, unique)
+                          unique: bool = True, key=None):
+        msgs, e_out = self.encode_gathered(e, deltas, idx, mask, unique, key)
         return self.reduce(msgs, mask, m), e_out
 
-    def broadcast(self, w: torch.Tensor, x_new: torch.Tensor) -> torch.Tensor:
+    def broadcast(self, w: torch.Tensor, x_new: torch.Tensor,
+                  key=None) -> torch.Tensor:
         """Primal-EF21 downlink on flat buffers: ``w' = w + C(x_new - w)``
         (the identity returns ``x_new``)."""
         if self.is_identity:
             return x_new
-        return w + self.decompress(self.compress(x_new - w))
+        gen = key.generator(0, w.device) if self.needs_key else None
+        return w + self.decompress(self.compress(x_new - w, gen))
 
 
 def flat_transports_for(cfg, spec: FlatSpec):

@@ -1,5 +1,5 @@
 """Configuration dataclasses (port of ``repro.configs.base``, the part the
-dense LM trainer on the compressed wire needs).
+dense LM trainer on every wire needs).
 
 Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
 full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
@@ -53,8 +53,8 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class CompressorConfig:
-    kind: str = "none"              # none | topk | quant
-    ratio: float = 0.1              # topk: k/block
+    kind: str = "none"              # none | topk | randk | quant | natural
+    ratio: float = 0.1              # topk/randk: k/d (k/block blockwise)
     bits: int = 8                   # quant: bits per code
     block: int = 1024               # preferred block (largest divisor <= it)
     shards: int = 1                 # blocks divide D/shards when possible
@@ -81,17 +81,19 @@ class FedConfig:
     switch: SwitchConfig = field(default_factory=SwitchConfig)
     uplink: CompressorConfig = field(default_factory=CompressorConfig)
     downlink: CompressorConfig = field(default_factory=CompressorConfig)
-    comm: str = "pallas"            # the compressed wire (dense/packed: not
-                                    # ported yet)
+    comm: str = "dense"             # dense | packed | pallas (the wire
+                                    # backend: comm.transports.backend_for)
     proj_radius: float = 0.0        # Pi_X: L2 ball radius (0 => none)
     track_wbar: bool = True         # keep the averaged-iterate accumulator
     seed: int = 0
     strategy: str = "fedsgm"        # engine.strategies registry key
     participation: str = "mask"     # mask (dense simulation) | gather
                                     # (compute-sparse: local steps over m)
-    full_eval: bool = True          # eval forward over all n clients (False,
-                                    # the fused eval path: not ported yet)
+    full_eval: bool = True          # eval forward over all n clients; False:
+                                    # the m sampled only, fused with the
+                                    # first local step (engine.rounds)
     lean_metrics: bool = False      # skip the per-round delta_norm reduction
+    rho: float = 1.0                # penalty-fedavg strength
     fleet: FleetConfig = field(default_factory=FleetConfig)
 
     def replace(self, **kw) -> "FedConfig":

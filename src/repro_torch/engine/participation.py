@@ -106,12 +106,13 @@ def aggregate(part: Participation, deltas: torch.Tensor) -> torch.Tensor:
     return transports.masked_mean(scatter_rows(part, deltas), w, part.m)
 
 
-def transmit(transport, e, deltas, part: Participation):
+def transmit(transport, e, deltas, part: Participation, key=None):
     """The engine's single uplink call site: EF14 + aggregation, dispatched
-    to the transport's dense-mask or gathered execution.  Returns
+    to the transport's dense-mask or gathered execution; ``key`` is the
+    round's uplink :class:`repro_torch.comm.transports.WireKey`.  Returns
     ``(v_bar, e_new)``."""
     w = agg_weights(part)
     if part.idx is None:
-        return transport.transmit(e, deltas, w, part.m)
+        return transport.transmit(e, deltas, w, part.m, key=key)
     return transport.transmit_gathered(e, deltas, part.idx, w, part.m,
-                                       unique=not part.short)
+                                       unique=not part.short, key=key)

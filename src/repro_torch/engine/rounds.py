@@ -20,9 +20,20 @@ Between sampling and the next :class:`FedState` the model is ONE contiguous
 state holds that flat buffer itself; ``flat.unflatten(state.spec, state.w)``
 gives the parameter views.  Clients run one after another; each client's
 gradient comes from autograd on a flat leaf, through the views of
-``unflatten``.  This is the reference's unfused path with
-``full_eval=True`` (a separate eval forward over all n clients); its fused
-eval/step-1 path (``full_eval=False``) is not ported yet.
+``unflatten``.
+
+When the eval rows are the local-step rows -- ``full_eval=False`` (the m
+sampled clients), or full participation in mask mode (all n) -- and the
+strategy's objective factors through ``blend_values``, stages 2 and 4 fuse
+as in the reference: each row's (f_j, g_j) forward keeps its graph, sigma
+comes from their aggregate, and the first local step's gradient is the
+backward of that same forward seeded with ``d(blend)/d(f_j, g_j)``.  One
+forward per client fewer per round.  Elsewhere the eval is a separate
+no-grad forward.
+
+The compression randomness of the random kinds is one
+:class:`repro_torch.comm.transports.WireKey` per round and direction
+(seed, round, direction), from which each client's generator derives.
 """
 from __future__ import annotations
 
@@ -65,19 +76,13 @@ class RoundMetrics(NamedTuple):
 
 
 def check_ported(cfg) -> None:
-    """Raise for the parts of a FedConfig the port does not run yet."""
+    """Raise for the parts of a FedConfig the port does not run yet (and
+    for a config the strategy rejects)."""
     if cfg.participation not in participation.MODES:
         raise NotImplementedError(
             f"participation mode {cfg.participation!r} is not ported yet")
-    compressed = cfg.uplink.kind != "none" or cfg.downlink.kind != "none"
-    if compressed and cfg.comm != "pallas":
-        raise NotImplementedError(
-            f"comm={cfg.comm!r} is not ported yet: only comm='pallas'")
-    if not cfg.full_eval:
-        raise NotImplementedError(
-            "full_eval=False (the fused eval/step-1 path) is not ported yet")
     samplers.get_sampler(cfg.fleet.sampler)
-    strategies.get_strategy(cfg.strategy)
+    strategies.get_strategy(cfg.strategy).validate(cfg)
 
 
 def transports_for(cfg):
@@ -129,49 +134,109 @@ def eval_clients(params, batches, loss_pair: Callable, n: int):
             torch.stack([p[1] for p in pairs]))
 
 
-def _eval_aggregates(part, f_ev, g_ev, m: int):
+def _eval_aggregates(part, f_ev, g_ev, sparse_eval: bool, m: int):
+    """Participating and all-evaluated aggregates of the per-row (f, g):
+    ``sparse_eval`` when the rows are the m gathered participants."""
     w_agg = participation.agg_weights(part)
+    if sparse_eval:
+        w_agg = w_agg.index_select(0, part.idx)
     g_hat = torch.sum(w_agg * g_ev) / m
     f_part = torch.sum(w_agg * f_ev) / m
     return f_part, g_hat, g_ev.mean(), f_ev.mean()
 
 
 def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
-                 n: int) -> torch.Tensor:
+                 n: int, first=None) -> torch.Tensor:
     """Stage 4: E local SGD steps for each of the n rows of ``local_b`` on
     the strategy objective, ``Delta_j = (wf - w_{j,E}) / eta`` as one
-    ``[n, d]`` stack."""
+    ``[n, d]`` stack.  ``first(j)``, when given, is row j's first-step
+    gradient (the fused round's backward); the other steps are ordinary
+    forward + backward passes."""
     E, eta = cfg.local_steps, cfg.lr
     obj = strat.local_objective(loss_pair, sigma, cfg)
     deltas = torch.empty((n, spec.d), dtype=wf.dtype, device=wf.device)
     for j in range(n):
         batch = client_batch(local_b, j)
         w = wf
-        for _ in range(E):
-            leaf = w.detach().requires_grad_(True)
-            (grad,) = torch.autograd.grad(
-                obj(flat.unflatten(spec, leaf), batch), leaf)
+        for step in range(E):
+            if step == 0 and first is not None:
+                grad = first(j)
+            else:
+                leaf = w.detach().requires_grad_(True)
+                (grad,) = torch.autograd.grad(
+                    obj(flat.unflatten(spec, leaf), batch), leaf)
             w = w - eta * grad
         torch.sub(wf, w, out=deltas[j])
         deltas[j].div_(eta)
     return deltas
 
 
+def fuses(part, strat, cfg) -> bool:
+    """Whether the round fuses its eval with the first local step: the eval
+    rows must be the local-step rows (``full_eval`` off, or mask mode at
+    full participation) and the strategy's objective must factor through
+    ``blend_values`` (overriding ``local_objective`` opts out).  Partial
+    participation in mask mode stays unfused, as in the reference, so that
+    mask and gather mode run the same eval."""
+    return ((not cfg.full_eval
+             or (part.idx is None and cfg.m >= cfg.n_clients))
+            and type(strat).local_objective
+            is strategies.Strategy.local_objective)
+
+
+def _fused_eval(wf, spec, strat, local_b, loss_pair: Callable, cfg, part,
+                sparse_eval: bool):
+    """The fused round's stages 2-3: row j's (f_j, g_j) forward on its own
+    leaf, graph kept; the aggregates and sigma; then ``first(j)``, row j's
+    step-1 gradient, the backward of that forward seeded with
+    ``d(blend)/d(f_j, g_j)`` (per row: penalty-fedavg's seed depends on
+    g_j).  Returns ``(aggregates, sigma, first)``."""
+    leaves, pairs = [], []
+    for j in range(local_b[0].shape[0]):
+        leaf = wf.detach().requires_grad_(True)
+        pairs.append(loss_pair(flat.unflatten(spec, leaf),
+                               client_batch(local_b, j)))
+        leaves.append(leaf)
+    f_ev = torch.stack([f.detach() for f, _ in pairs])
+    g_ev = torch.stack([g.detach() for _, g in pairs])
+    aggs = _eval_aggregates(part, f_ev, g_ev, sparse_eval, cfg.m)
+    sigma = strat.switch_weight(aggs[1], cfg)
+
+    def first(j):
+        fj, gj = (v.detach().requires_grad_(True) for v in pairs[j])
+        seeds = torch.autograd.grad(strat.blend_values(fj, gj, sigma, cfg),
+                                    (fj, gj))
+        (grad,) = torch.autograd.grad(pairs[j], leaves[j], seeds)
+        pairs[j] = leaves[j] = None        # row j's graph is spent
+        return grad
+
+    return aggs, sigma, first
+
+
 def compute_round(state: FedState, wf, spec, batches, part, strat,
                   loss_pair: Callable, cfg):
-    """Stages 2-4 on the flat buffer: the constraint query over all n
-    clients, the switch weight and the E local steps over the local rows
-    (all n in mask mode, the m gathered participants in gather mode).
-    Returns ``(f_part, g_hat, g_full, f_full, sigma, deltas)``; ``deltas``
-    is ``[n, d]`` or ``[m, d]``."""
-    f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), batches, loss_pair,
-                              cfg.n_clients)
-    f_part, g_hat, g_full, f_full = _eval_aggregates(part, f_ev, g_ev, cfg.m)
-    sigma = strat.switch_weight(g_hat, cfg)
+    """Stages 2-4 on the flat buffer: the constraint query, the switch
+    weight and the E local steps over the local rows (all n in mask mode,
+    the m gathered participants in gather mode).  The eval runs over all n
+    clients unless ``full_eval`` is off (then over the m participants), and
+    fuses with the first local step where :func:`fuses` says so.  Returns
+    ``(f_part, g_hat, g_full, f_full, sigma, deltas)``; ``deltas`` is
+    ``[n, d]`` or ``[m, d]``."""
+    sparse_eval = part.idx is not None and not cfg.full_eval
     local_b = participation.gather(part, batches)
+    n_local = local_b[0].shape[0]
+    if fuses(part, strat, cfg):
+        aggs, sigma, first = _fused_eval(wf, spec, strat, local_b, loss_pair,
+                                         cfg, part, sparse_eval)
+    else:
+        eval_b = local_b if sparse_eval else batches
+        f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), eval_b,
+                                  loss_pair, eval_b[0].shape[0])
+        aggs = _eval_aggregates(part, f_ev, g_ev, sparse_eval, cfg.m)
+        sigma, first = strat.switch_weight(aggs[1], cfg), None
     deltas = local_deltas(wf, spec, strat, sigma, local_b, loss_pair, cfg,
-                          local_b[0].shape[0])
-    return f_part, g_hat, g_full, f_full, sigma, deltas
+                          n_local, first)
+    return (*aggs, sigma, deltas)
 
 
 def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
@@ -182,7 +247,9 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
     accounting, metrics."""
     xf = state.x if state.x is not None else wf
     x_new = strat.server_update(xf, v_bar, cfg, spec)
-    w_new = downlink.broadcast(wf, x_new)
+    w_new = downlink.broadcast(
+        wf, x_new, key=transports.WireKey(cfg.seed, state.t,
+                                          transports.DOWNLINK))
     alpha = strat.iterate_weight(g_hat, cfg)
     wbar_sum = (axpy(alpha, state.w, state.wbar_sum)
                 if state.wbar_sum is not None else None)
@@ -223,7 +290,9 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
     f_part, g_hat, g_full, f_full, sigma, deltas = compute_round(
         state, wf, spec, batches, part, strat, loss_pair, cfg)
     uplink, downlink = flat_transports_for(cfg, spec)
-    v_bar, e_up = participation.transmit(uplink, state.e_up, deltas, part)
+    v_bar, e_up = participation.transmit(
+        uplink, state.e_up, deltas, part,
+        key=transports.WireKey(cfg.seed, state.t, transports.UPLINK))
     return finish_round(state, strat, cfg, spec, wf, part, deltas, v_bar,
                         e_up, uplink, downlink, samp_state, f_part, g_hat,
                         g_full, f_full, sigma)

@@ -1,5 +1,7 @@
 """Strategy registry for the engine round (port of
-``repro.engine.strategies``: ``fedsgm`` and ``fedsgm-soft``).
+``repro.engine.strategies``: ``fedsgm``, ``fedsgm-soft``,
+``penalty-fedavg`` and ``centralized-sgm``; the async ``staleness_weight``
+law waits for the async engine).
 
 A :class:`Strategy` supplies only the round's pluggable math:
 
@@ -11,6 +13,8 @@ A :class:`Strategy` supplies only the round's pluggable math:
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.comm import flat
 from repro_torch.core import switching
@@ -27,20 +31,25 @@ def get_strategy(name: str) -> "Strategy":
     try:
         cls = _STRATEGIES[name]
     except KeyError:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet; ported: "
-            f"{sorted(_STRATEGIES)}") from None
+        raise ValueError(f"unknown strategy {name!r}; registered: "
+                         f"{sorted(_STRATEGIES)}") from None
     return cls()
 
 
 class Strategy:
     name: str = "?"
 
+    def validate(self, cfg) -> None:
+        """Raise when ``cfg`` does not suit the strategy."""
+
     def switch_weight(self, g_hat, cfg):
         raise NotImplementedError
 
     def blend_values(self, f, g, sigma, cfg):
-        """The local objective as a function of the (f, g) pair."""
+        """The local objective as a function of the (f, g) pair.  A strategy
+        whose objective factors through it (the base ``local_objective``)
+        gets the engine's fused eval/step-1 round, with ``d(blend)/d(f, g)``
+        as the backward's seeds."""
         raise NotImplementedError
 
     def local_objective(self, loss_pair, sigma, cfg):
@@ -87,3 +96,39 @@ class FedSGMSoft(FedSGM):
         if cfg.switch.mode == "soft":
             return cfg.switch
         return dataclasses.replace(cfg.switch, mode="soft")
+
+
+@register_strategy
+class PenaltyFedAvg(FedSGM):
+    """Penalty-based FedAvg: E local steps on f + rho * [g - eps]_+ with a
+    fixed rho, no switching; every round weighs 1 in the averaged
+    iterate."""
+
+    name = "penalty-fedavg"
+
+    def switch_weight(self, g_hat, cfg):
+        return torch.zeros((), device=g_hat.device)
+
+    def blend_values(self, f, g, sigma, cfg):
+        # maximum, not clamp: at g == eps its gradient splits 1/2 : 1/2,
+        # as the reference's jnp.maximum does
+        return f + cfg.rho * torch.maximum(g - cfg.switch.eps,
+                                           torch.zeros_like(g))
+
+    def iterate_weight(self, g_hat, cfg):
+        return torch.ones((), device=g_hat.device)
+
+
+@register_strategy
+class CentralizedSGM(FedSGM):
+    """The centralized switching gradient method: Algorithm 1 at
+    n_clients == m == 1."""
+
+    name = "centralized-sgm"
+
+    def validate(self, cfg) -> None:
+        if cfg.n_clients != 1 or cfg.m != 1:
+            raise ValueError(
+                "centralized-sgm is the n_clients == m == 1 special case; "
+                f"got n_clients={cfg.n_clients}, m={cfg.m} "
+                "(use strategy='fedsgm' for federated runs)")

@@ -1,17 +1,39 @@
 """Shape-generic entry points around the kernels (port of
 ``repro.kernels.ops``).  The reference picks an implementation per shape
-through its tuner; the port has one implementation per kernel (the CUDA
-kernel of the TPU plan, ``tune.py:83-93``, with the plain version on CPU
-tensors), so these wrappers only reshape, pad and cast."""
+through its tuner (``repro.kernels.tune``, not ported); the port has one
+implementation per kernel -- the CUDA kernel of the reference's seeded TPU
+plan (``tune.py:81-97``) on CUDA tensors, its plain version on CPU tensors
+-- so these wrappers only reshape, pad and cast."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import scatter_agg as _scatter_agg
 from repro_torch.kernels.quantize_ef import quantize_ef
-from repro_torch.kernels.scatter_agg import scatter_agg  # noqa: F401
-from repro_torch.kernels.scatter_agg import segment_rows as _segment_rows
 from repro_torch.kernels.switch_blend import switch_blend
-from repro_torch.kernels.unpack_mma import unpack_mma as quant_agg  # noqa: F401
+from repro_torch.kernels.unpack_mma import unpack_mma
+
+
+def scatter_agg(vals: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                block: int) -> torch.Tensor:
+    """Weighted bucket aggregation of stacked select payloads: vals ``[n,
+    nblocks, k]`` + uint16 within-block offsets ``[n, nblocks, k]`` + weight
+    ``[n]`` -> ``[nblocks, block]`` float32, duplicate offsets adding.  A
+    block of 1 is a weighted sum over the clients; every other block goes
+    through the ``scatter_agg`` kernel."""
+    weight = weight.to(torch.float32)
+    if block == 1:
+        return torch.tensordot(weight, vals.to(torch.float32),
+                               dims=([0], [0]))
+    return _scatter_agg.scatter_agg(vals, idx, weight, block)
+
+
+def quant_agg(words: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
+              bits: int, block: int) -> torch.Tensor:
+    """Weighted aggregation of stacked quant payloads: words ``[n, nblocks,
+    W]`` uint32 + scale ``[n, nblocks]`` + weight ``[n]`` -> ``[nblocks,
+    block]`` float32, through the ``unpack_mma`` kernel."""
+    return unpack_mma(words, scale, weight.to(torch.float32), bits, block)
 
 
 def _to_blocks(x: torch.Tensor, block: int):
@@ -46,7 +68,8 @@ def segment_rows(rows: torch.Tensor, seg: torch.Tensor,
     outside ``[0, n)`` drop), summed in float32 and cast back to
     ``rows.dtype``."""
     m = rows.shape[0]
-    out = _segment_rows(rows.reshape(m, -1).to(torch.float32), seg, n)
+    out = _scatter_agg.segment_rows(rows.reshape(m, -1).to(torch.float32),
+                                    seg, n)
     return out.reshape((n,) + tuple(rows.shape[1:])).to(rows.dtype)
 
 

@@ -2,7 +2,9 @@
 ``repro.launch.train``, the path without fleet, async or wire).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
-        --comm pallas --uplink quant --rounds 20
+        --uplink topk --rounds 20                 # the dense wire (default)
+    PYTHONPATH=src python -m repro_torch.launch.train --comm packed \\
+        --uplink quant                            # packed payloads
     # partial participation: 4 of 8 clients, local steps over the 4 only
     PYTHONPATH=src python -m repro_torch.launch.train --clients 8 \\
         --participating 4 --participation gather --comm pallas --uplink topk
@@ -51,7 +53,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--uplink", default="topk",
                     choices=["none", "topk", "quant"])
     ap.add_argument("--ratio", type=float, default=0.1)
-    ap.add_argument("--comm", default="pallas",
+    ap.add_argument("--comm", default="dense",
                     choices=["dense", "packed", "pallas"])
     ap.add_argument("--switch", default="soft", choices=["hard", "soft"])
     ap.add_argument("--strategy", default="fedsgm")
@@ -73,9 +75,6 @@ def setup(args):
     for attr, flag in _NOT_PORTED:
         if getattr(args, attr):
             raise NotImplementedError(f"{flag} is not ported yet")
-    if args.comm != "pallas":
-        raise NotImplementedError(
-            f"--comm {args.comm} is not ported yet: only --comm pallas")
     dev = resolve_device(args.device)
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get_config(args.arch)

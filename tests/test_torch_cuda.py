@@ -259,7 +259,8 @@ def test_reduced_gather_round_launches_its_kernels(dev, uplink):
     from repro_torch.launch import train
     args = train.parser().parse_args(
         ["--reduced", "--seq", "16", "--clients", "4", "--participating",
-         "2", "--participation", "gather", "--uplink", uplink])
+         "2", "--participation", "gather", "--comm", "pallas", "--uplink",
+         uplink])
     state, batch_fn, loss_pair, fed, _, _ = train.setup(args)
     # the compressed downlink's center starts at w, as init_state sets it
     fed = fed.replace(downlink=fed.uplink)
@@ -302,7 +303,8 @@ def test_reduced_gather_equals_mask_on_card(dev, kind):
     for mode in ("gather", "mask"):
         fed = FedConfig(n_clients=4, m=2, lr=0.03, uplink=cc, downlink=cc,
                         switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
-                        participation=mode, fleet=FleetConfig(sampler="fixed"))
+                        comm="pallas", participation=mode,
+                        fleet=FleetConfig(sampler="fixed"))
         state = rounds.init_state(
             fns.init(torch.Generator(device=dev).manual_seed(0), cfg,
                      device=dev), fed, device=dev)
@@ -330,7 +332,7 @@ def test_reduced_round_launches_its_kernels(dev, uplink):
     from repro_torch.engine import rounds
     from repro_torch.launch import train
     args = train.parser().parse_args(["--reduced", "--seq", "16",
-                                      "--uplink", uplink])
+                                      "--comm", "pallas", "--uplink", uplink])
     state, batch_fn, loss_pair, fed, _, _ = train.setup(args)
     batches = batch_fn(0, torch.Generator(device=dev).manual_seed(0))
     kernels.reset_launches()
@@ -342,3 +344,177 @@ def test_reduced_round_launches_its_kernels(dev, uplink):
                  .codec.layout.runs)
     assert kernels.launch_counts() == {
         name: n_runs if name in used else 0 for name in kernels.WRAPPERS}
+
+
+def test_ops_dispatchers_launch_the_kernels(dev):
+    """``ops.scatter_agg`` and ``ops.quant_agg`` on CUDA tensors launch the
+    ``scatter_agg`` and ``unpack_mma`` kernels (bit-equal to the plain
+    versions on the CPU); a block of 1 is a weighted sum, no launch."""
+    g = torch.Generator().manual_seed(5)
+    vals = torch.randn((3, 10, 6), generator=g)
+    idx = payloads.to_u16(torch.randint(0, 64, (3, 10, 6), generator=g))
+    w = torch.tensor([1.0, 0.0, 0.5])
+    words, scale, _ = quantize_ef_pack_plain(torch.zeros(3, 10, 64),
+                                             torch.randn((3, 10, 64),
+                                                         generator=g), 8)
+    kernels.reset_launches()
+    got = ops.scatter_agg(vals.to(dev), idx.to(dev), w.to(dev), 64)
+    _same(got, ops.scatter_agg(vals, idx, w, 64))
+    got = ops.quant_agg(words.to(dev), scale[..., 0].to(dev), w.to(dev), 8,
+                        64)
+    _same(got, ops.quant_agg(words, scale[..., 0], w, 8, 64))
+    ops.scatter_agg(vals[..., :1].to(dev), idx[..., :1].to(dev), w.to(dev),
+                    1)
+    counts = kernels.launch_counts()
+    assert counts["scatter_agg"] == 1 and counts["unpack_mma"] == 1
+    assert sum(counts.values()) == 2
+
+
+def _reduced_round(dev, argv, downlink=True, **over):
+    """One reduced round (4 clients, seq 16) through the launcher's setup on
+    ``dev``, the uplink's compressor changed by ``over`` and, with
+    ``downlink``, on the downlink too; from the same weights and batches
+    on every device.  Returns the new state and the metrics."""
+    import dataclasses
+    from repro_torch.comm import flat
+    from repro_torch.engine import rounds
+    from repro_torch.launch import train
+    from repro_torch.tasks import lm
+    args = train.parser().parse_args(
+        ["--reduced", "--seq", "16", "--device", "cpu"] + argv)
+    state, _, pair, fed, cfg, _ = train.setup(args)
+    cc = dataclasses.replace(fed.uplink, **{k: v for k, v in over.items()
+                                            if k in ("kind", "bits")})
+    fed = fed.replace(uplink=cc, downlink=cc if downlink else fed.downlink,
+                      **{k: v for k, v in over.items()
+                         if k not in ("kind", "bits")})
+    state = rounds.init_state(flat.unflatten(state.spec, state.w.to(dev)),
+                              fed, device=dev)
+    rng = np.random.default_rng(0)
+    nc = fed.n_clients
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (nc, 2, 16)))
+    mask = torch.zeros((nc, 2, 16))
+    mask[..., -2:] = 1.0
+    kernels.reset_launches()
+    new, met = rounds.round_step(state, lm.LMBatch(toks.to(dev),
+                                                   mask.to(dev)),
+                                 pair, fed, device=dev)
+    return new, met, fed
+
+
+# (launcher arguments, compressor / FedConfig changes, launches per round
+# as multiples of the wire runs, segment_rows launches)
+WIRE_ROUNDS = {
+    "dense-topk": (["--uplink", "topk"], {}, {}, 0),
+    "dense-quant": (["--uplink", "quant"], {}, {}, 0),
+    "packed-topk": (["--comm", "packed", "--uplink", "topk"], {},
+                    {"scatter_agg": 1}, 0),
+    "packed-quant": (["--comm", "packed", "--uplink", "quant"], {},
+                     {"unpack_mma": 1}, 0),
+    "packed-quant6": (["--comm", "packed", "--uplink", "quant"],
+                      {"bits": 6}, {}, 0),
+    "packed-topk-gather-sparse": (
+        ["--comm", "packed", "--uplink", "topk", "--participating", "2",
+         "--participation", "gather"], {"full_eval": False},
+        {"scatter_agg": 1}, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(WIRE_ROUNDS))
+def test_reduced_wire_round_on_card_matches_cpu(dev, case):
+    """A reduced round on the dense and packed wires (fused: full
+    participation, or ``full_eval=False``) on the card against the same
+    round on the CPU -- f and g_hat at rtol 1e-4, all but 0.1% of w within
+    rtol 1e-4 / atol 1e-6 (a top-k member or quant code may flip on the
+    last bits of the card's GEMMs) -- launching the reduce kernel once per
+    wire run on the packed wires, ``segment_rows`` twice in gather mode,
+    and nothing on the dense wire."""
+    from repro_torch.comm import flat
+    argv, over, per_run, seg = WIRE_ROUNDS[case]
+    new, met, fed = _reduced_round(dev, argv, **over)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    runs = len(flat.wire_layout(new.spec, fed.uplink).runs)
+    want = {name: 0 for name in kernels.WRAPPERS}
+    want.update({name: k * runs for name, k in per_run.items()})
+    want["segment_rows"] = seg
+    assert counts == want
+    cpu, cmet, _ = _reduced_round(torch.device("cpu"), argv, **over)
+    np.testing.assert_allclose([float(met.f), float(met.g_hat)],
+                               [float(cmet.f), float(cmet.g_hat)],
+                               rtol=1e-4)
+    far = ~torch.isclose(new.w.cpu(), cpu.w, rtol=1e-4, atol=1e-6)
+    assert float(far.float().mean()) <= 1e-3
+
+
+def test_natural_on_card_equals_cpu(dev):
+    """Natural compression without a key, on the card and on the CPU: bit
+    for bit, on random draws and at and beside the powers of two and the
+    midpoints between them."""
+    from repro_torch.configs.base import CompressorConfig
+    from repro_torch.core import compression
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal(100_000)
+         * np.exp(rng.standard_normal(100_000) * 5)).astype(np.float32)
+    p = np.ldexp(np.float32(1.0), np.arange(-126, 127)).astype(np.float32)
+    near = np.concatenate([v for q in (p, 1.5 * p) for v in
+                           (q, np.nextafter(q, 0), np.nextafter(q, np.inf))])
+    x = torch.from_numpy(np.concatenate([x, near, -near, [0.0, -0.0]])
+                         .astype(np.float32))
+    cfg = CompressorConfig(kind="natural")
+    _same(compression.compress_leaf(x.to(dev), cfg).view(torch.int32),
+          compression.compress_leaf(x, cfg).view(torch.int32))
+
+
+def test_tree_pallas_quant_reaches_quantize_ef(dev):
+    """The tree transport's pallas quant ``compress`` and ``ef_step`` run
+    the ``quantize_ef`` kernel, one launch per leaf of rank >= 1."""
+    from repro_torch.comm import transports
+    from repro_torch.configs.base import CompressorConfig
+    t = transports.get_transport(CompressorConfig(kind="quant", block=64),
+                                 "pallas")
+    g = torch.Generator().manual_seed(8)
+    tree = {"a": torch.randn((4, 128), generator=g),
+            "b": {"c": torch.randn(96, generator=g),
+                  "s": torch.tensor(1.5)}}
+    on = {"a": tree["a"].to(dev), "b": {k: v.to(dev)
+                                        for k, v in tree["b"].items()}}
+    kernels.reset_launches()
+    msg, e_new = t.ef_step(on, on)
+    assert kernels.launch_counts()["quantize_ef"] == 2
+    want_msg, want_e = t.ef_step(tree, tree)
+    _same(msg["a"], want_msg["a"])
+    _same(e_new["b"]["c"], want_e["b"]["c"])
+    _same(t.compress(on)["a"], t.compress(tree)["a"])
+
+
+def test_reduced_randk_gather_equals_mask_on_card(dev):
+    """Packed rand-k up and down, 2 of 4 clients replayed through the
+    ``fixed`` sampler: gather and mask bit-equal on the card (each client's
+    stream is its own)."""
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import CompressorConfig, FleetConfig
+    from repro_torch.engine import rounds
+    from repro_torch.fleet import samplers
+    from repro_torch.launch import train
+    masks = np.array([[1, 0, 1, 0], [0, 1, 1, 0]], np.float32)
+    state0, batch_fn, pair, fed, _, _ = train.setup(train.parser().parse_args(
+        ["--reduced", "--seq", "16", "--comm", "packed", "--participating",
+         "2"]))
+    cc = CompressorConfig(kind="randk", ratio=0.1)
+    out = {}
+    for mode in ("gather", "mask"):
+        f = fed.replace(uplink=cc, downlink=cc, participation=mode,
+                        fleet=FleetConfig(sampler="fixed"))
+        state = rounds.init_state(flat.unflatten(state0.spec, state0.w), f,
+                                  device=dev)
+        state = state._replace(sampler=samplers.fixed_state(masks, masks))
+        out[mode] = rounds.run_rounds(state, batch_fn, pair, f, T=2,
+                                      device=dev)
+    (sg, hg), (sm, hm) = out["gather"], out["mask"]
+    for name in ("w", "x", "e_up"):
+        _same(getattr(sg, name).view(torch.int32),
+              getattr(sm, name).view(torch.int32))
+    for name in rounds.RoundMetrics._fields:
+        assert np.array_equal(getattr(hg, name).view(np.uint32),
+                              getattr(hm, name).view(np.uint32))
