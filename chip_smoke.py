@@ -11,7 +11,9 @@ Phases, each fatal on failure (nonzero exit):
    ``nvcc`` per source, all at once; ``-Xptxas -v`` output printed);
 3. each of the seven kernels at the main paths' real shapes -- every run of
    the full smollm-360m wire layout, n = 4 clients, 8-bit quant (plus 2 and
-   4 bits on the largest run); ``segment_rows`` at the gather phases' m = 4
+   4 bits on the largest run; ``scatter_agg`` and ``unpack_mma`` also with
+   the non-unit weights ``HT_WEIGHTS``, checked); ``segment_rows`` at the
+   gather phases' m = 4
    of n = 8 rows (the top-k values and the ``[4, d]`` deltas, plus a case
    with duplicate and out-of-range ids and the quant scales, checked);
    ``quantize_ef`` and ``switch_blend`` on the flat ``[d]`` buffer -- held
@@ -35,8 +37,13 @@ Phases, each fatal on failure (nonzero exit):
 6. gather against mask on the card: full width at 2 layers, 8 clients,
    4 of them in each of 2 rounds replayed through the ``fixed`` sampler,
    top-k and quant up and down on ``comm="pallas"`` and rand-k up and down
-   on ``comm="packed"`` (per-client streams); state and per-round metrics
-   bit-equal;
+   on ``comm="packed"`` (per-client streams), and a ragged client fleet
+   with the ``weighted`` sampler (Horvitz-Thompson weights) and 2 fresh
+   rows per client and round, top-k up and down on ``comm="pallas"``;
+   state and per-round metrics bit-equal; then the token draws: redraws
+   of one batch on the card's generator, step by step (recorded: the
+   steps that do not reproduce), and the port's own draws from a CPU
+   generator, which must reproduce;
 7. the gather paths on ``comm="pallas"``: full-width smollm-360m, 8
    clients, 4 sampled per round (``--participation gather``, ``uniform``
    sampler), the same compressor up and down (top-k 0.1, then 8-bit quant)
@@ -46,9 +53,24 @@ Phases, each fatal on failure (nonzero exit):
    4, fused), packed top-k up and down in gather mode (4 of 8,
    ``full_eval=False``: the fused sparse eval, the library sort, the
    sort-free embedding run), and packed 8-bit quant up and down (mask 4 of
-   4).
+   4);
+9. the client fleet at full width on ``comm="pallas"``, gather 4 of 8, T
+   rounds each: (a) through the engine API, a quantity-skewed token fleet
+   (``build_fleet`` over 64 sequences of 64 tokens, ``zipf`` a = 1.2, cap
+   factor 4), the ``weighted`` sampler (its weights must not all be 0/1)
+   and 2 fresh rows per client and round, top-k 0.1 up and down; (b)
+   through the launcher, ``--fleet --fleet-pool 8 --sampler markov``,
+   8-bit quant up and down; every provisioned row must lie below its
+   client's count;
+10. the NP task of the paper's Figure 1 (n = 20, m = 10, E = 5, top-k 0.1
+   up and down, the dense wire): two rounds on the card against the same
+   rounds on the CPU from the same shards and recorded cohorts, hard and
+   soft, then the port's quickstart on the card (120, 40 and 40 rounds
+   for its three parts, cut from its own 500, 200 and 50 because the
+   phase is bound by the host) and one more Figure-1 round under the
+   profiler.
 
-In phases 5, 7 and 8 the launch counts are zeroed just before each phase
+In phases 5, 7, 8 and 9 the launch counts are zeroed just before each phase
 and read just after: each kernel must have launched exactly as often per
 round as the wire layout demands (on ``comm="pallas"`` the encode kernel
 once per wire run and direction; the reduce kernel once per run on the
@@ -67,7 +89,9 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import pathlib
@@ -221,6 +245,12 @@ def check_kernels(torch, dev, layout):
            sum(n * r.nblocks * r.k * 6 + 4 * n + r.nblocks * r.block * 4
                for r in runs),
            sum(2 * n * r.nblocks * r.k for r in runs), 0.0)
+    check_weighted(torch, "scatter_agg", [
+        (lambda w, v=v, i=i, r=r: scatter_agg.scatter_agg(v, i, w, r.block),
+         lambda w, v=v, i=i, r=r: scatter_agg.scatter_agg_plain(v, i, w,
+                                                                r.block),
+         f"block={r.block} k={r.k} rows={n * r.nblocks}")
+        for v, i, r in zip(vals, idx, runs)], dev)
     del vals, idx, pos, wv, accs
 
     # -- fused quant encode and unpack reduce (8-bit main path) -----------
@@ -249,6 +279,13 @@ def check_kernels(torch, dev, layout):
            sum(n * r.nblocks * (4 * r.W + 4) + 4 * n + 4 * r.nblocks * r.block
                for r in runs),
            sum(3 * n * r.nblocks * r.block for r in runs), 0.0)
+    check_weighted(torch, "unpack_mma", [
+        (lambda w, ws=ws, r=r: unpack_mma.unpack_mma(
+            ws[0], ws[1][..., 0], w, 8, r.block),
+         lambda w, ws=ws, r=r: unpack_mma.unpack_mma_plain(
+            ws[0], ws[1][..., 0], w, 8, r.block),
+         f"bits=8 block={r.block} rows={n * r.nblocks}")
+        for ws, r in zip(msgs, runs)], dev)
     del msgs
     # 2 and 4 bits on the largest run: checked, not timed
     big = max(range(len(runs)), key=lambda i: runs[i].nblocks * runs[i].block)
@@ -271,6 +308,26 @@ def check_kernels(torch, dev, layout):
     torch.cuda.empty_cache()
     check_gather_kernels(torch, dev, layout, d, g, record)
     return out
+
+
+# phase 3: aggregation weights that are not 0/1 -- Horvitz-Thompson weights
+# of the weighted sampler, one of them 0 (a client off the support)
+HT_WEIGHTS = [1.375, 0.0, 0.62, 2.9]
+
+
+def check_weighted(torch, name, cases, dev):
+    """Phase 3: a reduce kernel with the non-unit weights ``HT_WEIGHTS``
+    against its plain version at every run's shapes, tolerance 0 (the
+    rounding order of ``weight * scale / L`` and of ``weight * v``)."""
+    w = torch.tensor(HT_WEIGHTS, device=dev)
+    for kernel, plain, shape in cases:
+        err = max_err(torch, [kernel(w)], [plain(w)])
+        print(json.dumps({"kernel_check": f"{name} weights={HT_WEIGHTS} "
+                          f"{shape}", "max_abs_err": err, "tolerance": 0.0}),
+              flush=True)
+        if err != 0.0:
+            raise AssertionError(f"{name} with weights {HT_WEIGHTS} "
+                                 f"differs ({shape}): {err}")
 
 
 def check_topk_special_rows(torch, xs, runs):
@@ -516,18 +573,26 @@ def expected_launches(fed, runs: int) -> dict:
 
 
 def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
-                **fed_over):
-    """Phases 5, 7 and 8: full-width training rounds through the launcher's
-    setup and ``run_rounds``; returns the phase record (launch counts
-    included).  Every kernel must launch as often as the wire layout
+                fleet_fn=None, **fed_over):
+    """Phases 5, 7, 8 and 9: full-width training rounds through the
+    launcher's setup and ``run_rounds``, on per-round batches or on a
+    client fleet (the launcher's ``--fleet``, or ``fleet_fn(fed, dev)``
+    through the engine API); returns the phase record (launch
+    counts included).  Every kernel must launch as often as the wire layout
     demands, no other kernel may launch, and ``loss_pair`` must run once
-    per forward of the round (fused or not)."""
+    per forward of the round (fused or not); on a fleet every provisioned
+    row must lie below its client's count."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.comm import flat
     from repro_torch.engine import participation, rounds, strategies
+    from repro_torch.fleet import provision
     state, batch_fn, pair, fed, dev = setup_phase(torch, argv, downlink,
                                                   **fed_over)
+    if fleet_fn is not None:
+        batch_fn = fleet_fn(fed, dev)
+    fleet = batch_fn if isinstance(batch_fn, provision.Fleet) else None
+    batches = batch_fn if fleet is None else (lambda t, g: fleet)
     if state.spec.d != D_FULL:
         raise AssertionError(f"d = {state.spec.d}, expected {D_FULL}")
     up, down = rounds.flat_transports_for(fed, state.spec)
@@ -548,12 +613,14 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     def timed_batches(t, gen):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
-        return batch_fn(t, gen)
+        return batches(t, gen)
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    state, hist = rounds.run_rounds(state, timed_batches, loss_pair, fed,
-                                    T=T, device=dev)
+    with (FleetRecorder(fed.fleet.sampler) if fleet is not None
+          else contextlib.nullcontext()) as seen:
+        state, hist = rounds.run_rounds(state, timed_batches, loss_pair, fed,
+                                        T=T, device=dev)
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     counts = kernels.launch_counts()
@@ -577,6 +644,8 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
            "alloc_retries": torch.cuda.memory_stats().get(
                "num_alloc_retries", 0),
            "launches": counts, "launches_per_round_expected": want}
+    if fleet is not None:
+        rec.update(seen.check(fleet, fed, T))
     print(json.dumps(rec), flush=True)
     if not (all(math.isfinite(v) for v in rec["f"])
             and all(math.isfinite(v) for v in rec["g_hat"])):
@@ -596,12 +665,72 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
                                  f"expected {want.get(kname, 0) * T}")
     if rec["peak_mem_gb"] >= 80:
         raise AssertionError(f"{name}: peak {rec['peak_mem_gb']} GB")
-    rec["profile"] = profile_round(torch, state, batch_fn, pair, fed,
-                                   dev, rec["s_per_round_after_first"])
+    rec["profile"] = profile_round(torch, state, batches, pair, fed, dev,
+                                   rec["s_per_round_after_first"])
     print(json.dumps({"profile": name, **rec["profile"]}), flush=True)
     del state
     torch.cuda.empty_cache()
     return rec
+
+
+class FleetRecorder:
+    """Records, while active, every row draw of the fleet's provisioning
+    (``provision.draw_rows``: the client ids and their rows) and the
+    aggregation weights the ``sampler`` law returns (on the CPU, where the
+    law draws: recording them costs no device sync)."""
+
+    def __init__(self, sampler: str):
+        self.sampler = sampler
+        self.rows, self.weights = [], []
+
+    def __enter__(self):
+        from repro_torch.fleet import provision, samplers
+        self._draw, self._cls = provision.draw_rows, type(
+            samplers.get_sampler(self.sampler))
+        self._sample = self._cls.sample
+
+        def draw_rows(key, host_count, ids, b):
+            rows = self._draw(key, host_count, ids, b)
+            self.rows.append((list(ids), rows.clone()))
+            return rows
+
+        def sample(obj, *a, **kw):
+            mask, weights, st = self._sample(obj, *a, **kw)
+            self.weights.append(weights.tolist())
+            return mask, weights, st
+        provision.draw_rows = draw_rows
+        self._cls.sample = sample
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fleet import provision
+        provision.draw_rows = self._draw
+        self._cls.sample = self._sample
+
+    def check(self, fleet, fed, T: int) -> dict:
+        """Every provisioned row below its client's count (one draw of
+        ``batch_size`` rows per provisioned client and round); returns the
+        record's fleet fields."""
+        counts = fleet.host_count.tolist()
+        n_rows = 0
+        for ids, rows in self.rows:
+            if rows.shape != (len(ids), fed.fleet.batch_size):
+                raise AssertionError(f"provisioned {tuple(rows.shape)} rows")
+            for j, r in zip(ids, rows.tolist()):
+                if not all(0 <= v < max(counts[j], 1) for v in r):
+                    raise AssertionError(f"client {j}: row outside "
+                                         f"[0, {counts[j]}): {r}")
+                n_rows += len(r)
+        if len(self.rows) != T or len(self.weights) != T:
+            raise AssertionError(f"{len(self.rows)} provisionings and "
+                                 f"{len(self.weights)} draws in {T} rounds")
+        return {"fleet_counts": counts, "sampler": fed.fleet.sampler,
+                "batch_size": fed.fleet.batch_size,
+                "redraw": fed.fleet.redraw, "provisioned_rows": n_rows,
+                "weights": self.weights,
+                "weights_non_unit": any(w not in (0.0, 1.0)
+                                        for ws in self.weights
+                                        for w in ws)}
 
 
 def gather_mask_check(torch, dev, R: int = 2, layers: int = 2):
@@ -672,6 +801,232 @@ def gather_mask_check(torch, dev, R: int = 2, layers: int = 2):
                                  f"{comm})")
         del out, sg, sm
         torch.cuda.empty_cache()
+    fleet_gather_mask_check(torch, dev, fns, cfg, loss_pair, R)
+
+
+# phase 6: the ragged fleet's rows per client (a pool of 6 sequences);
+# client 0's inclusion probability caps at 1, so the weights are not 0/1
+FLEET_COUNTS = [6, 1, 2, 1, 3, 1, 1, 2]
+
+
+def fleet_gather_mask_check(torch, dev, fns, cfg, loss_pair, R: int):
+    """Phase 6, the fleet case: a ragged fleet (``FLEET_COUNTS`` valid rows
+    of a pool of 6 sequences per client), the ``weighted`` sampler (its
+    Horvitz-Thompson weights, not 0/1) and 2 fresh rows per client and
+    round, top-k 0.1 up and down on ``comm="pallas"``: gather and mask
+    bit-equal, state and every metric."""
+    import numpy as np
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          FleetConfig, SwitchConfig)
+    from repro_torch.data import synthetic
+    from repro_torch.engine import rounds
+    from repro_torch.fleet import provision
+    from repro_torch.tasks import lm
+    toks, mask = synthetic.client_token_batches(
+        torch.Generator().manual_seed(3), N_GATHER, 6, 64,
+        cfg.vocab, hetero=0.5, device=dev)
+    fleet = provision.from_stacked(lm.LMBatch(toks, mask),
+                                   count=torch.tensor(FLEET_COUNTS))
+    cc = CompressorConfig(kind="topk", ratio=0.1)
+    out = {}
+    for mode in ("gather", "mask"):
+        fed = FedConfig(
+            n_clients=N_GATHER, m=M_GATHER, local_steps=1, lr=0.03,
+            switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
+            uplink=cc, downlink=cc, comm="pallas", participation=mode,
+            fleet=FleetConfig(sampler="weighted", batch_size=2,
+                              redraw=True))
+        params = fns.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                          device=dev)
+        state = rounds.init_state(params, fed, device=dev)
+        del params
+        with FleetRecorder("weighted") as seen:
+            out[mode] = rounds.drive(state, fleet, loss_pair, fed, T=R,
+                                     device=dev)
+        del state
+        info = seen.check(fleet, fed, R)
+    (sg, hg), (sm, hm) = out["gather"], out["mask"]
+    same_state = all(torch.equal(getattr(sg, f).view(torch.int32),
+                                 getattr(sm, f).view(torch.int32))
+                     for f in ("w", "x", "e_up", "wbar_sum"))
+    same_metrics = all(np.array_equal(getattr(hg, f).view(np.uint32),
+                                      getattr(hm, f).view(np.uint32))
+                       for f in rounds.RoundMetrics._fields)
+    rec = {"gather_vs_mask": "fleet topk", "comm": "pallas",
+           "d": sg.spec.d, "rounds": R, **info, "f": hg.f.tolist(),
+           "g_hat": hg.g_hat.tolist(), "state_bit_equal": same_state,
+           "metrics_bit_equal": same_metrics}
+    print(json.dumps(rec), flush=True)
+    if not (same_state and same_metrics and info["weights_non_unit"]):
+        raise AssertionError("fleet gather and mask differ (or the "
+                             "weights were all 0/1)")
+    del out, sg, sm
+    torch.cuda.empty_cache()
+
+
+# phase 6: redraws of one batch of tokens in the token-draw probe
+TOKEN_PROBE_TRIALS = 600
+
+
+def token_draw_probe(torch, dev, vocab: int) -> dict:
+    """Phase 6, the token draws: ``TOKEN_PROBE_TRIALS`` redraws, from one
+    seed, of the gather phases' per-round batch (``N_GATHER`` clients x 2
+    sequences of 64 tokens, hetero 0.5), made step by step as
+    ``synthetic.token_stream`` would make it on the card's generator (a
+    draw the port refuses): the Zipf probabilities, their ``cumsum`` (the
+    cumulative distribution a with-replacement ``multinomial`` samples
+    from), the ``multinomial`` draw, the rare-half ``randint``.  Records,
+    per step, how many distinct results the redraws gave (1 where the step
+    reproduces).  The port's own draw (a CPU generator, moved to the card)
+    must give one."""
+    from repro_torch.data import synthetic
+    zipfs = 1.2 + 0.5 * torch.linspace(-0.3, 0.3, N_GATHER)
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float32, device=dev)
+    seen = {k: set() for k in ("probs", "cumsum", "multinomial", "randint")}
+
+    def key(ts):
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                       for t in ts)).digest()
+
+    for _ in range(TOKEN_PROBE_TRIALS):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        draw = {k: [] for k in seen}
+        for a in zipfs.tolist():
+            probs = ranks ** (-a)
+            probs = probs / probs.sum()
+            draw["probs"].append(probs)
+            draw["cumsum"].append(torch.cumsum(probs, 0))
+            draw["multinomial"].append(torch.multinomial(
+                probs, 2 * 64, replacement=True, generator=gen))
+            draw["randint"].append(torch.randint(
+                vocab // 2, vocab, (2, 8), generator=gen, device=dev))
+        for k, ts in draw.items():
+            seen[k].add(key(ts))
+    port = {key(synthetic.client_token_batches(
+        torch.Generator().manual_seed(0), N_GATHER, 2, 64, vocab,
+        hetero=0.5, device=dev)) for _ in range(TOKEN_PROBE_TRIALS)}
+    rec = {"token_draw_probe": TOKEN_PROBE_TRIALS,
+           "card_generator_distinct": {k: len(v) for k, v in seen.items()},
+           "port_distinct": len(port)}
+    print(json.dumps(rec), flush=True)
+    if len(port) != 1:
+        raise AssertionError(f"the port's token draws gave {len(port)} "
+                             f"results in {TOKEN_PROBE_TRIALS} redraws")
+    return rec
+
+
+def zipf_token_fleet(torch, cfg):
+    """Phase 9(a): a quantity-skewed token fleet through the engine API --
+    ``build_fleet`` over 64 sequences of 64 tokens with the ``zipf``
+    partitioner (a = 1.2, cap factor 4; ``fed.fleet`` carries the law)."""
+    from repro_torch.data import synthetic
+    from repro_torch.fleet import provision
+    from repro_torch.tasks import lm
+
+    def make(fed, dev):
+        toks, mask = synthetic.token_stream(
+            torch.Generator().manual_seed(1), 64, 64, cfg.vocab, device=dev)
+        return provision.build_fleet(torch.Generator().manual_seed(2),
+                                     lm.LMBatch(toks, mask), fed)
+    return make
+
+
+# phase 10: rounds of each card-vs-CPU Figure-1 check, then of the
+# quickstart's parts: each Figure-1 run, each alpha of the sweep, the
+# gather == mask check.  The phase is bound by the host (thousands of tiny
+# launches a round): the quickstart's own 500 / 200 / 50 rounds took 358 s
+# on an H100, so they are cut to keep the phase near two minutes
+NP_CHECK_ROUNDS = 2
+NP_FIGURE1_ROUNDS = 120
+NP_SWEEP_ROUNDS = 40
+NP_ENGINE_ROUNDS = 40
+
+
+def np_phase(torch, dev) -> dict:
+    """Phase 10: the NP task of the paper's Figure 1 on the card.  First
+    ``NP_CHECK_ROUNDS`` rounds (n = 20, m = 10, E = 5, top-k 0.1 up and
+    down, the dense wire) on the card against the same rounds on the CPU,
+    from the same shards and recorded cohorts (``fixed``), hard and soft;
+    then the quickstart's three parts on the card (Figure 1 hard and soft,
+    the Dirichlet alpha sweep with the weighted sampler, gather == mask),
+    and one more Figure-1 round under the profiler.  The dense wire
+    launches no wire kernel: only the gather rounds' ``segment_rows``,
+    twice a round."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs.base import FleetConfig
+    from repro_torch.engine import rounds
+    from repro_torch.examples import quickstart
+    from repro_torch.fleet import samplers
+    from repro_torch.tasks import np_classification as npc
+    data, _ = npc.make_dataset(torch.Generator().manual_seed(0), 20,
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    masks = np.zeros((NP_CHECK_ROUNDS, 20), np.float32)
+    for r in range(NP_CHECK_ROUNDS):
+        masks[r, rng.choice(20, 10, replace=False)] = 1.0
+    out = {"check": []}
+    for mode in ("hard", "soft"):
+        fed = quickstart.fed_config(mode, 0.35, FleetConfig(sampler="fixed"))
+        res = {}
+        for device in ("cuda", "cpu"):
+            state = rounds.init_state(npc.init_params(30, device), fed,
+                                      device=device)
+            state = state._replace(sampler=samplers.fixed_state(masks,
+                                                                masks))
+            state, hist = rounds.drive(
+                state, npc.NPBatch(data.x.to(device), data.y.to(device)),
+                npc.loss_pair, fed, T=NP_CHECK_ROUNDS, device=device)
+            res[device] = (state.w.cpu(), hist)
+        (w_c, h_c), (w_p, h_p) = res["cuda"], res["cpu"]
+        far = ~torch.isclose(w_c, w_p, rtol=1e-4, atol=1e-6)
+        ok = (np.allclose(h_c.f, h_p.f, rtol=1e-4, atol=0)
+              and np.allclose(h_c.g_hat, h_p.g_hat, rtol=1e-4, atol=0)
+              and np.allclose(h_c.sigma, h_p.sigma, rtol=1e-4, atol=1e-6)
+              and float(far.float().mean()) <= 1e-3
+              and bool(torch.isfinite(w_c).all()))
+        rec = {"np_reference_check": mode, "rounds": NP_CHECK_ROUNDS,
+               "f": [h_c.f.tolist(), h_p.f.tolist()],
+               "g_hat": [h_c.g_hat.tolist(), h_p.g_hat.tolist()],
+               "w_far_fraction": float(far.float().mean()), "ok": ok}
+        print(json.dumps(rec), flush=True)
+        out["check"].append(rec)
+        if not ok:
+            raise AssertionError(f"NP Figure-1 rounds ({mode}): card and "
+                                 "CPU disagree")
+    kernels.reset_launches()
+    t0 = time.time()
+    out["quickstart"] = {
+        "figure1": [quickstart.run(mode, T=NP_FIGURE1_ROUNDS, device=dev)
+                    for mode in ("hard", "soft")],
+        "sweep": quickstart.fleet_demo(T=NP_SWEEP_ROUNDS, device=dev),
+        "engine": quickstart.engine_demo(T=NP_ENGINE_ROUNDS, device=dev)}
+    torch.cuda.synchronize()
+    out["quickstart_s"] = time.time() - t0
+    out["launches"] = kernels.launch_counts()
+    fed = quickstart.fed_config("soft", 0.35, FleetConfig())
+    fleet, _ = npc.make_fleet(torch.Generator().manual_seed(0), fed,
+                              device=dev)
+    state = rounds.init_state(npc.init_params(30, dev), fed, device=dev)
+    out["profile"] = profile_round(
+        torch, state, lambda t, g: fleet, npc.loss_pair, fed, dev,
+        out["quickstart"]["figure1"][1]["s_per_round"])
+    print(json.dumps({"np_quickstart": out["quickstart"],
+                      "seconds": out["quickstart_s"],
+                      "launches": out["launches"],
+                      "profile": out["profile"]}), flush=True)
+    for r in out["quickstart"]["figure1"] + out["quickstart"]["sweep"]:
+        if not all(math.isfinite(r[k]) for k in ("f", "g_hat",
+                                                  "mean_sigma")):
+            raise AssertionError(f"NP quickstart: non-finite {r}")
+    if not out["quickstart"]["engine"]["gather_equals_mask"]:
+        raise AssertionError("NP quickstart: gather and mask rounds differ")
+    want = {name: 0 for name in out["launches"]}
+    want["segment_rows"] = 2 * NP_ENGINE_ROUNDS
+    if out["launches"] != want:
+        raise AssertionError(f"the NP rounds launched {out['launches']}, "
+                             f"expected {want}")
+    return out
 
 
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
@@ -681,7 +1036,7 @@ def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import rounds
-    batches = batch_fn(0, torch.Generator(device=dev).manual_seed(7))
+    batches = batch_fn(0, torch.Generator().manual_seed(7))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -766,6 +1121,7 @@ def main(argv=None) -> int:
                           args.rounds)
               for uplink in ("quant", "topk")]
     gather_mask_check(torch, dev)
+    token_draw_probe(torch, dev, cfg.vocab)
     gather = ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
               "--participation", "gather"]
     phases += [train_phase(torch, f"smollm-360m gather {M_GATHER} of "
@@ -784,6 +1140,25 @@ def main(argv=None) -> int:
         train_phase(torch, "smollm-360m packed quant up and down",
                     ["--comm", "packed", "--uplink", "quant"], args.rounds,
                     downlink=True)]
+    from repro_torch.configs.base import FleetConfig
+    phases += [
+        train_phase(torch, f"smollm-360m fleet zipf weighted gather "
+                    f"{M_GATHER} of {N_GATHER} topk up and down",
+                    gather + ["--comm", "pallas", "--uplink", "topk"],
+                    args.rounds, downlink=True,
+                    fleet_fn=zipf_token_fleet(torch, cfg),
+                    fleet=FleetConfig(partitioner="zipf", zipf_a=1.2,
+                                      cap_factor=4.0, sampler="weighted",
+                                      batch_size=2, redraw=True)),
+        train_phase(torch, f"smollm-360m launcher --fleet markov gather "
+                    f"{M_GATHER} of {N_GATHER} quant up and down",
+                    gather + ["--comm", "pallas", "--uplink", "quant",
+                              "--fleet", "--fleet-pool", "8", "--sampler",
+                              "markov"], args.rounds, downlink=True)]
+    if not phases[-2]["weights_non_unit"]:
+        raise AssertionError("the zipf fleet's weighted sampler gave only "
+                             "0/1 weights")
+    np_rec = np_phase(torch, dev)
     # launches on the main paths: each phase's count, and their sum
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
@@ -796,7 +1171,7 @@ def main(argv=None) -> int:
         path.write_text(json.dumps({"card": card, "torch": torch.__version__,
                                     "cuda": torch.version.cuda,
                                     "kernels": kern["kernels"],
-                                    "phases": phases,
+                                    "phases": phases, "np": np_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

@@ -69,7 +69,25 @@ class SwitchConfig:
 
 @dataclass(frozen=True)
 class FleetConfig:
-    sampler: str = "uniform"        # client-sampling law: uniform | fixed
+    """The client-population axis (``repro_torch.fleet``).  The defaults
+    are the parity point: IID partition, uniform sampler, full-shard
+    batches, no per-round re-draw -- a round on ``from_stacked(batches)``
+    under them is the round on ``batches``, bit for bit."""
+    # -- partitioner (fleet.partitions registry) ----------------------------
+    partitioner: str = "iid"        # iid | dirichlet | zipf | shift
+    alpha: float = 2.0              # dirichlet concentration (label skew)
+    zipf_a: float = 1.2             # zipf exponent (quantity skew)
+    shift: float = 0.0              # covariate-drift strength (shift)
+    balance: bool = False           # equal-size re-slice of ragged label skew
+    cap_factor: float = 2.0         # padded shard capacity x (n / n_clients)
+    n_classes: int = 0              # 0 => infer from labels at build time
+    # -- sampler (fleet.samplers registry) ----------------------------------
+    sampler: str = "uniform"        # uniform | weighted | markov | fixed
+    avail_stay: float = 0.9         # markov: P(available -> available)
+    avail_return: float = 0.5       # markov: P(unavailable -> available)
+    # -- provisioning (fleet.provision) -------------------------------------
+    batch_size: int = 0             # per-client minibatch rows; 0 => full shard
+    redraw: bool = False            # fresh minibatch draw every round
 
 
 @dataclass(frozen=True)

@@ -37,6 +37,7 @@ class Participation(NamedTuple):
     m: int
     weights: Optional[torch.Tensor] = None  # [n], zero off-support
     short: bool = False
+    host_idx: Optional[torch.Tensor] = None  # ``idx`` on the CPU (gather)
 
 
 def mask_indices(mask: torch.Tensor, m: int) -> torch.Tensor:
@@ -74,7 +75,7 @@ def finalize(mask: torch.Tensor, weights: Optional[torch.Tensor], cfg,
     weights_d = mask_d if weights is mask else \
         (None if weights is None else weights.to(device))
     return Participation(mask_d, None if idx is None else idx.to(device),
-                         cfg.n_clients, cfg.m, weights_d, short)
+                         cfg.n_clients, cfg.m, weights_d, short, idx)
 
 
 def gather(part: Participation, batches):

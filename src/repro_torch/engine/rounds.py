@@ -4,7 +4,10 @@ One :func:`round_step` is a full communication round, the paper's
 Algorithm 1:
 
   1. sample S_t (``cfg.fleet.sampler``), executed dense-mask or
-     compute-sparse gather (``cfg.participation``, engine.participation),
+     compute-sparse gather (``cfg.participation``, engine.participation);
+     with a :class:`repro_torch.fleet.Fleet` as ``batches``, provision this
+     round's per-client minibatches (``fleet.provision.minibatch``: all n
+     clients, or only the m sampled when the eval is sparse),
   2. constraint query: (f_j, g_j) at w_t for every client, aggregated over
      the participants (and over all clients for the ``*_full`` metrics),
   3. strategy switch weight sigma_t,
@@ -33,7 +36,13 @@ no-grad forward.
 
 The compression randomness of the random kinds is one
 :class:`repro_torch.comm.transports.WireKey` per round and direction
-(seed, round, direction), from which each client's generator derives.
+(seed, round, direction), from which each client's generator derives; the
+fleet's rows come from a :class:`repro_torch.fleet.provision.ProvisionKey`
+in the same manner.
+
+:func:`drive` runs T rounds on fixed batches or a fleet and moves the
+metrics to the host once; :func:`run_rounds` takes per-round batches from
+a function.
 """
 from __future__ import annotations
 
@@ -44,8 +53,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.comm import flat, transports
 from repro_torch.comm.flat import flat_transports_for
+from repro_torch.core.compression import message_bytes
 from repro_torch.engine import participation, strategies
-from repro_torch.fleet import samplers
+from repro_torch.fleet import provision, samplers
 from repro_torch.optim.sgd import axpy
 
 
@@ -111,11 +121,21 @@ def init_state(params, cfg, device="cuda") -> FedState:
         sampler=samplers.get_sampler(cfg.fleet.sampler).init(cfg))
 
 
-def sample_round(state: FedState, cfg):
-    """Stage 1: draw S_t with the configured sampler law.  Returns
-    ``(part, sampler state)``."""
+def averaged_iterate(state: FedState) -> dict:
+    """w_bar, the theorems' averaged iterate over the weighted rounds, as
+    parameter views (w_t itself before any round carried weight)."""
+    if state.wbar_sum is None:
+        return flat.unflatten(state.spec, state.w)
+    wgt = torch.clamp(state.wbar_weight, min=1e-12)
+    return flat.unflatten(state.spec, torch.where(
+        state.wbar_weight > 0, state.wbar_sum / wgt, state.w))
+
+
+def sample_round(state: FedState, cfg, fleet=None):
+    """Stage 1: draw S_t with the configured sampler law (the weighted law
+    reads the fleet's host counts).  Returns ``(part, sampler state)``."""
     mask, weights, samp_state = samplers.get_sampler(
-        cfg.fleet.sampler).sample(state.gen, cfg, state.sampler)
+        cfg.fleet.sampler).sample(state.gen, cfg, state.sampler, fleet=fleet)
     return (participation.finalize(mask, weights, cfg, state.w.device),
             samp_state)
 
@@ -214,16 +234,24 @@ def _fused_eval(wf, spec, strat, local_b, loss_pair: Callable, cfg, part,
 
 
 def compute_round(state: FedState, wf, spec, batches, part, strat,
-                  loss_pair: Callable, cfg):
-    """Stages 2-4 on the flat buffer: the constraint query, the switch
-    weight and the E local steps over the local rows (all n in mask mode,
-    the m gathered participants in gather mode).  The eval runs over all n
-    clients unless ``full_eval`` is off (then over the m participants), and
-    fuses with the first local step where :func:`fuses` says so.  Returns
+                  loss_pair: Callable, cfg, fleet=None):
+    """Stages 2-4 on the flat buffer: the fleet's minibatches (when
+    ``fleet`` is given; ``batches`` is then ignored), the constraint query,
+    the switch weight and the E local steps over the local rows (all n in
+    mask mode, the m gathered participants in gather mode).  The eval runs
+    over all n clients unless ``full_eval`` is off (then over the m
+    participants, and only their minibatches are provisioned), and fuses
+    with the first local step where :func:`fuses` says so.  Returns
     ``(f_part, g_hat, g_full, f_full, sigma, deltas)``; ``deltas`` is
     ``[n, d]`` or ``[m, d]``."""
     sparse_eval = part.idx is not None and not cfg.full_eval
-    local_b = participation.gather(part, batches)
+    pre_gathered = fleet is not None and sparse_eval
+    if fleet is not None:
+        batches = provision.minibatch(
+            fleet, provision.round_key(cfg, state.t), cfg,
+            idx=part.host_idx if sparse_eval else None)
+    local_b = batches if pre_gathered else participation.gather(part,
+                                                                batches)
     n_local = local_b[0].shape[0]
     if fuses(part, strat, cfg):
         aggs, sigma, first = _fused_eval(wf, spec, strat, local_b, loss_pair,
@@ -274,7 +302,9 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
                device="cuda") -> tuple[FedState, RoundMetrics]:
     """One engine round on ``device`` (``cuda`` unless the caller asks for
     the CPU; the state must live there).  ``batches`` is a NamedTuple of
-    ``[n_clients, ...]`` tensors.
+    ``[n_clients, ...]`` tensors, or a :class:`repro_torch.fleet.Fleet`:
+    then this round's per-client minibatches are provisioned from its
+    shards.
 
     The uplink residual ``state.e_up`` is updated in place (the ``[n, d]``
     buffer is the largest state of a round); the returned state holds it.
@@ -285,10 +315,11 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
                          f"{state.w.device}")
     check_ported(cfg)
     strat = strategies.get_strategy(cfg.strategy)
-    part, samp_state = sample_round(state, cfg)
+    fleet = batches if isinstance(batches, provision.Fleet) else None
+    part, samp_state = sample_round(state, cfg, fleet)
     spec, wf = state.spec, state.w
     f_part, g_hat, g_full, f_full, sigma, deltas = compute_round(
-        state, wf, spec, batches, part, strat, loss_pair, cfg)
+        state, wf, spec, batches, part, strat, loss_pair, cfg, fleet)
     uplink, downlink = flat_transports_for(cfg, spec)
     v_bar, e_up = participation.transmit(
         uplink, state.e_up, deltas, part,
@@ -301,17 +332,45 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
 def run_rounds(state: FedState, batch_fn: Callable, loss_pair: Callable,
                cfg, T: int, device="cuda"):
     """Drive T rounds; ``batch_fn(t, gen) -> batches`` supplies per-round
-    data from a ``torch.Generator`` on ``device`` seeded ``cfg.seed + 1``.
-    Metrics stay on the device and move to the host once, at the end, as
-    numpy arrays with a leading ``[T]`` axis."""
+    data on ``device`` from a CPU ``torch.Generator`` seeded ``cfg.seed +
+    1`` (CPU draws are the same on every run and device).  Metrics stay on
+    the device and move to the host once, at the end, as numpy arrays with
+    a leading ``[T]`` axis."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    gen = torch.Generator().manual_seed(cfg.seed + 1)
     history = []
     for t in range(T):
         state, metrics = round_step(state, batch_fn(t, gen), loss_pair, cfg,
                                     device=dev)
         history.append(metrics)
-    stacked = RoundMetrics(*(
+    return state, _stack(history)
+
+
+def drive(state: FedState, batches, loss_pair: Callable, cfg, T: int,
+          device="cuda"):
+    """``run_rounds`` on fixed per-client ``batches`` or on a
+    :class:`repro_torch.fleet.Fleet` (each round provisions its own
+    minibatches; ``cfg.fleet.redraw`` for fresh draws every round)."""
+    return run_rounds(state, lambda t, gen: batches, loss_pair, cfg, T,
+                      device)
+
+
+def _stack(history) -> RoundMetrics:
+    return RoundMetrics(*(
         torch.stack([getattr(h, f) for h in history]).cpu().numpy()
         for f in RoundMetrics._fields))
-    return state, stacked
+
+
+def round_bytes(params, cfg) -> dict:
+    """Wire bytes of one round per participating client: ``uplink`` /
+    ``downlink`` are the analytic ``message_bytes``, ``measured_up`` /
+    ``measured_down`` the flat wire's own accounting for ``cfg.comm``."""
+    spec = flat.spec_of(params)
+    uplink, downlink = flat_transports_for(cfg, spec)
+    up = message_bytes(params, cfg.uplink)
+    down = message_bytes(params, cfg.downlink)
+    dense = message_bytes(params, type(cfg.uplink)(kind="none"))
+    return {"uplink": up, "downlink": down, "dense": dense,
+            "measured_up": uplink.wire_bytes(),
+            "measured_down": downlink.wire_bytes(),
+            "savings_up": 1.0 - up / dense, "savings_down": 1.0 - down / dense}

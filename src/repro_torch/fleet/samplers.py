@@ -1,15 +1,52 @@
-"""Client-sampling laws (port of ``repro.fleet.samplers``: the ``uniform``
-law and the ``fixed`` replay law).  Draws come from a CPU
-``torch.Generator`` and masks live on the CPU (n is small): the round
-computes the gather indices there and moves both to its device.  The
-uniform law gives the reference's distribution, not its bits; ``fixed``
-replays recorded masks, which is how tests give both packages the same
-cohorts."""
+"""Client-sampling laws (port of ``repro.fleet.samplers``).
+
+A :class:`ClientSampler` draws the round's participant set S_t as a 0/1
+``mask`` (``[n]``, exactly m ones) plus per-client aggregation ``weights``
+(``[n]``, zero off-support), and may carry per-run state
+(``FedState.sampler``).  The engine aggregates every per-client quantity
+as ``sum_j weights_j * x_j / m``.
+
+Registered samplers:
+
+* ``uniform``  -- m of n without replacement; ``weights = mask``.
+* ``weighted`` -- importance sampling ∝ shard size (the fleet's counts;
+  uniform probabilities without a fleet) by Madow systematic sampling,
+  whose inclusion probabilities are exactly the capped pi_j = m·q_j, with
+  the Horvitz-Thompson weights ``m·q_j / pi_j``: the aggregate is unbiased
+  for the data-weighted mean Σ_j q_j x_j (q_j = count_j / Σ count).
+* ``markov``   -- a two-state availability chain per client; m sampled
+  uniformly among the available clients (unavailable ones only when fewer
+  than m are up); ``weights = mask``.
+* ``fixed``    -- replay of recorded ``[T, n]`` cohorts.
+
+Draws come from a CPU ``torch.Generator`` and masks live on the CPU (n is
+small): the round computes the gather indices there and moves both to its
+device.  Each law is split into its draw (the uniform ``u`` of systematic
+sampling; the flip and pick uniforms of the Markov step) and a
+deterministic core (:func:`weighted_core` over :func:`capped_inclusion`
+and :func:`systematic_pick`; :func:`markov_step`), which gives the
+reference's bits for the same uniforms: its float32 sums and running sums
+are taken in the reference's CPU order (``partitions.sum_f32`` /
+``cumsum_f32``).  The laws give the reference's distributions, not its
+draws.
+
+The asynchronous engine's mid-round ``events`` are not ported yet: they
+come with the async engine.
+"""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
+from repro_torch.comm.transports import _mix64
+from repro_torch.fleet.partitions import cumsum_f32, sum_f32
+
 _SAMPLERS: dict = {}
+
+# seed word separating the Markov chain's initial draw from the round
+# streams ("smp")
+SAMPLER_TAG = 0x736D70
 
 
 def register_sampler(cls):
@@ -21,10 +58,13 @@ def get_sampler(name: str) -> "ClientSampler":
     try:
         cls = _SAMPLERS[name]
     except KeyError:
-        raise NotImplementedError(
-            f"client sampler {name!r} is not ported yet; ported: "
-            f"{sorted(_SAMPLERS)}") from None
+        raise ValueError(f"unknown client sampler {name!r}; "
+                         f"registered: {sorted(_SAMPLERS)}") from None
     return cls()
+
+
+def sampler_names() -> tuple:
+    return tuple(sorted(_SAMPLERS))
 
 
 def participation_mask(gen: torch.Generator, n: int, m: int) -> torch.Tensor:
@@ -35,7 +75,79 @@ def participation_mask(gen: torch.Generator, n: int, m: int) -> torch.Tensor:
     return (perm < m).to(torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# Systematic (Madow) sampling: exactly m distinct picks with exact
+# inclusion probabilities pi_j
+# ---------------------------------------------------------------------------
+
+def capped_inclusion(p: torch.Tensor, m: int, iters: int = 4) -> torch.Tensor:
+    """Inclusion probabilities pi = m*p (float32, CPU), iteratively capped
+    at 1 with the excess spread proportionally over the rest."""
+    pi = m * p.to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32)
+    for _ in range(iters):
+        over = pi >= 1.0
+        excess = sum_f32(torch.where(over, pi - 1.0, zero))
+        free = sum_f32(torch.where(over, zero, pi))
+        pi = torch.where(over, torch.ones((), dtype=torch.float32),
+                         pi * (1.0 + excess / torch.clamp(free, min=1e-12)))
+    return torch.clamp(pi, max=1.0)
+
+
+def systematic_pick(u: torch.Tensor, pi: torch.Tensor, m: int
+                    ) -> torch.Tensor:
+    """Madow systematic sampling: m distinct sorted indices with inclusion
+    probability exactly pi_j (pi <= 1, sum ~= m).  The points u, u+1, ...,
+    u+m-1 (one uniform ``u`` in [0, 1)) fall on the running sum of pi; each
+    interval of length <= 1 catches at most one of them."""
+    c = cumsum_f32(pi)
+    c[-1] = float(m)                        # close float drift exactly
+    pts = u.to(torch.float32) + torch.arange(m, dtype=torch.float32)
+    idx = torch.searchsorted(c, pts, right=True)
+    return torch.clamp(idx, 0, pi.shape[0] - 1)
+
+
+def weighted_core(u: torch.Tensor, q: torch.Tensor, m: int):
+    """One weighted round from its uniform ``u``: the m systematic picks
+    over the capped inclusion probabilities of the population weights
+    ``q``, and their Horvitz-Thompson weights ``m·q_j / pi_j``.  Returns
+    ``(mask, weights)``."""
+    pi = capped_inclusion(q, m)
+    idx = systematic_pick(u, pi, m)
+    mask = torch.zeros((q.shape[0],), dtype=torch.float32)
+    mask[idx] = 1.0
+    return mask, mask * (m * q / torch.clamp(pi, min=1e-12))
+
+
+def markov_step(avail_prev: torch.Tensor, u_flip: torch.Tensor,
+                u_pick: torch.Tensor, m: int, stay: float, ret: float):
+    """One Markov round from its uniforms: each chain stays up with
+    probability ``stay`` or comes back with ``ret``; the m highest scores
+    ``2·avail + u_pick`` take part (stable: ties to the lower index).
+    Returns ``(mask, avail)``."""
+    p = torch.where(avail_prev > 0, torch.tensor(stay, dtype=torch.float32),
+                    torch.tensor(ret, dtype=torch.float32))
+    avail = (u_flip < p).to(torch.float32)
+    score = avail * 2.0 + u_pick
+    order = torch.sort(-score, stable=True).indices
+    mask = torch.zeros(avail.shape[0], dtype=torch.float32)
+    mask[order[:m]] = 1.0
+    return mask, avail
+
+
+# ---------------------------------------------------------------------------
+# Registry entries
+# ---------------------------------------------------------------------------
+
 class ClientSampler:
+    """One client-participation law.
+
+    Usage::
+
+        >>> samp = get_sampler(cfg.fleet.sampler)
+        >>> mask, weights, s = samp.sample(gen, cfg, state, fleet=fleet)
+    """
+
     name: str = "?"
 
     def init(self, cfg):
@@ -43,9 +155,20 @@ class ClientSampler:
         stateless laws."""
         return None
 
-    def sample(self, gen: torch.Generator, cfg, state=None):
+    def inclusion_probs(self, cfg, fleet=None) -> torch.Tensor:
+        """Per-client inclusion probability of one round's draw."""
+        n = cfg.n_clients
+        return torch.full((n,), min(cfg.m, n) / n, dtype=torch.float32)
+
+    def sample(self, gen: torch.Generator, cfg, state=None, fleet=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, object]:
         """Draw S_t: ``(mask [n], weights [n], next state)`` on the CPU."""
         raise NotImplementedError
+
+    def events(self, gen, cfg, mask, state=None):
+        raise NotImplementedError(
+            "sampler events (mid-round departures and arrivals) are not "
+            "ported yet: they come with the async engine")
 
 
 @register_sampler
@@ -54,9 +177,72 @@ class UniformSampler(ClientSampler):
 
     name = "uniform"
 
-    def sample(self, gen, cfg, state=None):
+    def sample(self, gen, cfg, state=None, fleet=None):
         mask = participation_mask(gen, cfg.n_clients, cfg.m)
         return mask, mask, state
+
+
+@register_sampler
+class WeightedSampler(ClientSampler):
+    """Importance sampling ∝ shard size with Horvitz-Thompson weights (see
+    the module docstring).  Without a fleet the probabilities are uniform
+    and the weights reduce to the mask."""
+
+    name = "weighted"
+
+    def _probs(self, cfg, fleet):
+        if fleet is None:
+            n = cfg.n_clients
+            return torch.full((n,), 1.0 / n, dtype=torch.float32)
+        from repro_torch.fleet.provision import data_weights
+        return data_weights(fleet)
+
+    def inclusion_probs(self, cfg, fleet=None):
+        return capped_inclusion(self._probs(cfg, fleet),
+                                min(cfg.m, cfg.n_clients))
+
+    def sample(self, gen, cfg, state=None, fleet=None):
+        mask, weights = weighted_core(torch.rand((), generator=gen),
+                                      self._probs(cfg, fleet),
+                                      min(cfg.m, cfg.n_clients))
+        return mask, weights, state
+
+
+@register_sampler
+class MarkovSampler(ClientSampler):
+    """Two-state availability chain per client; m drawn uniformly among
+    the available set each round.  The chain starts from its stationary
+    law, drawn from a generator derived from ``cfg.seed``."""
+
+    name = "markov"
+
+    def _stationary(self, cfg) -> float:
+        fl = cfg.fleet
+        return fl.avail_return / max(fl.avail_return + 1.0 - fl.avail_stay,
+                                     1e-9)
+
+    def init(self, cfg):
+        gen = torch.Generator().manual_seed(_mix64(cfg.seed, SAMPLER_TAG))
+        return (torch.rand((cfg.n_clients,), generator=gen)
+                < self._stationary(cfg)).to(torch.float32)
+
+    def inclusion_probs(self, cfg, fleet=None):
+        # stationary approximation: m spread over the expected available set
+        n = cfg.n_clients
+        avail = self._stationary(cfg)
+        return torch.full((n,), min(1.0, cfg.m / max(avail * n, 1e-9)),
+                          dtype=torch.float32) * avail
+
+    def sample(self, gen, cfg, state=None, fleet=None):
+        n = cfg.n_clients
+        if state is None:                 # a hand-built FedState
+            state = torch.ones((n,), dtype=torch.float32)
+        u_flip = torch.rand((n,), generator=gen)
+        u_pick = torch.rand((n,), generator=gen)
+        mask, avail = markov_step(state, u_flip, u_pick, cfg.m,
+                                  cfg.fleet.avail_stay,
+                                  cfg.fleet.avail_return)
+        return mask, mask, avail
 
 
 @register_sampler
@@ -76,7 +262,7 @@ class FixedSampler(ClientSampler):
         n = cfg.n_clients
         return (torch.ones((1, n)), torch.ones((1, n)), 0)
 
-    def sample(self, gen, cfg, state=None):
+    def sample(self, gen, cfg, state=None, fleet=None):
         if state is None:
             state = self.init(cfg)
         masks, weights, t = state

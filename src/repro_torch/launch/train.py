@@ -1,5 +1,5 @@
 """Training launcher: FedSGM rounds of the LM task on one device (port of
-``repro.launch.train``, the path without fleet, async or wire).
+``repro.launch.train``, the path without async, wire or obs).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --uplink topk --rounds 20                 # the dense wire (default)
@@ -8,14 +8,22 @@
     # partial participation: 4 of 8 clients, local steps over the 4 only
     PYTHONPATH=src python -m repro_torch.launch.train --clients 8 \\
         --participating 4 --participation gather --comm pallas --uplink topk
+    # a client fleet: 8 pooled sequences per client, minibatches of --batch
+    # drawn afresh each round, clients sampled by availability
+    PYTHONPATH=src python -m repro_torch.launch.train --fleet \
+        --sampler markov --clients 8 --participating 4 --participation gather
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
 Rounds run in chunks of 10, as the reference's launcher does, so ``--rounds``
-below 10 still runs one chunk of 10.  Like the reference's launcher it keeps
-the identity downlink; the compressed downlink is reached through the engine
-API (``rounds.init_state`` / ``run_rounds`` with a ``FedConfig``).  Flags of
-the reference that the port does not run yet raise.
+below 10 still runs one chunk of 10.  Without ``--fleet`` each round gets
+fresh host batches; with it, each client holds a pool of ``--fleet-pool``
+sequences and the rounds provision ``--batch`` of them per client, drawn
+afresh every round (``lm.make_fleet``); both through ``rounds.run_rounds``.
+Like the reference's launcher it keeps the identity downlink; the compressed
+downlink is reached through the engine API (``rounds.init_state`` /
+``run_rounds`` with a ``FedConfig``).  Flags of the reference that the port
+does not run yet raise.
 """
 from __future__ import annotations
 
@@ -32,9 +40,8 @@ from repro_torch.engine import rounds
 from repro_torch.models import build
 from repro_torch.tasks import lm
 
-_NOT_PORTED = (("fleet", "--fleet"), ("async_buffer", "--async-buffer"),
-               ("wire", "--wire"), ("obs", "--obs"),
-               ("ef_slots", "--ef-slots"))
+_NOT_PORTED = (("async_buffer", "--async-buffer"), ("wire", "--wire"),
+               ("obs", "--obs"), ("ef_slots", "--ef-slots"))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -59,8 +66,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--strategy", default="fedsgm")
     ap.add_argument("--participation", default="mask",
                     choices=["mask", "gather"])
+    ap.add_argument("--fleet", action="store_true",
+                    help="client fleet: per-client sequence pools, --batch "
+                         "of them provisioned per client and round")
+    ap.add_argument("--fleet-pool", type=int, default=8,
+                    help="token sequences held per client (--fleet)")
+    ap.add_argument("--sampler", default="uniform",
+                    choices=["uniform", "weighted", "markov"],
+                    help="client-sampling law (fleet.samplers)")
     # reference flags whose paths are not ported yet: they raise
-    ap.add_argument("--fleet", action="store_true")
     ap.add_argument("--async-buffer", action="store_true")
     ap.add_argument("--wire", type=int, default=0)
     ap.add_argument("--obs", action="store_true")
@@ -69,9 +83,10 @@ def parser() -> argparse.ArgumentParser:
 
 
 def setup(args):
-    """Everything a run needs, from parsed arguments: ``(state, batch_fn,
-    loss_pair, fed, cfg, device)``.  Raises for the reference's paths that
-    are not ported yet."""
+    """Everything a run needs, from parsed arguments: ``(state, batches,
+    loss_pair, fed, cfg, device)``; ``batches`` is the per-round batch
+    function, or under ``--fleet`` the :class:`repro_torch.fleet.Fleet`.
+    Raises for the reference's paths that are not ported yet."""
     for attr, flag in _NOT_PORTED:
         if getattr(args, attr):
             raise NotImplementedError(f"{flag} is not ported yet")
@@ -88,10 +103,17 @@ def setup(args):
         uplink=CompressorConfig(kind=args.uplink, ratio=args.ratio),
         downlink=CompressorConfig(kind="none"), comm=args.comm,
         strategy=args.strategy, participation=args.participation,
-        fleet=FleetConfig())
+        fleet=FleetConfig(sampler=args.sampler, batch_size=args.batch,
+                          redraw=True) if args.fleet else FleetConfig(
+                              sampler=args.sampler))
     loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
     state = rounds.init_state(params, fed, device=dev)
     del params                  # the state's flat buffer is the model now
+    if args.fleet:
+        fleet = lm.make_fleet(torch.Generator().manual_seed(1),
+                              fed, pool=args.fleet_pool, seq_len=args.seq,
+                              vocab=cfg.vocab, hetero=0.5, device=dev)
+        return state, fleet, loss_pair, fed, cfg, dev
 
     def batch_fn(t, g):
         toks, mask = synthetic.client_token_batches(
@@ -103,12 +125,15 @@ def setup(args):
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    state, batch_fn, loss_pair, fed, cfg, dev = setup(args)
+    state, batches, loss_pair, fed, cfg, dev = setup(args)
+    pool = f", fleet pool {args.fleet_pool}" if args.fleet else ""
     print(f"{cfg.name}: d={state.spec.d} params on {dev}, "
-          f"{fed.m} of {fed.n_clients} clients ({fed.participation}), "
+          f"{fed.m} of {fed.n_clients} clients ({fed.participation}, "
+          f"{fed.fleet.sampler} sampler{pool}), "
           f"uplink {fed.uplink.kind} on comm={fed.comm}", flush=True)
     t0 = time.time()
     done = 0
+    batch_fn = (lambda t, g: batches) if args.fleet else batches
     for _ in range(max(args.rounds // 10, 1)):
         state, hist = rounds.run_rounds(state, batch_fn, loss_pair, fed,
                                         T=10, device=dev)

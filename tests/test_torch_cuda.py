@@ -265,7 +265,7 @@ def test_reduced_gather_round_launches_its_kernels(dev, uplink):
     # the compressed downlink's center starts at w, as init_state sets it
     fed = fed.replace(downlink=fed.uplink)
     state = state._replace(x=state.w)
-    batches = batch_fn(0, torch.Generator(device=dev).manual_seed(0))
+    batches = batch_fn(0, torch.Generator().manual_seed(0))
     kernels.reset_launches()
     rounds.round_step(state, batches, loss_pair, fed, device=dev)
     torch.cuda.synchronize()
@@ -334,7 +334,7 @@ def test_reduced_round_launches_its_kernels(dev, uplink):
     args = train.parser().parse_args(["--reduced", "--seq", "16",
                                       "--comm", "pallas", "--uplink", uplink])
     state, batch_fn, loss_pair, fed, _, _ = train.setup(args)
-    batches = batch_fn(0, torch.Generator(device=dev).manual_seed(0))
+    batches = batch_fn(0, torch.Generator().manual_seed(0))
     kernels.reset_launches()
     rounds.round_step(state, batches, loss_pair, fed, device=dev)
     torch.cuda.synchronize()
@@ -518,3 +518,90 @@ def test_reduced_randk_gather_equals_mask_on_card(dev):
     for name in rounds.RoundMetrics._fields:
         assert np.array_equal(getattr(hg, name).view(np.uint32),
                               getattr(hm, name).view(np.uint32))
+
+
+def _ht_weights(n, m):
+    """The weighted sampler's Horvitz-Thompson weights for heavy-tailed
+    counts (client 0's inclusion caps at 1): not 0/1."""
+    from repro_torch.fleet import samplers
+    count = torch.tensor([80.0] + [float(3 + 5 * j) for j in range(n - 1)])
+    _, w = samplers.weighted_core(torch.tensor(0.3), count / count.sum(), m)
+    assert float(w.max()) > 1.0 and ((w > 0) & (w < 1)).any()
+    return w
+
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("block,k", [(42, 4), (640, 64), (960, 96)])
+def test_reduce_kernels_at_ht_weights(dev, n, block, k):
+    """``scatter_agg`` and ``unpack_mma`` with Horvitz-Thompson weights (not
+    0/1): bit-equal to their plain versions (the rounding order of
+    ``weight * v`` and of ``weight * scale / L``)."""
+    w = _ht_weights(n, n // 2)
+    rng = np.random.default_rng(block + n)
+    vals = torch.from_numpy(rng.standard_normal((n, 5, k)).astype(np.float32))
+    idx = payloads.to_u16(torch.from_numpy(
+        rng.integers(0, block, size=(n, 5, k))))
+    want = scatter_agg_plain(vals, idx, w, block)
+    got = scatter_agg(vals.to(dev), idx.to(dev), w.to(dev), block)
+    _same(got.view(torch.int32), want.view(torch.int32))
+    L = 127
+    codes = torch.from_numpy(rng.integers(-L, L + 1, size=(n, 5, block)))
+    words = payloads.pack_codes(codes, 8).to(dev)
+    scale = torch.rand((n, 5), device=dev)
+    wd = w.to(dev)
+    _same(unpack_mma(words, scale, wd, 8, block),
+          unpack_mma_plain(words, scale, wd, 8, block))
+
+
+def test_weighted_fleet_round_on_card_matches_cpu(dev):
+    """A reduced gather round (2 of 4) on a ragged fleet with the
+    ``weighted`` sampler and 2 fresh rows per client, top-k up and down on
+    ``comm="pallas"``, on the card against the CPU: the cohort and the rows
+    come from CPU generators, so both draw the same; f and g_hat at rtol
+    1e-4, all but 0.1% of w within rtol 1e-4 / atol 1e-6, the kernels
+    launched as the layout demands, the weights not 0/1."""
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import FleetConfig
+    from repro_torch.engine import rounds
+    from repro_torch.fleet import provision
+    from repro_torch.launch import train
+    from repro_torch.tasks import lm
+    args = train.parser().parse_args(
+        ["--reduced", "--seq", "16", "--device", "cpu", "--clients", "4",
+         "--participating", "2", "--participation", "gather", "--comm",
+         "pallas", "--uplink", "topk"])
+    state0, _, pair, fed, cfg, _ = train.setup(args)
+    fed = fed.replace(downlink=fed.uplink, fleet=FleetConfig(
+        sampler="weighted", batch_size=2, redraw=True))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 5, 16)))
+    mask = torch.zeros((4, 5, 16))
+    mask[..., -2:] = 1.0
+    count = torch.tensor([5, 1, 2, 1])
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        fleet = provision.from_stacked(lm.LMBatch(toks.to(d), mask.to(d)),
+                                       count=count)
+        state = rounds.init_state(flat.unflatten(state0.spec,
+                                                 state0.w.to(d)), fed,
+                                  device=d)
+        kernels.reset_launches()
+        out[d.type] = rounds.round_step(state, fleet, pair, fed, device=d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+    runs = len(flat.wire_layout(state0.spec, fed.uplink).runs)
+    want = {name: 0 for name in kernels.WRAPPERS}
+    want.update({"block_topk": 2 * runs, "scatter_agg": runs,
+                 "segment_rows": 2})
+    assert counts == want
+    (new, met), (cpu, cmet) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose([float(met.f), float(met.g_hat)],
+                               [float(cmet.f), float(cmet.g_hat)],
+                               rtol=1e-4)
+    far = ~torch.isclose(new.w.cpu(), cpu.w, rtol=1e-4, atol=1e-6)
+    assert float(far.float().mean()) <= 1e-3
+    from repro_torch.fleet import samplers
+    _, w, _ = samplers.get_sampler("weighted").sample(
+        torch.Generator().manual_seed(fed.seed), fed, fleet=fleet)
+    assert ((w > 0) & (w != 1.0)).any()

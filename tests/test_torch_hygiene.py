@@ -11,6 +11,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs.base import CompressorConfig, FedConfig, FleetConfig
 from repro_torch.engine import rounds
+from repro_torch.fleet import samplers
 from repro_torch.kernels.quantize_ef import quantize_ef
 from repro_torch.kernels.quantize_ef_pack import quantize_ef_pack
 from repro_torch.kernels.scatter_agg import scatter_agg, segment_rows
@@ -86,20 +87,74 @@ def test_round_step_needs_a_card_unless_asked_for_cpu(no_card):
 
 
 def test_not_ported_paths_raise():
-    """The fleet partitioners and the other samplers (``--fleet``,
-    ``weighted`` / ``markov``), async rounds, the wire runtime, obs and the
-    slot store raise; the launcher has no flag for the tuner, which is not
-    ported either."""
-    for flag in (["--fleet"], ["--async-buffer"], ["--wire", "2"],
-                 ["--obs"], ["--ef-slots", "4"]):
+    """Async rounds, the wire runtime, obs and the slot store raise, and so
+    do the samplers' mid-round events (they come with the async engine);
+    the launcher has no flag for the tuner, which is not ported either."""
+    for flag in (["--async-buffer"], ["--wire", "2"], ["--obs"],
+                 ["--ef-slots", "4"], ["--fleet", "--async-buffer"]):
         args = train.parser().parse_args(["--device", "cpu"] + flag)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.setup(args)
-    for fed in (_fed().replace(fleet=FleetConfig(sampler="weighted")),
-                _fed().replace(fleet=FleetConfig(sampler="markov"),
-                               full_eval=False, comm="dense")):
+    for name in ("uniform", "weighted", "markov"):
+        fed = _fed().replace(fleet=FleetConfig(sampler=name))
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            rounds.init_state({"w": torch.zeros(3)}, fed, device="cpu")
+            samplers.get_sampler(name).events(
+                torch.Generator(), fed, torch.ones(2))
+
+
+@pytest.mark.parametrize("sampler", ["weighted", "markov"])
+def test_fleet_launcher_needs_a_card_unless_asked_for_cpu(no_card, sampler):
+    argv = ["--reduced", "--seq", "8", "--batch", "1", "--clients", "4",
+            "--participating", "2", "--participation", "gather", "--comm",
+            "pallas", "--uplink", "topk", "--rounds", "1", "--fleet",
+            "--fleet-pool", "3", "--sampler", sampler]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    state = train.main(argv + ["--device", "cpu"])
+    assert state.w.device.type == "cpu" and state.t == 10
+    assert torch.isfinite(state.w).all()
+    if sampler == "markov":
+        assert state.sampler.shape == (4,)
+
+
+def test_quickstart_needs_a_card_unless_asked_for_cpu(no_card):
+    """The quickstart's entry point needs a card; its three parts run on
+    the CPU when asked (2 rounds each here)."""
+    from repro_torch.examples import quickstart
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart.engine_demo(T=2)
+    figure1 = [quickstart.run(mode, T=2, device="cpu")
+               for mode in ("hard", "soft")]
+    assert all(np.isfinite(r["f_wbar"]) for r in figure1)
+    sweep = quickstart.fleet_demo(T=2, device="cpu")
+    assert [r["alpha"] for r in sweep] == [100.0, 1.0, 0.1]
+    assert all(np.isfinite(r["f"]) for r in sweep)
+    assert quickstart.engine_demo(T=2, device="cpu")["gather_equals_mask"]
+
+
+def test_lm_fleet_needs_a_card_unless_asked_for_cpu(no_card):
+    from repro_torch.tasks import lm
+    fed = _fed().replace(fleet=FleetConfig(batch_size=1, redraw=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.make_fleet(torch.Generator().manual_seed(0), fed, pool=3,
+                      seq_len=8, vocab=64)
+    fleet = lm.make_fleet(torch.Generator().manual_seed(0), fed, pool=3,
+                          seq_len=8, vocab=64, device="cpu")
+    assert fleet.data.tokens.shape == (2, 3, 8)
+    assert fleet.data.tokens.device.type == "cpu"
+
+
+def test_token_draws_refuse_a_card_generator():
+    """Token draws come from CPU generators only: a generator on any other
+    device is refused before it draws."""
+    from repro_torch.data import synthetic
+
+    class CardGen:
+        device = torch.device("cuda")
+    with pytest.raises(ValueError, match="CPU generator"):
+        synthetic.token_stream(CardGen(), 1, 8, 64)
 
 
 def test_gather_launcher_needs_a_card_unless_asked_for_cpu(no_card):
