@@ -65,13 +65,25 @@ Phases, each fatal on failure (nonzero exit):
 10. the NP task of the paper's Figure 1 (n = 20, m = 10, E = 5, top-k 0.1
    up and down, the dense wire): two rounds on the card against the same
    rounds on the CPU from the same shards and recorded cohorts, hard and
-   soft, then the port's quickstart on the card (120, 40 and 40 rounds
+   soft, then the port's quickstart on the card (60, 20 and 20 rounds
    for its three parts, cut from its own 500, 200 and 50 because the
    phase is bound by the host) and one more Figure-1 round under the
-   profiler.
+   profiler;
+11. the paper's other experiments: (a) the CMDP example's config (10
+   clients, 7 sampled, top-k 0.5 up) for 2 rounds at horizon 50 on the
+   card against the CPU, from the same fleet draws and one recorded Markov
+   cohort, on ``comm="dense"`` and ``"pallas"``, after ``block_topk`` and
+   ``scatter_agg`` are held against their plain versions at the CMDP
+   layout; (b) the CMDP example as the reference runs it (horizon 200,
+   ``CMDP_ROUNDS`` rounds cut from 300) and one more round under the
+   profiler; (c) the fair example (alpha 10 and 0.5, the penalty sweep,
+   ``FAIR_ROUNDS`` rounds each); (d) the weakly-convex measure on NP (n =
+   4), which must halve over 150 rounds; (e) the LM example at ``--preset
+   100m`` (packed wire, blocks of 2048), 3 rounds, after ``scatter_agg``
+   is held against its plain version at that layout.
 
-In phases 5, 7, 8 and 9 the launch counts are zeroed just before each phase
-and read just after: each kernel must have launched exactly as often per
+In phases 5, 7, 8, 9 and 11 the launch counts are zeroed just before each
+part and read just after: each kernel must have launched exactly as often per
 round as the wire layout demands (on ``comm="pallas"`` the encode kernel
 once per wire run and direction; the reduce kernel once per run on the
 pallas and packed wires; ``segment_rows`` twice in a gather round; no
@@ -935,11 +947,12 @@ def zipf_token_fleet(torch, cfg):
 # quickstart's parts: each Figure-1 run, each alpha of the sweep, the
 # gather == mask check.  The phase is bound by the host (thousands of tiny
 # launches a round): the quickstart's own 500 / 200 / 50 rounds took 358 s
-# on an H100, so they are cut to keep the phase near two minutes
+# on an H100, so they are cut to keep the phase near a minute (and the
+# whole script, with phase 11, near half its time limit)
 NP_CHECK_ROUNDS = 2
-NP_FIGURE1_ROUNDS = 120
-NP_SWEEP_ROUNDS = 40
-NP_ENGINE_ROUNDS = 40
+NP_FIGURE1_ROUNDS = 60
+NP_SWEEP_ROUNDS = 20
+NP_ENGINE_ROUNDS = 20
 
 
 def np_phase(torch, dev) -> dict:
@@ -1029,6 +1042,332 @@ def np_phase(torch, dev) -> dict:
     return out
 
 
+# phase 11: the paper's other experiments.  The CMDP card-vs-CPU check's
+# rounds and horizon; the CMDP example's rounds, in chunks of CMDP_CHUNK
+# with an eval after each, and the fair example's rounds, both cut from
+# their own 300 because they are bound by the host (a CMDP round is about
+# 242,000 launches, 2.4-4.8 s on an H100 depending on its host; a fair
+# round 0.05-0.12 s) to keep the CMDP part near a minute and the whole
+# script near half its time limit; the weakly-convex measure's training
+# rounds (the reference test's 150); the 100m LM example's rounds
+CMDP_CHECK_ROUNDS = 2
+CMDP_CHECK_HORIZON = 50
+CMDP_ROUNDS = 20
+CMDP_CHUNK = 10
+FAIR_ROUNDS = 60
+WC_ROUNDS = 150
+LM100M_ROUNDS = 3
+
+
+def to_device(tree, device):
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def meta_spec(torch, cfg):
+    """The flat spec of a dense model config, from ``meta`` tensors."""
+    from repro_torch.comm import flat
+    from repro_torch.models import transformer
+    meta = {}
+
+    def walk(tree, node):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, node.setdefault(k, {}))
+            else:
+                node[k] = torch.empty(v, device="meta")
+    walk(transformer.param_shapes(cfg), meta)
+    return flat.spec_of(meta)
+
+
+def check_layout_kernels(torch, dev, name, layout, n, encode: bool):
+    """Phase 11: the wire kernels at every run of a path's layout (n
+    clients) where the path launches them, against their plain versions,
+    tolerance 0: ``scatter_agg`` on top-k payloads with non-unit weights
+    (runs of blocks > 1; a block of 1 is a weighted sum), and with
+    ``encode`` also ``block_topk`` (the pallas wire's encode, for runs with
+    k < block; the packed wire encodes with a library sort)."""
+    from repro_torch.comm import payloads
+    from repro_torch.kernels import scatter_agg, topk_block
+    g = torch.Generator(device=dev).manual_seed(11)
+    w = torch.rand(n, generator=g, device=dev) * 2
+    for r in layout.runs:
+        if r.block == 1:
+            continue
+        x = torch.randn((n, r.nblocks, r.block), generator=g, device=dev)
+        want = topk_block.block_topk_plain(x, r.k)
+        err = {}
+        if encode and r.k < r.block:
+            err["block_topk"] = max_err(torch, topk_block.block_topk(x, r.k),
+                                        want)
+        vals, idx = want[0], payloads.to_u16(want[1])
+        err["scatter_agg"] = max_err(
+            torch, [scatter_agg.scatter_agg(vals, idx, w, r.block)],
+            [scatter_agg.scatter_agg_plain(vals, idx, w, r.block)])
+        print(json.dumps({"kernel_check": f"{name}: block={r.block} k={r.k} "
+                          f"rows={n * r.nblocks}", "max_abs_err": err,
+                          "tolerance": 0.0}), flush=True)
+        if any(err.values()):
+            raise AssertionError(f"{name}: a kernel differs from its plain "
+                                 f"version at block={r.block} k={r.k}: {err}")
+        del x, want, vals, idx
+    torch.cuda.empty_cache()
+
+
+class RolloutRecorder:
+    """Records, while active, every CMDP rollout's reward, cost and alive
+    flags (on the CPU; for the card-vs-CPU check only)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.tasks import cmdp
+        self._rollout, self.flags = cmdp.rollout, []
+
+        def rollout(params, s0, noise):
+            traj = self._rollout(params, s0, noise)
+            self.flags.append(torch.stack([traj.rewards, traj.costs,
+                                           traj.alive]).cpu())
+            return traj
+        cmdp.rollout = rollout
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.tasks import cmdp
+        cmdp.rollout = self._rollout
+
+
+def cmdp_check(torch, dev) -> list:
+    """Phase 11(a): the CMDP example's FedConfig (10 clients, 7 sampled,
+    soft switch, top-k 0.5 up) for CMDP_CHECK_ROUNDS rounds at horizon
+    CMDP_CHECK_HORIZON, with cohorts recorded from one Markov draw and
+    replayed (``fixed``), from the same fleet draws, on the card against
+    the CPU: on ``comm="dense"`` (no kernel may launch) and on
+    ``comm="pallas"`` (``block_topk`` once per run and round where k <
+    block, ``scatter_agg`` where the block is wider than 1: 2 and 2 of the
+    4 runs).  f, g_hat + the participants' mean budget (the mean cost) and
+    sigma at rtol 1e-4, at most 1e-3 of w outside rtol 1e-4 / atol 1e-6;
+    the reward, cost and alive flags that differ are printed."""
+    from repro_torch import kernels
+    from repro_torch.comm import flat
+    from repro_torch.engine import rounds
+    from repro_torch.examples import cmdp_cartpole
+    from repro_torch.fleet import samplers
+    from repro_torch.tasks import cmdp
+    import numpy as np
+    base = cmdp_cartpole.fed_config()
+    n, R = base.n_clients, CMDP_CHECK_ROUNDS
+    E, T = cmdp_cartpole.N_EPISODES, CMDP_CHECK_HORIZON
+    markov = samplers.get_sampler("markov")
+    gen, st, masks = torch.Generator().manual_seed(5), markov.init(base), []
+    for _ in range(R):
+        mask, _, st = markov.sample(gen, base, st)
+        masks.append(mask)
+    masks = torch.stack(masks)
+    s0, noise = cmdp.fleet_draws(torch.Generator().manual_seed(1), n, 8, E, T)
+    params = cmdp.init_params(torch.Generator().manual_seed(0), device="cpu")
+    layout = flat.wire_layout(flat.spec_of(params), base.uplink)
+    check_layout_kernels(torch, dev, "cmdp pallas", layout, n, encode=True)
+    loss_pair = cmdp.fleet_loss_pair(E, T)
+    b_bar = ((masks * cmdp.client_budgets(n)).sum(1) / base.m).numpy()
+    out = []
+    for comm in ("dense", "pallas"):
+        fed = base.replace(comm=comm, fleet=dataclasses.replace(
+            base.fleet, sampler="fixed"))
+        res = []
+        for device in (dev, torch.device("cpu")):
+            fleet = cmdp.fleet_from_draws(s0, noise, device=device)
+            state = rounds.init_state(to_device(params, device), fed,
+                                      device=device)
+            state = state._replace(sampler=samplers.fixed_state(masks,
+                                                                masks))
+            kernels.reset_launches()
+            with RolloutRecorder() as seen:
+                state, hist = rounds.drive(state, fleet, loss_pair, fed, T=R,
+                                           device=device)
+            if device is dev:
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            res.append((state.w.cpu(), hist, seen.flags))
+        (w_c, h_c, f_c), (w_p, h_p, f_p) = res
+        flips = [(i, int((a != b).sum())) for i, (a, b) in
+                 enumerate(zip(f_c, f_p)) if not torch.equal(a, b)]
+        far = ~torch.isclose(w_c, w_p, rtol=1e-4, atol=1e-6)
+        want = {name: 0 for name in kernels.WRAPPERS}
+        if comm == "pallas":
+            want.update({"block_topk": R * sum(r.k < r.block
+                                               for r in layout.runs),
+                         "scatter_agg": R * sum(r.block > 1
+                                                for r in layout.runs)})
+        ok = (np.allclose(h_c.f, h_p.f, rtol=1e-4, atol=0)
+              and np.allclose(h_c.g_hat + b_bar, h_p.g_hat + b_bar,
+                              rtol=1e-4, atol=0)
+              and np.allclose(h_c.sigma, h_p.sigma, rtol=1e-4, atol=1e-6)
+              and float(far.float().mean()) <= 1e-3
+              and bool(torch.isfinite(w_c).all()) and counts == want
+              and len(f_c) == len(f_p))
+        rec = {"cmdp_reference_check": comm, "rounds": R, "horizon": T,
+               "cohorts": masks.tolist(), "f": [h_c.f.tolist(),
+                                                h_p.f.tolist()],
+               "g_hat": [h_c.g_hat.tolist(), h_p.g_hat.tolist()],
+               "sigma": [h_c.sigma.tolist(), h_p.sigma.tolist()],
+               "w_far_fraction": float(far.float().mean()),
+               "rollouts": len(f_c), "rollouts_with_flag_flips": flips,
+               "launches": counts, "launches_expected": want, "ok": ok}
+        print(json.dumps(rec), flush=True)
+        out.append({"phase": f"paper cmdp check {comm}", "launches": counts})
+        if not ok:
+            raise AssertionError(f"CMDP rounds on {comm}: card and CPU "
+                                 "disagree, or the kernels launched "
+                                 f"{counts}, expected {want}")
+    return out
+
+
+def cmdp_example(torch, dev) -> dict:
+    """Phase 11(b): the CMDP example as the reference runs it (dense wire,
+    horizon 200, 10 clients, Markov sampler), CMDP_ROUNDS rounds in chunks
+    of CMDP_CHUNK with an eval of 10 episodes after each; then one more
+    round under the profiler."""
+    from repro_torch import kernels
+    from repro_torch.engine import rounds
+    from repro_torch.examples import cmdp_cartpole
+    from repro_torch.tasks import cmdp
+    kernels.reset_launches()
+    t0 = time.time()
+    chunks = cmdp_cartpole.main(rounds=CMDP_ROUNDS, chunk=CMDP_CHUNK,
+                                device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = kernels.launch_counts()
+    fed = cmdp_cartpole.fed_config()
+    fleet = cmdp.make_fleet(torch.Generator().manual_seed(1), fed, pool=256,
+                            device=dev)
+    state = rounds.init_state(cmdp.init_params(
+        torch.Generator().manual_seed(0), device=dev), fed, device=dev)
+    spr = [c["s_per_round"] for c in chunks]
+    prof = profile_round(torch, state, lambda t, g: fleet,
+                         cmdp.fleet_loss_pair(cmdp_cartpole.N_EPISODES, 200),
+                         fed, dev, sum(spr[1:]) / max(len(spr) - 1, 1))
+    rec = {"cmdp_example": chunks, "rounds": CMDP_ROUNDS,
+           "chunk": CMDP_CHUNK, "horizon": 200, "seconds": secs,
+           "launches": counts, "profile": prof}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(c[k]) for c in chunks
+               for k in ("reward", "cost", "sigma")):
+        raise AssertionError(f"CMDP example: non-finite {chunks}")
+    if any(counts.values()):
+        raise AssertionError(f"CMDP example (dense wire) launched {counts}")
+    return rec
+
+
+def fair_example(torch, dev) -> dict:
+    """Phase 11(c): the fair example (FedSGM at alpha 10 and 0.5, the
+    penalty baseline at rho 0.1, 1 and 10), FAIR_ROUNDS rounds each, on the
+    dense wire (no kernel may launch)."""
+    from repro_torch import kernels
+    from repro_torch.examples import fair_classification
+    kernels.reset_launches()
+    t0 = time.time()
+    out = fair_classification.main(T=FAIR_ROUNDS, device=dev)
+    torch.cuda.synchronize()
+    rec = {"fair_example": out, "rounds": FAIR_ROUNDS,
+           "seconds": time.time() - t0, "launches": kernels.launch_counts()}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(r[k]) for r in out["fedsgm"] + out["penalty"]
+               for k in ("bce", "dp")):
+        raise AssertionError(f"fair example: non-finite {out}")
+    if any(rec["launches"].values()):
+        raise AssertionError(f"fair example launched {rec['launches']}")
+    return rec
+
+
+def weakly_convex_check(torch, dev) -> dict:
+    """Phase 11(d): Theorem 10's measure on NP (n = 4, eps 0.35, E = 2, no
+    compression): ``stationarity`` at w_0 and after WC_ROUNDS rounds must
+    fall below half (the reference's own test)."""
+    from repro_torch import kernels
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          SwitchConfig)
+    from repro_torch.core import weakly_convex
+    from repro_torch.engine import rounds
+    from repro_torch.tasks import np_classification as npc
+    data, _ = npc.make_dataset(torch.Generator().manual_seed(0), 4,
+                               device=dev)
+    fed = FedConfig(n_clients=4, m=4, local_steps=2, lr=0.1,
+                    switch=SwitchConfig(mode="hard", eps=0.35),
+                    uplink=CompressorConfig(kind="none"),
+                    downlink=CompressorConfig(kind="none"))
+    params = npc.init_params(30, device=dev)
+    kernels.reset_launches()
+    t0 = time.time()
+    s0 = float(weakly_convex.stationarity(npc.loss_pair, data, params,
+                                          eps=0.35))
+    state = rounds.init_state(params, fed, device=dev)
+    state, _ = rounds.drive(state, data, npc.loss_pair, fed, T=WC_ROUNDS,
+                            device=dev)
+    sT = float(weakly_convex.stationarity(
+        npc.loss_pair, data, flat.unflatten(state.spec, state.w), eps=0.35))
+    rec = {"weakly_convex": {"s0": s0, "sT": sT, "rounds": WC_ROUNDS},
+           "seconds": time.time() - t0, "launches": kernels.launch_counts()}
+    print(json.dumps(rec), flush=True)
+    if not sT < 0.5 * s0:
+        raise AssertionError(f"stationarity {sT} not below half of {s0}")
+    return rec
+
+
+def lm_100m_example(torch, dev) -> dict:
+    """Phase 11(e): the LM example at ``--preset 100m`` (12 layers, d_model
+    768, GQA 12/4, d_ff 2048, vocab 32000; packed wire, top-k 0.1 up and
+    0.25 down in blocks of 2048, 8 clients, 6 sampled, mask mode, E = 2),
+    LM100M_ROUNDS rounds: s/round, peak memory, and ``scatter_agg``
+    launched once per uplink run and round (no other kernel), after
+    ``scatter_agg`` is held against its plain version at that layout."""
+    from repro_torch import kernels
+    from repro_torch.comm import flat
+    from repro_torch.examples import train_lm_federated
+    cfg = train_lm_federated.get_cfg("100m")
+    fed = train_lm_federated.fed_config()
+    layout = flat.wire_layout(meta_spec(torch, cfg), fed.uplink)
+    check_layout_kernels(torch, dev, "lm 100m packed", layout,
+                         fed.n_clients, encode=False)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = train_lm_federated.main(rounds=LM100M_ROUNDS, preset="100m",
+                                  chunk=1, device=dev)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {name: 0 for name in kernels.WRAPPERS}
+    want["scatter_agg"] = LM100M_ROUNDS * sum(r.block > 1
+                                              for r in layout.runs)
+    rec = {"lm_100m_example": out, "rounds": LM100M_ROUNDS,
+           "runs": len(layout.runs),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "launches_expected": want}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(v) for v in out["f"] + out["g_hat"]):
+        raise AssertionError(f"LM 100m example: non-finite {out}")
+    if counts != want:
+        raise AssertionError(f"LM 100m example launched {counts}, expected "
+                             f"{want}")
+    return rec
+
+
+def paper_phase(torch, dev) -> tuple:
+    """Phase 11: the paper's other experiments on the card, (a)-(e).
+    Returns ``(records, launch records)``."""
+    launches = cmdp_check(torch, dev)
+    rec = {"cmdp_example": cmdp_example(torch, dev),
+           "fair_example": fair_example(torch, dev),
+           "weakly_convex": weakly_convex_check(torch, dev),
+           "lm_100m": lm_100m_example(torch, dev)}
+    for name, part in (("paper cmdp example", "cmdp_example"),
+                       ("paper fair example", "fair_example"),
+                       ("paper weakly-convex", "weakly_convex"),
+                       ("paper lm 100m", "lm_100m")):
+        launches.append({"phase": name, "launches": rec[part]["launches"]})
+    return rec, launches
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -1080,7 +1419,6 @@ def main(argv=None) -> int:
     from repro_torch.comm import flat
     from repro_torch.configs.base import CompressorConfig
     from repro_torch.kernels import build
-    from repro_torch.models import transformer
 
     t_start = time.time()
     card = card_line()
@@ -1099,16 +1437,7 @@ def main(argv=None) -> int:
           flush=True)
 
     cfg = configs.get_config("smollm-360m")
-    meta = {}
-
-    def walk(tree, node):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                walk(v, node.setdefault(k, {}))
-            else:
-                node[k] = torch.empty(v, device="meta")
-    walk(transformer.param_shapes(cfg), meta)
-    spec = flat.spec_of(meta)
+    spec = meta_spec(torch, cfg)
     layout = flat.wire_layout(spec, CompressorConfig(kind="topk", ratio=0.1))
     print(f"layout: d={spec.d}, {len(layout.runs)} runs, blocks "
           f"{[r.block for r in layout.runs]}, k {[r.k for r in layout.runs]}",
@@ -1159,10 +1488,13 @@ def main(argv=None) -> int:
         raise AssertionError("the zipf fleet's weighted sampler gave only "
                              "0/1 weights")
     np_rec = np_phase(torch, dev)
+    paper_rec, paper_launches = paper_phase(torch, dev)
     # launches on the main paths: each phase's count, and their sum
+    counted = phases + [{"phase": "np quickstart",
+                         "launches": np_rec["launches"]}] + paper_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
-                                    for p in phases}
+                                    for p in counted}
         rec["launches"] = sum(rec["launches_by_phase"].values())
     kern = {"kernels": [records[name] for name in KERNELS]}
     if args.out:
@@ -1172,6 +1504,7 @@ def main(argv=None) -> int:
                                     "cuda": torch.version.cuda,
                                     "kernels": kern["kernels"],
                                     "phases": phases, "np": np_rec,
+                                    "paper": paper_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

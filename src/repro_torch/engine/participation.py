@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.comm import transports
+from repro_torch.fleet.partitions import leaves_of, rebuild
 
 MODES = ("mask", "gather")
 
@@ -79,11 +80,13 @@ def finalize(mask: torch.Tensor, weights: Optional[torch.Tensor], cfg,
 
 
 def gather(part: Participation, batches):
-    """Participants' rows of a stacked ``[n, ...]`` batch NamedTuple
-    (``[m, ...]`` in sorted-index order); identity in mask mode."""
+    """Participants' rows of a stacked ``[n, ...]`` batch (a NamedTuple, a
+    plain tuple or a single tensor; ``[m, ...]`` in sorted-index order);
+    identity in mask mode."""
     if part.idx is None:
         return batches
-    return type(batches)(*(x.index_select(0, part.idx) for x in batches))
+    return rebuild(batches, [x.index_select(0, part.idx)
+                             for x in leaves_of(batches)])
 
 
 def scatter_rows(part: Participation, rows):

@@ -56,6 +56,7 @@ from repro_torch.comm.flat import flat_transports_for
 from repro_torch.core.compression import message_bytes
 from repro_torch.engine import participation, strategies
 from repro_torch.fleet import provision, samplers
+from repro_torch.fleet.partitions import leaves_of, rebuild
 from repro_torch.optim.sgd import axpy
 
 
@@ -141,8 +142,14 @@ def sample_round(state: FedState, cfg, fleet=None):
 
 
 def client_batch(batches, j: int):
-    """Client j's rows of a stacked ``[n, ...]`` batch NamedTuple."""
-    return type(batches)(*(x[j] for x in batches))
+    """Client j's rows of a stacked ``[n, ...]`` batch: a NamedTuple, a
+    plain tuple or a single tensor, rebuilt as the same type."""
+    return rebuild(batches, [x[j] for x in leaves_of(batches)])
+
+
+def n_rows(batches) -> int:
+    """The leading (client) axis of a stacked batch."""
+    return leaves_of(batches)[0].shape[0]
 
 
 def eval_clients(params, batches, loss_pair: Callable, n: int):
@@ -212,7 +219,7 @@ def _fused_eval(wf, spec, strat, local_b, loss_pair: Callable, cfg, part,
     ``d(blend)/d(f_j, g_j)`` (per row: penalty-fedavg's seed depends on
     g_j).  Returns ``(aggregates, sigma, first)``."""
     leaves, pairs = [], []
-    for j in range(local_b[0].shape[0]):
+    for j in range(n_rows(local_b)):
         leaf = wf.detach().requires_grad_(True)
         pairs.append(loss_pair(flat.unflatten(spec, leaf),
                                client_batch(local_b, j)))
@@ -252,14 +259,14 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
             idx=part.host_idx if sparse_eval else None)
     local_b = batches if pre_gathered else participation.gather(part,
                                                                 batches)
-    n_local = local_b[0].shape[0]
+    n_local = n_rows(local_b)
     if fuses(part, strat, cfg):
         aggs, sigma, first = _fused_eval(wf, spec, strat, local_b, loss_pair,
                                          cfg, part, sparse_eval)
     else:
         eval_b = local_b if sparse_eval else batches
         f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), eval_b,
-                                  loss_pair, eval_b[0].shape[0])
+                                  loss_pair, n_rows(eval_b))
         aggs = _eval_aggregates(part, f_ev, g_ev, sparse_eval, cfg.m)
         sigma, first = strat.switch_weight(aggs[1], cfg), None
     deltas = local_deltas(wf, spec, strat, sigma, local_b, loss_pair, cfg,
@@ -301,8 +308,8 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
 def round_step(state: FedState, batches, loss_pair: Callable, cfg,
                device="cuda") -> tuple[FedState, RoundMetrics]:
     """One engine round on ``device`` (``cuda`` unless the caller asks for
-    the CPU; the state must live there).  ``batches`` is a NamedTuple of
-    ``[n_clients, ...]`` tensors, or a :class:`repro_torch.fleet.Fleet`:
+    the CPU; the state must live there).  ``batches`` is a NamedTuple, a plain
+    tuple or a single tensor of ``[n_clients, ...]`` rows, or a :class:`repro_torch.fleet.Fleet`:
     then this round's per-client minibatches are provisioned from its
     shards.
 

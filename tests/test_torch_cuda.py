@@ -605,3 +605,73 @@ def test_weighted_fleet_round_on_card_matches_cpu(dev):
     _, w, _ = samplers.get_sampler("weighted").sample(
         torch.Generator().manual_seed(fed.seed), fed, fleet=fleet)
     assert ((w > 0) & (w != 1.0)).any()
+
+
+def test_cmdp_rollout_on_card_matches_cpu(dev):
+    """A short CMDP rollout (5 episodes, 30 steps) from the same params and
+    draws on the card and on the CPU: every reward, cost and alive flag
+    equal, the states within 1e-4 of each episode's largest component (the
+    card's sin, cos and tanh round differently in the last place, and the
+    dynamics amplify it)."""
+    from repro_torch.tasks import cmdp
+    params = cmdp.init_params(torch.Generator().manual_seed(0), device="cpu")
+    s0, noise = cmdp.rollout_draws(torch.Generator().manual_seed(1), 5, 30)
+    cpu = cmdp.rollout(params, s0, noise)
+    card = cmdp.rollout(_to(params, dev), s0.to(dev), noise.to(dev))
+    for name in ("rewards", "costs", "alive"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    scale = cpu.obs.abs().amax(dim=1, keepdim=True)
+    assert float(((card.obs.cpu() - cpu.obs).abs() / scale).max()) <= 1e-4
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def test_cmdp_round_on_card_matches_cpu(dev):
+    """One CMDP round on ``comm="pallas"`` (3 clients, 2 episodes of 30
+    steps, top-k 0.5 up), card against CPU from the same draws: f, g_hat
+    within 1e-4 absolute (the value splice rounds at the surrogates'
+    scale), all but 0.1% of w within rtol 1e-4 / atol 1e-6, and the wire
+    kernels launched once per run that needs them."""
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          SwitchConfig)
+    from repro_torch.engine import rounds
+    from repro_torch.tasks import cmdp
+    fed = FedConfig(n_clients=3, m=3, local_steps=1, lr=1e-2,
+                    switch=SwitchConfig(mode="soft", eps=0.0, beta=1.0),
+                    uplink=CompressorConfig(kind="topk", ratio=0.5),
+                    comm="pallas")
+    params = cmdp.init_params(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    draws = [cmdp.rollout_draws(gen, 2, 30) for _ in range(3)]
+    batch = cmdp.CMDPBatch(torch.stack([d[0] for d in draws]),
+                           torch.stack([d[1] for d in draws]),
+                           cmdp.client_budgets(3))
+    loss_pair = cmdp.make_loss_pair(2, 30)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state = rounds.init_state(_to(params, d), fed, device=d)
+        kernels.reset_launches()
+        out[d.type] = rounds.round_step(
+            state, cmdp.CMDPBatch(*(v.to(d) for v in batch)), loss_pair,
+            fed, device=d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+    runs = flat.wire_layout(flat.spec_of(params), fed.uplink).runs
+    want = {name: 0 for name in kernels.WRAPPERS}
+    # runs of 1-entry blocks keep their entry (k == block) and reduce as a
+    # weighted sum: 2 of the 4 runs launch the kernels
+    want.update({"block_topk": sum(r.k < r.block for r in runs),
+                 "scatter_agg": sum(r.block > 1 for r in runs)})
+    assert want["block_topk"] == want["scatter_agg"] == 2
+    assert counts == want
+    (new, met), (cpu, cmet) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose([float(met.f), float(met.g_hat)],
+                               [float(cmet.f), float(cmet.g_hat)],
+                               rtol=0, atol=1e-4)
+    far = ~torch.isclose(new.w.cpu(), cpu.w, rtol=1e-4, atol=1e-6)
+    assert float(far.float().mean()) <= 1e-3

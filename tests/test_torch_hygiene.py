@@ -181,3 +181,39 @@ def test_wrappers_take_plain_versions_on_cpu():
     quantize_ef(x[0], x[1], 8)
     switch_blend(x[0, 0], x[1, 0], torch.tensor(0.5))
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
+
+
+def _run_cmdp(device):
+    from repro_torch.examples import cmdp_cartpole
+    out = cmdp_cartpole.main(rounds=2, horizon=20, chunk=1, pool=4,
+                             device=device)
+    assert [r["round"] for r in out] == [1, 2]
+    return out
+
+
+def _run_fair(device):
+    from repro_torch.examples import fair_classification
+    out = fair_classification.main(T=2, device=device)
+    assert [r["alpha"] for r in out["fedsgm"]] == [10.0, 0.5]
+    assert [r["rho"] for r in out["penalty"]] == [0.1, 1.0, 10.0]
+    return out["fedsgm"] + out["penalty"]
+
+
+def _run_lm(device):
+    from repro_torch.examples import train_lm_federated
+    out = train_lm_federated.main(rounds=2, preset="tiny", seq=16, b=2,
+                                  device=device)
+    return [{"f": v} for v in out["f"]]
+
+
+@pytest.mark.parametrize("run", [_run_cmdp, _run_fair, _run_lm],
+                         ids=["cmdp_cartpole", "fair_classification",
+                              "train_lm_federated"])
+def test_examples_need_a_card_unless_asked_for_cpu(no_card, run):
+    """Each ported example raises without a card, and runs on the CPU when
+    asked (2 rounds, small sizes), printing finite values."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda")
+    for rec in run("cpu"):
+        assert all(np.isfinite(v) for k, v in rec.items()
+                   if isinstance(v, float))
