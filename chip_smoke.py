@@ -80,14 +80,29 @@ Phases, each fatal on failure (nonzero exit):
    ``FAIR_ROUNDS`` rounds each); (d) the weakly-convex measure on NP (n =
    4), which must halve over 150 rounds; (e) the LM example at ``--preset
    100m`` (packed wire, blocks of 2048), 3 rounds, after ``scatter_agg``
-   is held against its plain version at that layout.
+   is held against its plain version at that layout;
+12. asynchronous buffered rounds with the telemetry bus, T rounds a part
+   at full width: (a) the launcher's async path (``--fleet --fleet-pool 8
+   --async-buffer --sampler markov --staleness constraint --obs``, gather 4
+   of 8, pallas top-k 0.1 up and down, max staleness 4), each round's
+   counters and telemetry printed and one profiled round split by stage
+   span (``round.*``, ``comm.*``, ``kernel.*``: host ms and device ms);
+   (b) async mask 4 of 8, pallas 8-bit quant up and down, the ``uniform``
+   sampler and the ``poly`` law through the engine API; in both the
+   counters equal a host replay of the recorded events and the stale
+   reduce's kernel equals its plain version on the final buffer's rows
+   with fractional weights; (c) at 2 layers, full width otherwise: the
+   buffer off equal to the synchronous rounds bit for bit (pallas and
+   dense), obs on equal to obs off, gather equal to mask, the card against
+   the CPU from the same cohorts and events; over the phase at least one
+   payload parks, one delivers and one expires.
 
-In phases 5, 7, 8, 9 and 11 the launch counts are zeroed just before each
-part and read just after: each kernel must have launched exactly as often per
-round as the wire layout demands (on ``comm="pallas"`` the encode kernel
-once per wire run and direction; the reduce kernel once per run on the
-pallas and packed wires; ``segment_rows`` twice in a gather round; no
-kernel on the dense wire), and ``loss_pair`` as often as the round's
+In phases 5, 7, 8, 9, 11 and 12 the launch counts are zeroed just before
+each part and read just after: each kernel must have launched exactly as
+often per round as the wire layout demands (on ``comm="pallas"`` the
+encode kernel once per wire run and direction; the reduce kernel once per
+run on the pallas and packed wires, twice in an async round;
+``segment_rows`` twice in a gather round; no kernel on the dense wire), and ``loss_pair`` as often as the round's
 forwards (n*E fused, n + m*E unfused); f and g_hat must be finite and
 ``up_bytes`` / ``down_bytes`` the wires' bytes.  One more round per phase
 then runs under ``torch.profiler`` for the device time by operator and
@@ -570,15 +585,17 @@ def expected_launches(fed, runs: int) -> dict:
     """Kernel launches per round that the wire layout demands: on
     ``comm="pallas"`` the uplink kind's encode kernel once per run and
     compressed direction; the reduce kernel once per run on the pallas and
-    packed wires (the reference reaches neither on its dense wire); in a
-    gather round ``segment_rows`` twice (the message's float field and the
+    packed wires (the reference reaches neither on its dense wire), twice
+    in an async round (the fresh messages, then the buffer's); in a gather
+    round ``segment_rows`` twice (the message's float field and the
     ``delta_norm`` deltas)."""
     enc, red = PHASE_KERNELS[fed.uplink.kind]
     want = {}
     if fed.comm == "pallas":
         want[enc] = runs * (2 if fed.downlink.kind != "none" else 1)
     if fed.comm in ("pallas", "packed"):
-        want[red] = runs
+        # an async round reduces twice: the fresh messages and the buffer
+        want[red] = runs * (2 if fed.async_.enabled else 1)
     if fed.participation == "gather":
         want["segment_rows"] = 2
     return want
@@ -798,9 +815,7 @@ def gather_mask_check(torch, dev, R: int = 2, layers: int = 2):
         same_state = all(torch.equal(bits(getattr(sg, f)),
                                      bits(getattr(sm, f)))
                          for f in ("w", "x", "e_up"))
-        same_metrics = all(np.array_equal(getattr(hg, f).view(np.uint32),
-                                          getattr(hm, f).view(np.uint32))
-                           for f in rounds.RoundMetrics._fields)
+        same_metrics = bits_equal(torch, np, hg, hm)
         rec = {"gather_vs_mask": kind, "comm": comm, "d": sg.spec.d,
                "layers": layers,
                "rounds": R, "cohorts": masks.tolist(),
@@ -861,9 +876,7 @@ def fleet_gather_mask_check(torch, dev, fns, cfg, loss_pair, R: int):
     same_state = all(torch.equal(getattr(sg, f).view(torch.int32),
                                  getattr(sm, f).view(torch.int32))
                      for f in ("w", "x", "e_up", "wbar_sum"))
-    same_metrics = all(np.array_equal(getattr(hg, f).view(np.uint32),
-                                      getattr(hm, f).view(np.uint32))
-                       for f in rounds.RoundMetrics._fields)
+    same_metrics = bits_equal(torch, np, hg, hm)
     rec = {"gather_vs_mask": "fleet topk", "comm": "pallas",
            "d": sg.spec.d, "rounds": R, **info, "f": hg.f.tolist(),
            "g_hat": hg.g_hat.tolist(), "state_bit_equal": same_state,
@@ -1047,12 +1060,13 @@ def np_phase(torch, dev) -> dict:
 # with an eval after each, and the fair example's rounds, both cut from
 # their own 300 because they are bound by the host (a CMDP round is about
 # 242,000 launches, 2.4-4.8 s on an H100 depending on its host; a fair
-# round 0.05-0.12 s) to keep the CMDP part near a minute and the whole
-# script near half its time limit; the weakly-convex measure's training
-# rounds (the reference test's 150); the 100m LM example's rounds
+# round 0.05-0.12 s) to keep the CMDP part near 40 s (20 rounds until
+# phase 12 came) and the whole script near half its time limit; the
+# weakly-convex measure's training rounds (the reference test's 150); the
+# 100m LM example's rounds
 CMDP_CHECK_ROUNDS = 2
 CMDP_CHECK_HORIZON = 50
-CMDP_ROUNDS = 20
+CMDP_ROUNDS = 10
 CMDP_CHUNK = 10
 FAIR_ROUNDS = 60
 WC_ROUNDS = 150
@@ -1368,11 +1382,563 @@ def paper_phase(torch, dev) -> tuple:
     return rec, launches
 
 
+# phase 12: asynchronous buffered rounds with the telemetry bus.  6 rounds
+# a part at full width; the checks of 12(c) at 2 layers, 3 rounds
+ASYNC_ROUNDS = 6
+ASYNC_CHECK_ROUNDS = 3
+CARD_CPU_ROUNDS = 2            # 12(c)(iv): parks in round 0, expiries in 1
+ASYNC_COUNTERS = ("fresh", "departed", "merged", "dropped", "occupancy",
+                  "max_age")
+STAGE_PREFIXES = ("round.", "comm.", "kernel.")
+
+
+def bits_equal(torch, np, a, b) -> bool:
+    """Bit equality of two (nested) states, buffers or metric records:
+    tensors and numpy arrays by their bits, None only to None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, torch.Tensor):
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        elif a.dtype in (torch.uint16, torch.uint32):
+            signed = torch.int16 if a.dtype == torch.uint16 else torch.int32
+            a, b = a.view(signed), b.view(signed)
+        return a.shape == b.shape and torch.equal(a, b.to(a.device))
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and np.array_equal(
+            a.view(np.uint32) if a.dtype == np.float32 else a,
+            b.view(np.uint32) if b.dtype == np.float32 else b)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(bits_equal(torch, np, x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+class EventRecorder:
+    """Records, while active, each round's cohort mask and mid-round events
+    as the ``sampler`` law draws them (on the CPU, where it draws:
+    recording costs no device sync)."""
+
+    def __init__(self, sampler: str):
+        self.sampler = sampler
+        self.events = []
+
+    def __enter__(self):
+        from repro_torch.fleet import samplers
+        self._cls = type(samplers.get_sampler(self.sampler))
+        self._events = self._cls.events
+
+        def events(obj, gen, cfg, mask, state=None):
+            ev, st = self._events(obj, gen, cfg, mask, state)
+            self.events.append((mask.tolist(), ev.depart.tolist(),
+                                ev.arrive.tolist()))
+            return ev, st
+        self._cls.events = events
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.events = self._events
+
+
+def replay_buffer(events, max_staleness: int) -> list:
+    """The staleness buffer's bookkeeping replayed on the host, one client
+    at a time, from recorded ``(mask, depart, arrive)`` events: per round
+    the counters the engine reports (``fresh``, ``departed``, ``merged``,
+    ``dropped``, ``occupancy``, ``max_age``) and the fates behind
+    ``dropped`` (``expired``, ``overwritten``)."""
+    n = len(events[0][0])
+    occ, origin = [0] * n, [0] * n
+    out = []
+    for t, (mask, dep, arr) in enumerate(events):
+        merged = expired = over = 0
+        for j in range(n):
+            if not occ[j]:
+                continue
+            if arr[j]:
+                merged += 1
+                occ[j] = 0
+            elif t - origin[j] >= max_staleness:
+                expired += 1
+                occ[j] = 0
+            elif dep[j]:
+                over += 1
+        for j in range(n):
+            if dep[j]:
+                occ[j], origin[j] = 1, t
+        out.append({"fresh": sum(m * (1 - d) for m, d in zip(mask, dep)),
+                    "departed": sum(dep), "merged": merged,
+                    "dropped": expired + over, "occupancy": sum(occ),
+                    "max_age": max([t - origin[j] for j in range(n)
+                                    if occ[j]] or [0]),
+                    "expired": expired, "overwritten": over})
+    return out
+
+
+def check_counters(name, hist, events, fed) -> list:
+    """The engine's async counters against the host replay of the recorded
+    events, exactly; returns the replay."""
+    want = replay_buffer(events, fed.async_.max_staleness)
+    for key in ASYNC_COUNTERS:
+        got = [float(v) for v in getattr(hist, key)]
+        if got != [float(r[key]) for r in want]:
+            raise AssertionError(f"{name}: {key} {got} is not the host "
+                                 f"replay's {[r[key] for r in want]}")
+    return want
+
+
+def check_stale_reduce(torch, name, up, buf, t, fed, g_hat) -> dict:
+    """Phase 12: the reduce kernel on the rows the stale merge reduces --
+    every slot of the final buffer: rows parked rounds ago, rows still all
+    zero -- each weighted ``w_origin * lambda(s)`` at its age (fractional;
+    0 for a slot that never parked), against its plain version, tolerance
+    0, run by run."""
+    from repro_torch.engine import strategies
+    from repro_torch.kernels import scatter_agg, unpack_mma
+    strat = strategies.get_strategy(fed.strategy)
+    age = (t - buf.origin).to(torch.float32)
+    w = buf.weight * strat.staleness_weight(age, buf.sigma, g_hat, fed)
+    n = w.shape[0]
+    err = 0.0
+    for r in up.codec.layout.runs:
+        if fed.uplink.kind == "quant":
+            words = buf.msgs.words[:, r.woff:r.woff + r.nblocks * r.W] \
+                .reshape(n, r.nblocks, r.W)
+            scale = buf.msgs.scale[:, r.boff:r.boff + r.nblocks]
+            got = unpack_mma.unpack_mma(words, scale, w, fed.uplink.bits,
+                                        r.block)
+            want = unpack_mma.unpack_mma_plain(words, scale, w,
+                                               fed.uplink.bits, r.block)
+        else:
+            sl = slice(r.koff, r.koff + r.nblocks * r.k)
+            vals = buf.msgs.values[:, sl].reshape(n, r.nblocks, r.k)
+            idx = buf.msgs.indices[:, sl].reshape(n, r.nblocks, r.k)
+            got = scatter_agg.scatter_agg(vals, idx, w, r.block)
+            want = scatter_agg.scatter_agg_plain(vals, idx, w, r.block)
+        err = max(err, max_err(torch, [got], [want]))
+        del got, want
+    rec = {"kernel_check": f"{name}: stale reduce of the final buffer",
+           "weights": w.tolist(), "occupied": buf.occupied.tolist(),
+           "max_abs_err": err, "tolerance": 0.0}
+    print(json.dumps(rec), flush=True)
+    if err != 0.0:
+        raise AssertionError(f"{name}: the stale reduce kernel differs from "
+                             f"its plain version: {err}")
+    return rec
+
+
+def is_kernel(e) -> bool:
+    """A profiler entry (``key_averages`` or an event) of device work: on
+    the card, and not a stage span's device-side annotation (spans show on
+    the device timeline too, with their extent as their duration)."""
+    from torch.autograd import DeviceType
+    name = getattr(e, "key", None) or e.name
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not name.startswith(STAGE_PREFIXES))
+
+
+def stage_split(prof, path) -> dict:
+    """The device side of one profiled round, from the trace exported to
+    ``path``: the round's device ms and launches (kernels, copies, sets),
+    and per span name (``round.*``, ``comm.*``, ``kernel.*``; nested spans
+    each count in full) ``device_ms``, the device time of the work launched
+    while the span was open -- from any thread (the autograd engine
+    launches the backward from its own), each launch matched to its device
+    work by the trace's correlation ids -- and ``host_ms_profiled``, the
+    span's wall time under the profiler."""
+    import bisect
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    path.unlink()
+    launch = {e["args"]["correlation"]: e["ts"] for e in evs
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    work = sorted((launch.get(e.get("args", {}).get("correlation")),
+                   e.get("dur", 0.0)) for e in evs
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    matched = [w for w in work if w[0] is not None]
+    at = [w[0] for w in matched]
+    cum = [0.0]
+    for _, d in matched:
+        cum.append(cum[-1] + d)
+    spans = {}
+    for e in evs:
+        if e.get("cat") != "user_annotation" or \
+                not e.get("name", "").startswith(STAGE_PREFIXES):
+            continue
+        lo, hi = e["ts"], e["ts"] + e.get("dur", 0.0)
+        o = spans.setdefault(e["name"], {"calls": 0, "device_ms": 0.0,
+                                         "host_ms_profiled": 0.0})
+        o["calls"] += 1
+        o["host_ms_profiled"] += e.get("dur", 0.0) / 1e3
+        o["device_ms"] += (cum[bisect.bisect_right(at, hi)]
+                           - cum[bisect.bisect_left(at, lo)]) / 1e3
+    total = sum(d for _, d in work) / 1e3
+    staged = sum(v["device_ms"] for k, v in spans.items()
+                 if k.startswith("round."))
+    return {"device_ms": total, "launches": len(work),
+            "launches_matched": len(matched),
+            "round_spans_device_share": staged / total if total else None,
+            "spans": spans}
+
+
+class StageTimer:
+    """Host wall time under each stage span of an unprofiled round: while
+    active, the span helper of the modules that open spans also reads the
+    host clock on enter and exit (no device sync)."""
+
+    def __init__(self):
+        self.ms, self.calls = {}, {}
+
+    def __enter__(self):
+        from repro_torch.comm import flat
+        from repro_torch.engine import async_rounds, rounds
+        from repro_torch.kernels import ops
+        from repro_torch.obs import trace
+        self._mods = (flat, async_rounds, rounds, ops)
+
+        @contextlib.contextmanager
+        def timed(name):
+            t0 = time.perf_counter()
+            with trace.stage(name):
+                yield
+            self.ms[name] = self.ms.get(name, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
+            self.calls[name] = self.calls.get(name, 0) + 1
+        for mod in self._mods:
+            mod.stage = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.obs import trace
+        for mod in self._mods:
+            mod.stage = trace.stage
+
+
+def profile_async_round(torch, state, buf, batches, loss_pair, fed, dev,
+                        s_round) -> dict:
+    """Two more async rounds: one with its host time per stage span
+    (:class:`StageTimer`), one under ``torch.profiler`` for the device
+    time, the launches, the busy share (as :func:`profile_round`) and the
+    device time per span (:func:`stage_split`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine import async_rounds
+    b = batches(0, torch.Generator().manual_seed(7))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StageTimer() as timer:
+        state, buf, _ = async_rounds.async_round_step(state, buf, b,
+                                                      loss_pair, fed,
+                                                      device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        async_rounds.async_round_step(state, buf, b, loss_pair, fed,
+                                      device=dev)
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "trace_async_round.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    split = stage_split(prof, trace)
+    for name, o in split["spans"].items():
+        o["host_ms"] = timer.ms.get(name)
+    return {"device_ms": split["device_ms"],
+            "kernel_launches": split["launches"],
+            "busy_share": split["device_ms"] / 1e3 / s_round
+            if s_round else None,
+            "timed_round_s": wall, **split}
+
+
+def async_part(torch, name: str, argv, T: int, downlink: bool = True,
+               **fed_over) -> dict:
+    """Phase 12(a) and (b): full-width async rounds through the launcher's
+    setup and ``async_rounds.async_run_rounds``: the counters against the
+    host replay of the recorded events, the launches per round (the reduce
+    kernel twice: the fresh messages and the buffer), ``loss_pair`` once
+    per forward, finite f and g_hat, each round's counters and telemetry
+    printed; then the stale reduce of the final buffer against its plain
+    version and one profiled round with the per-stage split."""
+    from repro_torch import kernels
+    from repro_torch.engine import async_rounds, participation, rounds
+    from repro_torch.engine import strategies
+    from repro_torch.fleet import provision
+    from repro_torch.obs import sinks
+    t_part = time.time()
+    state, batch_fn, pair, fed, dev = setup_phase(torch, argv, downlink,
+                                                  **fed_over)
+    fleet = batch_fn if isinstance(batch_fn, provision.Fleet) else None
+    batches = batch_fn if fleet is None else (lambda t, g: fleet)
+    if state.spec.d != D_FULL or not fed.async_.enabled:
+        raise AssertionError(f"{name}: d = {state.spec.d}, async "
+                             f"{fed.async_.enabled}")
+    up, _ = rounds.flat_transports_for(fed, state.spec)
+    want = expected_launches(fed, len(up.codec.layout.runs))
+    part = participation.finalize(torch.ones(fed.n_clients), None, fed)
+    fused = rounds.fuses(part, strategies.get_strategy(fed.strategy), fed)
+    local = fed.m if fed.participation == "gather" else fed.n_clients
+    want_pairs = local * fed.local_steps + (0 if fused else fed.n_clients)
+    calls, stamps = [], []
+
+    def loss_pair(params, batch):
+        calls.append(1)
+        return pair(params, batch)
+
+    def timed_batches(t, gen):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return batches(t, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    with EventRecorder(fed.fleet.sampler) as rec_ev:
+        kernels.reset_launches()
+        state, buf, hist = async_rounds.async_run_rounds(
+            state, timed_batches, loss_pair, fed, T=T, device=dev)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    stamps.append(time.perf_counter())
+    per_round = [b - a for a, b in zip(stamps, stamps[1:])]
+    replay = check_counters(name, hist, rec_ev.events, fed)
+    rows = sinks.rows(hist)
+    for r in rows:
+        print(json.dumps({"async_round": name, **r}), flush=True)
+    rec = {"phase": name, "d": state.spec.d, "comm": fed.comm,
+           "clients": fed.n_clients, "participating": fed.m,
+           "participation": fed.participation, "sampler": fed.fleet.sampler,
+           "uplink": fed.uplink.kind, "downlink": fed.downlink.kind,
+           "async": dataclasses.asdict(fed.async_), "obs": fed.obs.enabled,
+           "rounds": T, "s_per_round": per_round,
+           "s_per_round_after_first": sum(per_round[1:]) / (T - 1),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "f": hist.round.f.tolist(), "g_hat": hist.round.g_hat.tolist(),
+           "counters": {k: getattr(hist, k).tolist()
+                        for k in ASYNC_COUNTERS},
+           "replay": replay, "events": rec_ev.events,
+           "loss_pair_per_round": len(calls) / T,
+           "loss_pair_per_round_expected": want_pairs,
+           "launches": counts, "launches_per_round_expected": want}
+    print(json.dumps({k: v for k, v in rec.items() if k != "events"}),
+          flush=True)
+    if not (all(math.isfinite(v) for v in rec["f"] + rec["g_hat"])):
+        raise AssertionError(f"{name}: non-finite f or g_hat")
+    if len(calls) != want_pairs * T:
+        raise AssertionError(f"{name}: loss_pair ran {len(calls)} times, "
+                             f"expected {want_pairs * T}")
+    for kname, cnt in counts.items():
+        if cnt != want.get(kname, 0) * T:
+            raise AssertionError(f"{name}: {kname} launched {cnt} times, "
+                                 f"expected {want.get(kname, 0) * T}")
+    if fed.obs.enabled:
+        tel = hist.round.telemetry
+        if not all(math.isfinite(v) for leaf in tel for v in
+                   leaf.reshape(-1).tolist()):
+            raise AssertionError(f"{name}: non-finite telemetry")
+        if tel.buf_stale_hist.sum(axis=1).tolist() != \
+                hist.occupancy.tolist():
+            raise AssertionError(f"{name}: the staleness histogram misses "
+                                 "parked entries")
+    if rec["peak_mem_gb"] >= 80:
+        raise AssertionError(f"{name}: peak {rec['peak_mem_gb']} GB")
+    rec["stale_reduce_check"] = check_stale_reduce(
+        torch, name, up, buf, state.t, fed,
+        torch.tensor(float(hist.round.g_hat[-1]), device=dev))
+    rec["profile"] = profile_async_round(torch, state, buf, batches, pair,
+                                         fed, dev,
+                                         rec["s_per_round_after_first"])
+    print(json.dumps({"profile": name, **rec["profile"]}), flush=True)
+    rec["seconds"] = time.time() - t_part
+    del state, buf
+    torch.cuda.empty_cache()
+    return rec
+
+
+def async_checks(torch, dev, T: int = ASYNC_CHECK_ROUNDS,
+                 layers: int = 2) -> dict:
+    """Phase 12(c), at full width and ``layers`` layers, 8 clients, top-k
+    0.1: (i) the buffer off is the synchronous ``run_rounds``, bit for bit,
+    on the pallas (gather 4 of 8, top-k up and down) and dense (mask 4 of
+    8) wires; (ii) obs on gives the obs-off state, buffer and metrics, bit
+    for bit; (iii) async gather equals async mask, bit for bit; (iv) the
+    card against the CPU from the same CPU-drawn cohorts and events,
+    ``CARD_CPU_ROUNDS`` rounds (pallas gather, top-k up, max staleness 1,
+    so that parked payloads expire within the run): the counters equal, f and g_hat at rtol 1e-4
+    and all but 0.1% of w within rtol 1e-4 / atol 1e-6 (the CPU tests'
+    tolerances for the card against the CPU).  Returns the records and the
+    host replays."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.configs.base import (AsyncConfig, CompressorConfig,
+                                          FedConfig, ObsConfig,
+                                          SwitchConfig)
+    from repro_torch.data import synthetic
+    from repro_torch.engine import async_rounds, rounds
+    from repro_torch.models import build
+    from repro_torch.tasks import lm
+    cfg = dataclasses.replace(configs.get_config("smollm-360m"),
+                              n_layers=layers)
+    fns = build(cfg)
+    loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
+    params0 = fns.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cc = CompressorConfig(kind="topk", ratio=0.1)
+
+    def fed_of(comm="pallas", mode="gather", down=True, obs=False, **async_kw):
+        return FedConfig(
+            n_clients=N_GATHER, m=M_GATHER, local_steps=1, lr=0.03,
+            switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0), uplink=cc,
+            downlink=cc if down else CompressorConfig(kind="none"),
+            comm=comm, participation=mode,
+            async_=AsyncConfig(**async_kw), obs=ObsConfig(enabled=obs))
+
+    def run(fed, device, sync=False, T=T):
+        d = torch.device(device)
+
+        def batch_fn(t, g):
+            toks, mask = synthetic.client_token_batches(
+                g, N_GATHER, 2, 64, cfg.vocab, hetero=0.5, device=d)
+            return lm.LMBatch(tokens=toks, minority_mask=mask)
+        state = rounds.init_state(to_device(params0, d), fed, device=d)
+        if sync:
+            s, h = rounds.run_rounds(state, batch_fn, loss_pair, fed, T,
+                                     device=d)
+            return s, None, h, []
+        with EventRecorder(fed.fleet.sampler) as rec_ev:
+            s, b, h = async_rounds.async_run_rounds(state, batch_fn,
+                                                    loss_pair, fed, T,
+                                                    device=d)
+        return s, b, h, rec_ev.events
+
+    def state_of(s):
+        return (s.w, s.x, s.e_up, s.wbar_sum, s.wbar_weight)
+
+    out, replays = {}, []
+    # (i) the buffer off
+    for comm, mode in (("pallas", "gather"), ("dense", "mask")):
+        fed = fed_of(comm, mode)
+        ss, _, hs, _ = run(fed, dev, sync=True)
+        sa, ba, ha, _ = run(fed, dev)
+        ok = (ba is None and bits_equal(torch, np, state_of(ss),
+                                        state_of(sa))
+              and bits_equal(torch, np, hs, ha.round))
+        out[f"disabled {comm} {mode}"] = ok
+        print(json.dumps({"async_check": f"disabled == sync, {comm} {mode}",
+                          "bit_equal": ok}), flush=True)
+        if not ok:
+            raise AssertionError(f"async disabled differs from the sync "
+                                 f"rounds on {comm} {mode}")
+        del ss, sa
+    # (ii) obs on is observation only; (iii) gather == mask, both async
+    kw = dict(enabled=True, staleness="constraint", max_staleness=2,
+              depart=0.5, rejoin=0.5)
+    runs = {(mode, obs): run(fed_of(mode=mode, obs=obs, **kw), dev)
+            for mode, obs in (("gather", False), ("gather", True),
+                              ("mask", False))}
+    for (mode, obs), (_, _, _, evs) in runs.items():
+        replays.append(replay_buffer(evs, 2))
+
+    def strip(h):
+        return h._replace(round=h.round._replace(telemetry=None))
+    (sg, bg, hg, _) = runs[("gather", False)]
+    (so, bo, ho, _) = runs[("gather", True)]
+    (sm, bm, hm, _) = runs[("mask", False)]
+    tel_ok = all(np.isfinite(leaf).all() for leaf in ho.round.telemetry)
+    checks = {
+        "obs on == obs off": bits_equal(torch, np, (state_of(sg), bg,
+                                                    hg),
+                                        (state_of(so), bo, strip(ho))),
+        "obs telemetry finite": bool(tel_ok),
+        "gather == mask": bits_equal(torch, np, (state_of(sg), bg, hg),
+                                     (state_of(sm), bm, hm))}
+    for k, v in checks.items():
+        print(json.dumps({"async_check": k, "bit_equal": v,
+                          "departed": hg.departed.tolist(),
+                          "merged": hg.merged.tolist()}), flush=True)
+        if not v:
+            raise AssertionError(f"async check failed: {k}")
+    out.update(checks)
+    del runs, sg, so, sm, bg, bo, bm
+    torch.cuda.empty_cache()
+    # (iv) the card against the CPU
+    fed = fed_of(down=False, enabled=True, staleness="poly",
+                 max_staleness=1, depart=0.5, rejoin=0.5)
+    sc, bc, hc, evc = run(fed, dev, T=CARD_CPU_ROUNDS)
+    sh, bh, hh, evh = run(fed, "cpu", T=CARD_CPU_ROUNDS)
+    replays.append(replay_buffer(evc, 1))
+    far = ~torch.isclose(sc.w.cpu(), sh.w, rtol=1e-4, atol=1e-6)
+    rec = {"async_check": "card vs cpu", "layers": layers,
+           "rounds": CARD_CPU_ROUNDS,
+           "events_equal": evc == evh,
+           "counters_card": {k: getattr(hc, k).tolist()
+                             for k in ASYNC_COUNTERS},
+           "counters_cpu": {k: getattr(hh, k).tolist()
+                            for k in ASYNC_COUNTERS},
+           "f": [hc.round.f.tolist(), hh.round.f.tolist()],
+           "g_hat": [hc.round.g_hat.tolist(), hh.round.g_hat.tolist()],
+           "w_far_share": float(far.float().mean()),
+           "replay": replays[-1]}
+    print(json.dumps(rec), flush=True)
+    same = rec["events_equal"] and rec["counters_card"] == rec["counters_cpu"]
+    close = (np.allclose(hc.round.f, hh.round.f, rtol=1e-4)
+             and np.allclose(hc.round.g_hat, hh.round.g_hat, rtol=1e-4)
+             and rec["w_far_share"] <= 1e-3)
+    check_counters("card vs cpu", hc, evc, fed)
+    if not (same and close):
+        raise AssertionError("async rounds on the card differ from the CPU")
+    out["card vs cpu"] = rec
+    return {"checks": out, "replays": replays}
+
+
+def async_phase(torch, dev, T: int = ASYNC_ROUNDS) -> tuple:
+    """Phase 12: (a) the launcher's async path (``--fleet --fleet-pool 8
+    --async-buffer --sampler markov --staleness constraint``, gather 4 of
+    8, pallas top-k up and down, ``--obs``), (b) async mask 4 of 8, pallas
+    8-bit quant up and down, ``uniform`` sampler, ``poly`` law, through the
+    engine API, T rounds each at full width; (c) the checks of
+    :func:`async_checks`.  Over the phase at least one payload must park,
+    one deliver and one expire.  Returns ``(records, launch records)``."""
+    from repro_torch.configs.base import AsyncConfig
+    cohort = ["--clients", str(N_GATHER), "--participating", str(M_GATHER)]
+    t0 = time.time()
+    part_a = async_part(
+        torch, f"smollm-360m async launcher --fleet markov gather "
+        f"{M_GATHER} of {N_GATHER} topk up and down, constraint law, obs",
+        cohort + ["--participation", "gather", "--comm", "pallas",
+                  "--uplink", "topk", "--fleet", "--fleet-pool", "8",
+                  "--sampler", "markov", "--async-buffer", "--staleness",
+                  "constraint", "--max-staleness", "4", "--depart", "0.25",
+                  "--obs"], T)
+    part_b = async_part(
+        torch, f"smollm-360m async mask {M_GATHER} of {N_GATHER} quant up "
+        "and down, uniform sampler, poly law",
+        cohort + ["--comm", "pallas", "--uplink", "quant"], T,
+        async_=AsyncConfig(enabled=True, staleness="poly", max_staleness=4,
+                           depart=0.25, rejoin=0.5, decay=1.0))
+    t1 = time.time()
+    checks = async_checks(torch, dev)
+    seconds = {"part_a": part_a["seconds"], "part_b": part_b["seconds"],
+               "parts_a_b": t1 - t0, "checks_c": time.time() - t1}
+    fates = {"parked": 0, "merged": 0, "expired": 0}
+    for replay in [part_a["replay"], part_b["replay"]] + checks["replays"]:
+        for r in replay:
+            fates["parked"] += r["departed"]
+            fates["merged"] += r["merged"]
+            fates["expired"] += r["expired"]
+    print(json.dumps({"async_fates": fates, "seconds": seconds}),
+          flush=True)
+    if not all(fates.values()):
+        raise AssertionError(f"phase 12 saw no park, delivery or expiry: "
+                             f"{fates}")
+    for part in (part_a, part_b):
+        part.pop("events")
+    return ({"launcher": part_a, "engine": part_b, "checks":
+             checks["checks"], "fates": fates, "seconds": seconds},
+            [{"phase": p["phase"], "launches": p["launches"]}
+             for p in (part_a, part_b)])
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
     unprofiled round's wall time ``s_round``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine import rounds
     batches = batch_fn(0, torch.Generator().manual_seed(7))
@@ -1386,9 +1952,9 @@ def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
     # device-side entries only: an operator's entry repeats the time of
-    # the kernels it launched
+    # the kernels it launched, a span's device-side annotation their extent
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+               if is_kernel(e) and dev_us(e) > 0]
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {"device_ms": total_ms, "kernel_launches":
@@ -1489,9 +2055,11 @@ def main(argv=None) -> int:
                              "0/1 weights")
     np_rec = np_phase(torch, dev)
     paper_rec, paper_launches = paper_phase(torch, dev)
+    async_rec, async_launches = async_phase(torch, dev)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
-                         "launches": np_rec["launches"]}] + paper_launches
+                         "launches": np_rec["launches"]}] + paper_launches \
+        + async_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -1505,6 +2073,7 @@ def main(argv=None) -> int:
                                     "kernels": kern["kernels"],
                                     "phases": phases, "np": np_rec,
                                     "paper": paper_rec,
+                                    "async": async_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

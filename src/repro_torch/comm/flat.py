@@ -40,8 +40,7 @@ from repro_torch.comm.payloads import (FlatPacked, FlatQuant, PACK_BITS,
                                        words_per_block, _SORT_FREE_MIN)
 from repro_torch.core import compression
 from repro_torch.kernels import ops
-from repro_torch.kernels.quantize_ef_pack import quantize_ef_pack
-from repro_torch.kernels.topk_block import block_topk
+from repro_torch.obs.trace import stage
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +261,7 @@ class _SelectCodec:
         for r in self.layout.runs:
             blocks = run_view(buf, r)
             if self.pallas and r.k < r.block:
-                vals, idx = block_topk(blocks, r.k)
+                vals, idx = ops.block_topk(blocks, r.k)
                 idx = to_u16(idx)
             else:
                 vals, idx = payloads.select_topk_blocks(blocks, r.k,
@@ -394,7 +393,7 @@ class _QuantPallasCodec(_QuantCodec):
         lead = tuple(deltas.shape[:-1])
         ws, ss, es = [], [], []
         for r in self.layout.runs:
-            words, scale, e_new = quantize_ef_pack(
+            words, scale, e_new = ops.quantize_ef_pack(
                 run_view(e, r), run_view(deltas, r), self.cfg.bits)
             ws.append(words.reshape(lead + (r.nblocks * r.W,)))
             ss.append(scale.reshape(lead + (r.nblocks,)))
@@ -511,6 +510,10 @@ class FlatTransport:
     def _ef_clients(self, e, deltas, key, ids):
         """EF14 over the rows of the client ids ``ids``: ``(msgs,
         e_new)``."""
+        with stage("comm.ef_encode"):
+            return self._ef_clients_inner(e, deltas, key, ids)
+
+    def _ef_clients_inner(self, e, deltas, key, ids):
         if self.codec is not None and self.codec.fused_ef:
             return self.codec.ef(e, deltas)
         buf = e + deltas
@@ -560,9 +563,10 @@ class FlatTransport:
         """Weighted aggregation of stacked messages into ``[d]``:
         ``sum_j weights_j * decode(msgs_j) / m``, in the payload domain on
         a packed wire."""
-        if self.wire == "dense":
-            return transports.masked_mean(msgs, weights, m)
-        return self.codec.reduce(msgs, weights, m)
+        with stage("comm.reduce"):
+            if self.wire == "dense":
+                return transports.masked_mean(msgs, weights, m)
+            return self.codec.reduce(msgs, weights, m)
 
     def transmit(self, e, deltas, mask, m, key=None):
         if self.is_identity:
@@ -581,8 +585,9 @@ class FlatTransport:
         (the identity returns ``x_new``)."""
         if self.is_identity:
             return x_new
-        gen = key.generator(0, w.device) if self.needs_key else None
-        return w + self.decompress(self.compress(x_new - w, gen))
+        with stage("comm.broadcast"):
+            gen = key.generator(0, w.device) if self.needs_key else None
+            return w + self.decompress(self.compress(x_new - w, gen))
 
 
 def flat_transports_for(cfg, spec: FlatSpec):

@@ -50,17 +50,27 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, m) -> torch.Tensor:
     return torch.tensordot(mask.to(x.dtype), x, dims=([0], [0])) / m
 
 
-def mask_where(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
-               out: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-client row select on ``[n, ...]``: rows with ``mask > 0`` take
-    ``new``, the rest keep ``old``.  ``out=old`` selects in place."""
-    m = mask.reshape((mask.shape[0],) + (1,) * (new.dim() - 1))
-    return torch.where(m > 0, new, old, out=out)
-
-
-# unsigned wire dtypes -> the same-width signed views that CUDA's copy, cat
-# and index kernels take
+# unsigned wire dtypes -> the same-width signed views that CUDA's copy, cat,
+# index and select kernels take
 SIGNED_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def mask_where(mask: torch.Tensor, new, old, out=None):
+    """Per-client row select on ``[n, ...]`` tensors or payload NamedTuples
+    (leaf by leaf): rows with ``mask > 0`` take ``new``, the rest keep
+    ``old``.  ``out`` (``old`` itself, for an in-place select) receives the
+    result.  Unsigned leaves select through their signed views."""
+    if not isinstance(new, torch.Tensor):
+        outs = out if out is not None else (None,) * len(new)
+        return type(new)(*(mask_where(mask, a, b, o)
+                           for a, b, o in zip(new, old, outs)))
+    m = mask.reshape((mask.shape[0],) + (1,) * (new.dim() - 1))
+    signed = SIGNED_VIEWS.get(new.dtype)
+    if signed is None:
+        return torch.where(m > 0, new, old, out=out)
+    got = torch.where(m > 0, new.view(signed), old.view(signed),
+                      out=None if out is None else out.view(signed))
+    return got.view(new.dtype) if out is None else out
 
 
 def scatter_rows(tree, idx: torch.Tensor, n: int, unique: bool = True):
@@ -284,12 +294,11 @@ class TopKTransport(_BlockSelectTransport):
         return tree_map(self._pack_leaf_kernel, tree)
 
     def _pack_leaf_kernel(self, x: torch.Tensor) -> PackedLeaf:
-        from repro_torch.kernels.topk_block import block_topk
         blocks, b, k = payloads._leaf_blocks(x, self.cfg)
         if k >= b:
             idx = torch.arange(b, device=x.device).expand(blocks.shape)
             return PackedLeaf(blocks, payloads.to_u16(idx))
-        vals, idx = block_topk(blocks.reshape(-1, b).contiguous(), k)
+        vals, idx = ops.block_topk(blocks.reshape(-1, b).contiguous(), k)
         lead = tuple(blocks.shape[:-1])
         return PackedLeaf(vals.reshape(lead + (k,)),
                           payloads.to_u16(idx.reshape(lead + (k,))))

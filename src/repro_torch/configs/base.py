@@ -1,5 +1,5 @@
 """Configuration dataclasses (port of ``repro.configs.base``, the part the
-dense LM trainer on every wire needs).
+dense LM trainer on every wire, the async engine and obs need).
 
 Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
 full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
@@ -68,6 +68,46 @@ class SwitchConfig:
 
 
 @dataclass(frozen=True)
+class AsyncConfig:
+    """Asynchronous buffered rounds (``repro_torch.engine.async_rounds``).
+
+    A sampled client that departs mid-round parks its *compressed* uplink
+    in a per-client staleness buffer slot; the payload merges into a later
+    server update with weight ``lambda(s) * w_origin`` (s = age in rounds,
+    ``w_origin`` = the sampler's Horvitz-Thompson weight at the round it
+    was computed), or is dropped once ``s >= max_staleness``.
+    ``enabled=False`` (the default) is the bit-parity point: the async
+    drive loops reproduce the synchronous ones exactly."""
+    enabled: bool = False
+    max_staleness: int = 4          # a payload may merge up to this age;
+                                    # undelivered entries expire at it
+    staleness: str = "constant"     # constant | poly | constraint
+                                    # (async_rounds.staleness_law registry)
+    decay: float = 1.0              # poly/constraint exponent:
+                                    # lambda(s) = (1+s)^-decay
+    depart: float = 0.25            # mid-round departure probability for
+                                    # samplers without an availability model
+                                    # (markov uses its own chain instead)
+    rejoin: float = 0.5             # per-round delivery probability for a
+                                    # parked payload under those samplers
+    boundary_width: float = 0.0     # constraint law: width of the
+                                    # feasibility-boundary window (0 =>
+                                    # max(switch.eps, 1e-3))
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Observability (``repro_torch.obs``).  ``enabled=False`` leaves
+    ``RoundMetrics.telemetry`` None and the round untouched; enabled, a
+    :class:`repro_torch.obs.Telemetry` record of optimizer-health counters
+    rides the round metrics, and the state trajectory stays bit-identical
+    either way (observation only)."""
+    enabled: bool = False
+    window: int = 8                 # trailing window (rounds) for the
+                                    # switching-fraction counter
+
+
+@dataclass(frozen=True)
 class FleetConfig:
     """The client-population axis (``repro_torch.fleet``).  The defaults
     are the parity point: IID partition, uniform sampler, full-shard
@@ -113,6 +153,8 @@ class FedConfig:
     lean_metrics: bool = False      # skip the per-round delta_norm reduction
     rho: float = 1.0                # penalty-fedavg strength
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    async_: AsyncConfig = field(default_factory=AsyncConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)

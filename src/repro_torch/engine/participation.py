@@ -110,6 +110,36 @@ def aggregate(part: Participation, deltas: torch.Tensor) -> torch.Tensor:
     return transports.masked_mean(scatter_rows(part, deltas), w, part.m)
 
 
+def compose_weights(part: Participation, factor: torch.Tensor
+                    ) -> Participation:
+    """The participation with its aggregation weights multiplied by a
+    per-client ``factor`` (``[n]``): the async engine zeroes departed rows
+    this way and leaves the sample itself alone, so the reduction stays
+    ``sum_j (weights_j * factor_j) x_j / m``."""
+    return part._replace(weights=agg_weights(part) * factor)
+
+
+def encode(transport, e, deltas, part: Participation, key=None):
+    """The async engine's uplink call site: the per-client wire messages
+    (``[n, ...]``) and the EF residual update, without aggregation,
+    dispatched as :func:`transmit` is; the messages reduce later
+    (``transport.reduce``), so departed clients' payloads can park.
+    Returns ``(msgs, e_new)``."""
+    if part.idx is None:
+        return transport.encode(e, deltas, part.mask, key=key)
+    return transport.encode_gathered(e, deltas, part.idx, part.mask,
+                                     unique=not part.short, key=key)
+
+
+def encode_flush(transport, e, deltas, part: Participation, key=None):
+    """:func:`encode` plus the slot store's flush aggregate and counters,
+    both None: the port's residual is always the dense ``[n, d]`` stack
+    (the slot store is not ported).  Returns ``(msgs, e_new, None,
+    None)``."""
+    msgs, e_out = encode(transport, e, deltas, part, key=key)
+    return msgs, e_out, None, None
+
+
 def transmit(transport, e, deltas, part: Participation, key=None):
     """The engine's single uplink call site: EF14 + aggregation, dispatched
     to the transport's dense-mask or gathered execution; ``key`` is the

@@ -40,14 +40,20 @@ The compression randomness of the random kinds is one
 fleet's rows come from a :class:`repro_torch.fleet.provision.ProvisionKey`
 in the same manner.
 
-:func:`drive` runs T rounds on fixed batches or a fleet and moves the
-metrics to the host once; :func:`run_rounds` takes per-round batches from
-a function.
+:func:`drive` runs T rounds on fixed batches or a fleet and
+:func:`run_rounds` takes per-round batches from a function; both move the
+metrics to the host once per segment of ``block`` rounds (once in all by
+default).  The stages run inside ``repro_torch.obs.trace.stage`` spans
+(``round.sample_round``, ``round.eval_round``, ``round.local_deltas``,
+``round.encode_reduce``, ``round.server_update``, ``round.downlink``,
+``round.telemetry``); with ``cfg.obs.enabled`` each round's metrics carry a
+:class:`repro_torch.obs.Telemetry` record.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -57,6 +63,8 @@ from repro_torch.core.compression import message_bytes
 from repro_torch.engine import participation, strategies
 from repro_torch.fleet import provision, samplers
 from repro_torch.fleet.partitions import leaves_of, rebuild
+from repro_torch.obs import bus as obs_bus
+from repro_torch.obs.trace import stage
 from repro_torch.optim.sgd import axpy
 
 
@@ -84,6 +92,8 @@ class RoundMetrics(NamedTuple):
     up_bytes: torch.Tensor    # wire bytes of one client's uplink message
     down_bytes: torch.Tensor  # wire bytes of one broadcast
     f_full: torch.Tensor      # mean objective over all clients
+    telemetry: object = None  # repro_torch.obs.Telemetry when
+                              # cfg.obs.enabled; None otherwise
 
 
 def check_ported(cfg) -> None:
@@ -260,44 +270,56 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
     local_b = batches if pre_gathered else participation.gather(part,
                                                                 batches)
     n_local = n_rows(local_b)
-    if fuses(part, strat, cfg):
-        aggs, sigma, first = _fused_eval(wf, spec, strat, local_b, loss_pair,
-                                         cfg, part, sparse_eval)
-    else:
-        eval_b = local_b if sparse_eval else batches
-        f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), eval_b,
-                                  loss_pair, n_rows(eval_b))
-        aggs = _eval_aggregates(part, f_ev, g_ev, sparse_eval, cfg.m)
-        sigma, first = strat.switch_weight(aggs[1], cfg), None
-    deltas = local_deltas(wf, spec, strat, sigma, local_b, loss_pair, cfg,
-                          n_local, first)
+    with stage("round.eval_round"):
+        if fuses(part, strat, cfg):
+            aggs, sigma, first = _fused_eval(wf, spec, strat, local_b,
+                                             loss_pair, cfg, part,
+                                             sparse_eval)
+        else:
+            eval_b = local_b if sparse_eval else batches
+            f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), eval_b,
+                                      loss_pair, n_rows(eval_b))
+            aggs = _eval_aggregates(part, f_ev, g_ev, sparse_eval, cfg.m)
+            sigma, first = strat.switch_weight(aggs[1], cfg), None
+    with stage("round.local_deltas"):
+        deltas = local_deltas(wf, spec, strat, sigma, local_b, loss_pair,
+                              cfg, n_local, first)
     return (*aggs, sigma, deltas)
 
 
 def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
                  e_up, uplink, downlink, samp_state, f_part, g_hat, g_full,
                  f_full, sigma) -> tuple[FedState, RoundMetrics]:
-    """Stages 6-7 + bookkeeping: server update of the center on the
-    aggregated direction, primal-EF21 downlink broadcast, averaged-iterate
-    accounting, metrics."""
-    xf = state.x if state.x is not None else wf
-    x_new = strat.server_update(xf, v_bar, cfg, spec)
-    w_new = downlink.broadcast(
-        wf, x_new, key=transports.WireKey(cfg.seed, state.t,
-                                          transports.DOWNLINK))
+    """Stages 6-7 + bookkeeping, shared with the asynchronous round: server
+    update of the center on the aggregated direction, primal-EF21 downlink
+    broadcast, averaged-iterate accounting, metrics (with the telemetry
+    record when ``cfg.obs.enabled``)."""
+    with stage("round.server_update"):
+        xf = state.x if state.x is not None else wf
+        x_new = strat.server_update(xf, v_bar, cfg, spec)
+    with stage("round.downlink"):
+        w_new = downlink.broadcast(
+            wf, x_new, key=transports.WireKey(cfg.seed, state.t,
+                                              transports.DOWNLINK))
     alpha = strat.iterate_weight(g_hat, cfg)
     wbar_sum = (axpy(alpha, state.w, state.wbar_sum)
                 if state.wbar_sum is not None else None)
     dev = wf.device
     delta_norm = torch.zeros((), device=dev) if cfg.lean_metrics else \
         flat.tree_norm(spec, participation.aggregate(part, deltas))
+    telemetry = None
+    if cfg.obs.enabled:
+        with stage("round.telemetry"):
+            telemetry = obs_bus.round_telemetry(
+                cfg, deltas, e_up, x_new, wf, w_new, g_hat, sigma, uplink,
+                downlink)
     metrics = RoundMetrics(
         f=f_part, g_hat=g_hat, g_full=g_full, sigma=sigma,
         feasible=(g_hat <= cfg.switch.eps).to(torch.float32),
         delta_norm=delta_norm,
         up_bytes=torch.tensor(float(uplink.wire_bytes()), device=dev),
         down_bytes=torch.tensor(float(downlink.wire_bytes()), device=dev),
-        f_full=f_full)
+        f_full=f_full, telemetry=telemetry)
     new_state = FedState(
         w=w_new, x=x_new if downlink.tracks_center else None, e_up=e_up,
         wbar_sum=wbar_sum, wbar_weight=state.wbar_weight + alpha,
@@ -323,49 +345,119 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
     check_ported(cfg)
     strat = strategies.get_strategy(cfg.strategy)
     fleet = batches if isinstance(batches, provision.Fleet) else None
-    part, samp_state = sample_round(state, cfg, fleet)
+    with stage("round.sample_round"):
+        part, samp_state = sample_round(state, cfg, fleet)
     spec, wf = state.spec, state.w
     f_part, g_hat, g_full, f_full, sigma, deltas = compute_round(
         state, wf, spec, batches, part, strat, loss_pair, cfg, fleet)
     uplink, downlink = flat_transports_for(cfg, spec)
-    v_bar, e_up = participation.transmit(
-        uplink, state.e_up, deltas, part,
-        key=transports.WireKey(cfg.seed, state.t, transports.UPLINK))
+    with stage("round.encode_reduce"):
+        v_bar, e_up = participation.transmit(
+            uplink, state.e_up, deltas, part,
+            key=transports.WireKey(cfg.seed, state.t, transports.UPLINK))
     return finish_round(state, strat, cfg, spec, wf, part, deltas, v_bar,
                         e_up, uplink, downlink, samp_state, f_part, g_hat,
                         g_full, f_full, sigma)
 
 
 def run_rounds(state: FedState, batch_fn: Callable, loss_pair: Callable,
-               cfg, T: int, device="cuda"):
+               cfg, T: int, device="cuda", *, block: int = 0,
+               progress: Optional[Callable] = None,
+               on_chunk: Optional[Callable] = None):
     """Drive T rounds; ``batch_fn(t, gen) -> batches`` supplies per-round
     data on ``device`` from a CPU ``torch.Generator`` seeded ``cfg.seed +
-    1`` (CPU draws are the same on every run and device).  Metrics stay on
-    the device and move to the host once, at the end, as numpy arrays with
-    a leading ``[T]`` axis."""
+    1`` (CPU draws are the same on every run and device).
+
+    * ``block``: rounds per metric segment.  Metrics stay on the device
+      and move to the host once per segment, as numpy arrays (0: one
+      segment of T rounds).
+    * ``on_chunk``: called with each segment's host metrics as it lands
+      (the metrics-sink hook).
+    * ``progress``: ``progress(t, f, g_hat, sigma)`` for every round, in
+      order, as each segment lands (``t`` counts rounds done).
+
+    Returns ``(final state, metrics)`` with a leading ``[T]`` axis; with
+    ``cfg.obs.enabled`` the telemetry's ``switch_frac`` is the mean sigma
+    over the trailing ``cfg.obs.window`` rounds."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(cfg.seed + 1)
-    history = []
-    for t in range(T):
-        state, metrics = round_step(state, batch_fn(t, gen), loss_pair, cfg,
-                                    device=dev)
-        history.append(metrics)
-    return state, _stack(history)
+
+    def step(s, b):
+        return round_step(s, b, loss_pair, cfg, device=dev)
+    carry = state
+    if cfg.obs.enabled:
+        # the trailing switch-fraction ring rides the loop's carry
+        step = obs_bus.window_wrap(
+            step, cfg, sigma_of=lambda m: m.sigma,
+            tel_get=lambda m: m.telemetry,
+            tel_set=lambda m, tel: m._replace(telemetry=tel))
+        carry = (state, obs_bus.ring_init(cfg, dev))
+    carry, mets = drive_loop(step, carry, batch_fn, cfg, T, state.t,
+                             block=block, progress=progress,
+                             on_chunk=on_chunk)
+    return (carry[0] if cfg.obs.enabled else carry), mets
 
 
 def drive(state: FedState, batches, loss_pair: Callable, cfg, T: int,
-          device="cuda"):
+          device="cuda", **kw):
     """``run_rounds`` on fixed per-client ``batches`` or on a
     :class:`repro_torch.fleet.Fleet` (each round provisions its own
-    minibatches; ``cfg.fleet.redraw`` for fresh draws every round)."""
+    minibatches; ``cfg.fleet.redraw`` for fresh draws every round); the
+    keywords are ``run_rounds``'s."""
     return run_rounds(state, lambda t, gen: batches, loss_pair, cfg, T,
-                      device)
+                      device, **kw)
 
 
-def _stack(history) -> RoundMetrics:
-    return RoundMetrics(*(
-        torch.stack([getattr(h, f) for h in history]).cpu().numpy()
-        for f in RoundMetrics._fields))
+def drive_loop(step: Callable, carry, batch_fn: Callable, cfg, T: int,
+               t0: int, *, block: int = 0,
+               progress: Optional[Callable] = None,
+               on_chunk: Optional[Callable] = None):
+    """The loop behind :func:`run_rounds` and
+    ``async_rounds.async_run_rounds``: ``carry, mets = step(carry,
+    batch_fn(t, gen))`` for T rounds, the metrics moved to the host once
+    per ``block`` rounds (see :func:`run_rounds`; ``t0`` is the rounds done
+    before the first).  Returns ``(carry, stacked host metrics)``."""
+    gen = torch.Generator().manual_seed(cfg.seed + 1)
+    block = max(1, min(int(block) if block else T, T))
+    chunks, history = [], []
+    for t in range(T):
+        carry, mets = step(carry, batch_fn(t, gen))
+        history.append(mets)
+        if len(history) == block or t == T - 1:
+            host = _stack(history)
+            history = []
+            chunks.append(host)
+            if on_chunk is not None:
+                on_chunk(host)
+            if progress is not None:
+                rm = host.round if hasattr(host, "round") else host
+                first = t0 + t + 2 - len(rm.f)
+                for i in range(len(rm.f)):
+                    progress(first + i, rm.f[i], rm.g_hat[i], rm.sigma[i])
+    return carry, _concat(chunks)
+
+
+def _stack(history):
+    """Per-round metric records (NamedTuples of 0-d or small device
+    tensors, possibly nested, None fields kept) -> one record of host
+    numpy arrays with a leading round axis."""
+    first = history[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(history).cpu().numpy()
+    return type(first)(*(_stack([getattr(h, f) for h in history])
+                         for f in first._fields))
+
+
+def _concat(chunks):
+    """Host metric segments -> one record (concatenated round axes)."""
+    first = chunks[0]
+    if first is None:
+        return None
+    if isinstance(first, np.ndarray):
+        return np.concatenate(chunks, axis=0)
+    return type(first)(*(_concat([getattr(c, f) for c in chunks])
+                         for f in first._fields))
 
 
 def round_bytes(params, cfg) -> dict:

@@ -1,14 +1,15 @@
 """Strategy registry for the engine round (port of
 ``repro.engine.strategies``: ``fedsgm``, ``fedsgm-soft``,
-``penalty-fedavg`` and ``centralized-sgm``; the async ``staleness_weight``
-law waits for the async engine).
+``penalty-fedavg`` and ``centralized-sgm``).
 
 A :class:`Strategy` supplies only the round's pluggable math:
 
 * ``switch_weight(g_hat, cfg) -> sigma_t``,
 * ``local_objective(loss_pair, sigma, cfg) -> (params, batch) -> scalar``,
 * ``server_update(x, v_bar, cfg, spec) -> x_{t+1}``,
-* ``iterate_weight(g_hat, cfg) -> alpha_t``.
+* ``iterate_weight(g_hat, cfg) -> alpha_t``,
+* ``staleness_weight(s, sigma_origin, g_hat, cfg) -> lambda`` (async
+  rounds).
 """
 from __future__ import annotations
 
@@ -65,6 +66,15 @@ class Strategy:
     def iterate_weight(self, g_hat, cfg):
         raise NotImplementedError
 
+    def staleness_weight(self, s, sigma_origin, g_hat, cfg):
+        """lambda(s): the down-weight of a buffered uplink of age ``s``
+        rounds at delivery (async rounds); ``sigma_origin`` is the switch
+        weight it was computed under and ``g_hat`` the current constraint
+        estimate.  Dispatches the ``cfg.async_.staleness`` law."""
+        from repro_torch.engine.async_rounds import get_staleness_law
+        return get_staleness_law(cfg.async_.staleness)(
+            s, sigma_origin, g_hat, cfg)
+
 
 @register_strategy
 class FedSGM(Strategy):
@@ -117,6 +127,15 @@ class PenaltyFedAvg(FedSGM):
 
     def iterate_weight(self, g_hat, cfg):
         return torch.ones((), device=g_hat.device)
+
+    def staleness_weight(self, s, sigma_origin, g_hat, cfg):
+        """No switching phases, so the constraint-aware law degenerates to
+        the polynomial one (``constant`` stays constant)."""
+        from repro_torch.engine.async_rounds import get_staleness_law
+        law = cfg.async_.staleness
+        if law == "constraint":
+            law = "poly"
+        return get_staleness_law(law)(s, sigma_origin, g_hat, cfg)
 
 
 @register_strategy

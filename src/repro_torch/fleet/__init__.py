@@ -5,7 +5,8 @@ part and what data they hold.
   zipf quantity skew / feature shift) producing padded shards with
   per-client counts,
 * ``samplers``   -- client-participation laws (uniform / weighted with
-  Horvitz-Thompson reweighting / Markov availability / fixed replay),
+  Horvitz-Thompson reweighting / Markov availability / fixed replay) and
+  their mid-round arrival/departure events (async rounds),
 * ``provision``  -- the :class:`Fleet` and the per-round minibatch
   provisioning, the same rows in mask and gather mode.
 """
@@ -15,11 +16,11 @@ from repro_torch.fleet.partitions import (ClientPartition, Partitioner,
 from repro_torch.fleet.provision import (Fleet, ProvisionKey, build_fleet,
                                          data_weights, from_stacked,
                                          minibatch, round_key)
-from repro_torch.fleet.samplers import (ClientSampler, get_sampler,
+from repro_torch.fleet.samplers import (ClientSampler, Events, get_sampler,
                                         register_sampler, sampler_names)
 
 __all__ = [
-    "ClientPartition", "ClientSampler", "Fleet", "Partitioner",
+    "ClientPartition", "ClientSampler", "Events", "Fleet", "Partitioner",
     "ProvisionKey", "build_fleet", "data_weights", "from_stacked",
     "get_partitioner", "get_sampler", "minibatch", "partitioner_names",
     "register_partitioner", "register_sampler", "round_key", "sampler_names",

@@ -30,12 +30,19 @@ are taken in the reference's CPU order (``partitions.sum_f32`` /
 ``cumsum_f32``).  The laws give the reference's distributions, not its
 draws.
 
-The asynchronous engine's mid-round ``events`` are not ported yet: they
-come with the async engine.
+For asynchronous rounds (``repro_torch.engine.async_rounds``) every
+sampler also draws mid-round :class:`Events` -- departures (a sampled
+client drops out before the aggregation barrier) and arrivals (a client
+able to deliver a parked payload) -- from the round's generator, after
+:meth:`ClientSampler.sample`.  The default law (:func:`default_events`)
+draws i.i.d. departures at ``cfg.async_.depart`` and i.i.d. per-round
+rejoins at ``cfg.async_.rejoin``; ``markov`` derives both from its
+availability chain (:func:`markov_events`).  The synchronous engine draws
+no events, so its trajectories do not move.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -47,6 +54,15 @@ _SAMPLERS: dict = {}
 # seed word separating the Markov chain's initial draw from the round
 # streams ("smp")
 SAMPLER_TAG = 0x736D70
+
+
+class Events(NamedTuple):
+    """One round's arrival/departure events, ``[n]`` 0/1 float32 masks on
+    the CPU: ``depart`` -- sampled clients whose uplink misses the round's
+    aggregation barrier and parks in the staleness buffer; ``arrive`` --
+    clients able to deliver a parked payload this round."""
+    depart: torch.Tensor
+    arrive: torch.Tensor
 
 
 def register_sampler(cls):
@@ -135,6 +151,34 @@ def markov_step(avail_prev: torch.Tensor, u_flip: torch.Tensor,
     return mask, avail
 
 
+def default_events(u_dep: torch.Tensor, u_arr: torch.Tensor,
+                   mask: torch.Tensor, depart: float, rejoin: float
+                   ) -> Events:
+    """The default events law from its uniforms: each sampled client
+    departs with probability ``depart``; any client arrives with
+    probability ``rejoin`` (geometric away-times)."""
+    dep = mask * (u_dep < torch.tensor(depart, dtype=torch.float32)
+                  ).to(torch.float32)
+    arr = (u_arr < torch.tensor(rejoin, dtype=torch.float32)
+           ).to(torch.float32)
+    return Events(dep, arr)
+
+
+def markov_events(avail: torch.Tensor, u: torch.Tensor, mask: torch.Tensor,
+                  stay: float):
+    """The Markov chain's mid-round step from its uniform: a sampled
+    available client leaves with probability ``1 - stay``; a sampled client
+    whose chain is down departs for sure.  Arrivals are the clients up
+    after the step, and a departure flips the chain down, so the next
+    round's sample sees the client unavailable.  Returns ``(events,
+    avail)``."""
+    leave = (u < torch.tensor(1.0 - stay, dtype=torch.float32)
+             ).to(torch.float32)
+    dep = mask * torch.maximum(leave, 1.0 - avail)
+    up = avail * (1.0 - dep)
+    return Events(dep, up), up
+
+
 # ---------------------------------------------------------------------------
 # Registry entries
 # ---------------------------------------------------------------------------
@@ -165,10 +209,17 @@ class ClientSampler:
         """Draw S_t: ``(mask [n], weights [n], next state)`` on the CPU."""
         raise NotImplementedError
 
-    def events(self, gen, cfg, mask, state=None):
-        raise NotImplementedError(
-            "sampler events (mid-round departures and arrivals) are not "
-            "ported yet: they come with the async engine")
+    def events(self, gen: torch.Generator, cfg, mask: torch.Tensor,
+               state=None) -> Tuple[Events, object]:
+        """This round's events (async rounds only), drawn from ``gen``
+        after :meth:`sample`: the default law (:func:`default_events`).
+        ``state`` is the post-sample sampler state, returned (a law may
+        update it)."""
+        n = cfg.n_clients
+        u_dep = torch.rand((n,), generator=gen)
+        u_arr = torch.rand((n,), generator=gen)
+        return default_events(u_dep, u_arr, mask, cfg.async_.depart,
+                              cfg.async_.rejoin), state
 
 
 @register_sampler
@@ -243,6 +294,15 @@ class MarkovSampler(ClientSampler):
                                   cfg.fleet.avail_stay,
                                   cfg.fleet.avail_return)
         return mask, mask, avail
+
+    def events(self, gen, cfg, mask, state=None):
+        """The chain's mid-round step (:func:`markov_events`); the
+        returned state has the departed clients' chains down."""
+        n = cfg.n_clients
+        avail = state if state is not None else \
+            torch.ones((n,), dtype=torch.float32)
+        return markov_events(avail, torch.rand((n,), generator=gen), mask,
+                             cfg.fleet.avail_stay)
 
 
 @register_sampler

@@ -3,15 +3,33 @@
 through its tuner (``repro.kernels.tune``, not ported); the port has one
 implementation per kernel -- the CUDA kernel of the reference's seeded TPU
 plan (``tune.py:81-97``) on CUDA tensors, its plain version on CPU tensors
--- so these wrappers only reshape, pad and cast."""
+-- so these wrappers only reshape, pad and cast.  Each wraps its launch in
+the reference's ``kernel.*`` span (:func:`repro_torch.obs.trace.stage`), so
+a profile attributes the device time to each kernel by name."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import quantize_ef_pack as _qep
 from repro_torch.kernels import scatter_agg as _scatter_agg
+from repro_torch.kernels import topk_block as _topk
 from repro_torch.kernels.quantize_ef import quantize_ef
 from repro_torch.kernels.switch_blend import switch_blend
 from repro_torch.kernels.unpack_mma import unpack_mma
+from repro_torch.obs.trace import stage
+
+
+def block_topk(x: torch.Tensor, k: int):
+    """:func:`repro_torch.kernels.topk_block.block_topk` in its span."""
+    with stage("kernel.block_topk"):
+        return _topk.block_topk(x, k)
+
+
+def quantize_ef_pack(e: torch.Tensor, delta: torch.Tensor, bits: int):
+    """:func:`repro_torch.kernels.quantize_ef_pack.quantize_ef_pack` in its
+    span."""
+    with stage("kernel.quantize_ef_pack"):
+        return _qep.quantize_ef_pack(e, delta, bits)
 
 
 def scatter_agg(vals: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
@@ -25,7 +43,8 @@ def scatter_agg(vals: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
     if block == 1:
         return torch.tensordot(weight, vals.to(torch.float32),
                                dims=([0], [0]))
-    return _scatter_agg.scatter_agg(vals, idx, weight, block)
+    with stage("kernel.scatter_agg"):
+        return _scatter_agg.scatter_agg(vals, idx, weight, block)
 
 
 def quant_agg(words: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
@@ -33,7 +52,9 @@ def quant_agg(words: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
     """Weighted aggregation of stacked quant payloads: words ``[n, nblocks,
     W]`` uint32 + scale ``[n, nblocks]`` + weight ``[n]`` -> ``[nblocks,
     block]`` float32, through the ``unpack_mma`` kernel."""
-    return unpack_mma(words, scale, weight.to(torch.float32), bits, block)
+    with stage("kernel.quant_agg"):
+        return unpack_mma(words, scale, weight.to(torch.float32), bits,
+                          block)
 
 
 def _to_blocks(x: torch.Tensor, block: int):
@@ -54,7 +75,8 @@ def quantize_ef_apply(e: torch.Tensor, delta: torch.Tensor, bits: int,
     like ``e``."""
     eb, d = _to_blocks(e, block)
     db, _ = _to_blocks(delta, block)
-    v, e_new = quantize_ef(eb, db, bits)
+    with stage("kernel.quantize_ef"):
+        v, e_new = quantize_ef(eb, db, bits)
 
     def unblock(t):
         return t.reshape(-1)[:d].reshape(e.shape)
@@ -68,8 +90,9 @@ def segment_rows(rows: torch.Tensor, seg: torch.Tensor,
     outside ``[0, n)`` drop), summed in float32 and cast back to
     ``rows.dtype``."""
     m = rows.shape[0]
-    out = _scatter_agg.segment_rows(rows.reshape(m, -1).to(torch.float32),
-                                    seg, n)
+    with stage("kernel.segment_rows"):
+        out = _scatter_agg.segment_rows(
+            rows.reshape(m, -1).to(torch.float32), seg, n)
     return out.reshape((n,) + tuple(rows.shape[1:])).to(rows.dtype)
 
 

@@ -1,5 +1,6 @@
 """Training launcher: FedSGM rounds of the LM task on one device (port of
-``repro.launch.train``, the path without async, wire or obs).
+``repro.launch.train``, the path without the wire runtime, the slot store
+or checkpoints).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --uplink topk --rounds 20                 # the dense wire (default)
@@ -10,8 +11,13 @@
         --participating 4 --participation gather --comm pallas --uplink topk
     # a client fleet: 8 pooled sequences per client, minibatches of --batch
     # drawn afresh each round, clients sampled by availability
-    PYTHONPATH=src python -m repro_torch.launch.train --fleet \
+    PYTHONPATH=src python -m repro_torch.launch.train --fleet \\
         --sampler markov --clients 8 --participating 4 --participation gather
+    # asynchronous buffered rounds with the telemetry bus, one JSON line a
+    # round, a profiler trace of rounds 10-19
+    PYTHONPATH=src python -m repro_torch.launch.train --fleet \\
+        --async-buffer --sampler markov --staleness constraint --obs \\
+        --sink jsonl --sink-path metrics.jsonl --profile 10:20 --rounds 30
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
@@ -19,8 +25,11 @@ Rounds run in chunks of 10, as the reference's launcher does, so ``--rounds``
 below 10 still runs one chunk of 10.  Without ``--fleet`` each round gets
 fresh host batches; with it, each client holds a pool of ``--fleet-pool``
 sequences and the rounds provision ``--batch`` of them per client, drawn
-afresh every round (``lm.make_fleet``); both through ``rounds.run_rounds``.
-Like the reference's launcher it keeps the identity downlink; the compressed
+afresh every round (``lm.make_fleet``).  ``--async-buffer`` runs the rounds
+through ``engine.async_rounds`` (the buffer carried across chunks); every
+round is reported through the ``--sink`` (``repro_torch.obs.sinks``), with
+the ``buffered=... merged=...`` counters on async rounds.  Like the
+reference's launcher it keeps the identity downlink; the compressed
 downlink is reached through the engine API (``rounds.init_state`` /
 ``run_rounds`` with a ``FedConfig``).  Flags of the reference that the port
 does not run yet raise.
@@ -33,15 +42,18 @@ import time
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.configs.base import (CompressorConfig, FedConfig,
-                                      FleetConfig, SwitchConfig)
+from repro_torch.configs.base import (AsyncConfig, CompressorConfig,
+                                      FedConfig, FleetConfig, ObsConfig,
+                                      SwitchConfig)
 from repro_torch.data import synthetic
-from repro_torch.engine import rounds
+from repro_torch.engine import async_rounds, rounds
 from repro_torch.models import build
+from repro_torch.obs import log as obs_log
+from repro_torch.obs import sinks as obs_sinks
+from repro_torch.obs import trace as obs_trace
 from repro_torch.tasks import lm
 
-_NOT_PORTED = (("async_buffer", "--async-buffer"), ("wire", "--wire"),
-               ("obs", "--obs"), ("ef_slots", "--ef-slots"))
+_NOT_PORTED = (("wire", "--wire"), ("ef_slots", "--ef-slots"))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -74,10 +86,47 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--sampler", default="uniform",
                     choices=["uniform", "weighted", "markov"],
                     help="client-sampling law (fleet.samplers)")
+    ap.add_argument("--async-buffer", action="store_true",
+                    help="asynchronous buffered rounds (engine.async_rounds)"
+                         ": clients lost mid-round park their compressed "
+                         "uplink in a staleness buffer and merge into a "
+                         "later server update")
+    ap.add_argument("--staleness", default="constant",
+                    choices=["constant", "poly", "constraint"],
+                    help="staleness-decay law for buffered uplinks")
+    ap.add_argument("--max-staleness", type=int, default=4,
+                    help="a buffered uplink may merge up to this age "
+                         "(rounds); entries that reach it undelivered "
+                         "expire")
+    ap.add_argument("--depart", type=float, default=0.25,
+                    help="mid-round departure probability for samplers "
+                         "without an availability model (markov uses its "
+                         "own chain)")
+    ap.add_argument("--obs", action="store_true",
+                    help="telemetry bus (repro_torch.obs): per-round "
+                         "optimizer-health counters ride the metrics; off "
+                         "is the plain engine, bit for bit")
+    ap.add_argument("--obs-window", type=int, default=8,
+                    help="trailing window (rounds) for the switching "
+                         "fraction telemetry")
+    ap.add_argument("--sink", default="stdout",
+                    choices=list(obs_sinks.sink_names()),
+                    help="per-round metric destination "
+                         "(repro_torch.obs.sinks registry)")
+    ap.add_argument("--sink-path", default="metrics.jsonl",
+                    help="output file for --sink jsonl")
+    ap.add_argument("--log-level", default="info",
+                    choices=list(obs_log.LEVELS),
+                    help="launcher log threshold (repro_torch.obs.log)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="shorthand for --log-level warning (silences the "
+                         "stdout sink's progress lines too)")
+    ap.add_argument("--profile", default=None, metavar="START:STOP",
+                    help="capture a torch.profiler trace while START <= "
+                         "round < STOP (a Chrome/Perfetto JSON under "
+                         "profiles/)")
     # reference flags whose paths are not ported yet: they raise
-    ap.add_argument("--async-buffer", action="store_true")
     ap.add_argument("--wire", type=int, default=0)
-    ap.add_argument("--obs", action="store_true")
     ap.add_argument("--ef-slots", type=int, default=0)
     return ap
 
@@ -105,7 +154,12 @@ def setup(args):
         strategy=args.strategy, participation=args.participation,
         fleet=FleetConfig(sampler=args.sampler, batch_size=args.batch,
                           redraw=True) if args.fleet else FleetConfig(
-                              sampler=args.sampler))
+                              sampler=args.sampler),
+        async_=AsyncConfig(enabled=args.async_buffer,
+                           staleness=args.staleness,
+                           max_staleness=args.max_staleness,
+                           depart=args.depart),
+        obs=ObsConfig(enabled=args.obs, window=args.obs_window))
     loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
     state = rounds.init_state(params, fed, device=dev)
     del params                  # the state's flat buffer is the model now
@@ -125,27 +179,48 @@ def setup(args):
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    obs_log.set_level("warning" if args.quiet else args.log_level)
+    profile = obs_trace.ProfileWindow(args.profile)
     state, batches, loss_pair, fed, cfg, dev = setup(args)
     pool = f", fleet pool {args.fleet_pool}" if args.fleet else ""
-    print(f"{cfg.name}: d={state.spec.d} params on {dev}, "
-          f"{fed.m} of {fed.n_clients} clients ({fed.participation}, "
-          f"{fed.fleet.sampler} sampler{pool}), "
-          f"uplink {fed.uplink.kind} on comm={fed.comm}", flush=True)
+    mode = (f", async buffer ({fed.async_.staleness} law, max staleness "
+            f"{fed.async_.max_staleness})" if args.async_buffer else "")
+    obs_log.log(f"{cfg.name}: d={state.spec.d} params on {dev}, "
+                f"{fed.m} of {fed.n_clients} clients ({fed.participation}, "
+                f"{fed.fleet.sampler} sampler{pool}), "
+                f"uplink {fed.uplink.kind} on comm={fed.comm}{mode}",
+                flush=True)
+    sink = obs_sinks.get_sink(
+        args.sink, **({"path": args.sink_path} if args.sink == "jsonl"
+                      else {}))
+    sink.open(meta={"arch": cfg.name, "rounds": args.rounds,
+                    "comm": args.comm, "strategy": args.strategy,
+                    "participation": args.participation,
+                    "async_buffer": args.async_buffer, "obs": args.obs,
+                    "device": str(dev)})
+    batch_fn = (lambda t, g: batches) if args.fleet else batches
+    buf = async_rounds.init_buffer(state, fed)
     t0 = time.time()
     done = 0
-    batch_fn = (lambda t, g: batches) if args.fleet else batches
-    for _ in range(max(args.rounds // 10, 1)):
-        state, hist = rounds.run_rounds(state, batch_fn, loss_pair, fed,
-                                        T=10, device=dev)
-        done += 10
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        s_per_round = (time.time() - t0) / done
-        for i in range(10):
-            print(f"round {done - 10 + i + 1:4d}: f={hist.f[i]:.4f} "
-                  f"g_hat={hist.g_hat[i]:.4f} sigma={hist.sigma[i]:.2f} "
-                  f"up_bytes={int(hist.up_bytes[i])} "
-                  f"s/round={s_per_round:.3f}", flush=True)
+    try:
+        for _ in range(max(args.rounds // 10, 1)):
+            profile.tick(done)
+            if args.async_buffer:
+                state, buf, hist = async_rounds.async_run_rounds(
+                    state, batch_fn, loss_pair, fed, T=10, device=dev,
+                    buf=buf)
+            else:
+                state, hist = rounds.run_rounds(state, batch_fn, loss_pair,
+                                                fed, T=10, device=dev)
+            done += 10
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            for rec in obs_sinks.rows(hist, start_round=done - 10,
+                                      s_per_round=(time.time() - t0) / done):
+                sink.emit(rec)
+        profile.close()
+    finally:
+        sink.close()
     return state
 
 

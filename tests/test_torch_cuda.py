@@ -1,6 +1,7 @@
 """Card tests: each CUDA kernel against its plain PyTorch version on the
-card, at small shapes, and one reduced round on the card against the same
-round on the CPU.  Marked ``cuda``; without a card they skip (decided in a
+card, at small shapes, reduced rounds on the card against the same rounds
+on the CPU (async rounds among them), and the launcher's async and obs
+flags on the card.  Marked ``cuda``; without a card they skip (decided in a
 fixture, never at import).  Run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -320,6 +321,9 @@ def test_reduced_gather_equals_mask_on_card(dev, kind):
               getattr(sm, name).view(torch.int32))
     for a, b in zip(mg, mm):
         for name in rounds.RoundMetrics._fields:
+            if getattr(a, name) is None:     # telemetry, obs off
+                assert getattr(b, name) is None
+                continue
             _same(getattr(a, name).view(torch.int32),
                   getattr(b, name).view(torch.int32))
 
@@ -516,6 +520,9 @@ def test_reduced_randk_gather_equals_mask_on_card(dev):
         _same(getattr(sg, name).view(torch.int32),
               getattr(sm, name).view(torch.int32))
     for name in rounds.RoundMetrics._fields:
+        if getattr(hg, name) is None:       # telemetry, obs off
+            assert getattr(hm, name) is None
+            continue
         assert np.array_equal(getattr(hg, name).view(np.uint32),
                               getattr(hm, name).view(np.uint32))
 
@@ -675,3 +682,167 @@ def test_cmdp_round_on_card_matches_cpu(dev):
                                rtol=0, atol=1e-4)
     far = ~torch.isclose(new.w.cpu(), cpu.w, rtol=1e-4, atol=1e-6)
     assert float(far.float().mean()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous buffered rounds on the card
+# ---------------------------------------------------------------------------
+
+def test_mask_where_unsigned_leaves_on_card(dev):
+    """``transports.mask_where`` on payload NamedTuples with uint16 offsets
+    and uint32 words (through their signed views), into a fresh tensor and
+    in place (``out=old``): bit-equal to the CPU's select."""
+    from repro_torch.comm import transports
+    rng = np.random.default_rng(5)
+    mask = torch.tensor([1.0, 0.0, 0.25, 0.0])
+    new = payloads.FlatPacked(
+        torch.from_numpy(rng.standard_normal((4, 7)).astype(np.float32)),
+        payloads.to_u16(torch.from_numpy(rng.integers(0, 65536, (4, 7)))))
+    old = payloads.FlatPacked(
+        torch.from_numpy(rng.standard_normal((4, 7)).astype(np.float32)),
+        payloads.to_u16(torch.from_numpy(rng.integers(0, 65536, (4, 7)))))
+    words = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (4, 5))
+                             ).to(torch.int32).view(torch.uint32)
+    qnew = payloads.FlatQuant(words, torch.rand(4, 3))
+    qold = payloads.FlatQuant(words.flip(0).contiguous(), torch.rand(4, 3))
+    for a, b in ((new, old), (qnew, qold)):
+        want = transports.mask_where(mask, a, b)
+        da = type(a)(*(x.to(dev) for x in a))
+        db = type(b)(*(x.to(dev) for x in b))
+        got = transports.mask_where(mask.to(dev), da, db)
+        inplace = transports.mask_where(mask.to(dev), da, db, out=db)
+        for g, i, w, o in zip(got, inplace, want, db):
+            assert g.dtype == w.dtype and i.data_ptr() == o.data_ptr()
+            _same(_bits(g), _bits(w))
+            _same(_bits(i), _bits(w))
+
+
+def _bits(x):
+    """A same-width signed integer view (floats and unsigned wire
+    dtypes)."""
+    return x.view({torch.float32: torch.int32, torch.uint16: torch.int16,
+                   torch.uint32: torch.int32}.get(x.dtype, x.dtype))
+
+
+@pytest.mark.parametrize("block,k", [(42, 4), (640, 64), (960, 96)])
+def test_stale_reduce_fractional_weights_bit_equal(dev, block, k):
+    """The stale merge's reduce: rows parked rounds ago, rows still all
+    zero, weights ``w_origin * lambda(s) * deliver`` (fractional, zero on
+    most rows) -- ``scatter_agg`` bit-equal to its plain version on the
+    CPU, ``unpack_mma`` to its plain version on the card."""
+    n = 8
+    rng = np.random.default_rng(block)
+    s = torch.tensor([1.0, 2.0, 0.0, 3.0, 1.0, 0.0, 4.0, 2.0])
+    w = torch.tensor([1.375, 0.62, 0.0, 2.9, 1.0, 0.0, 0.8, 1.1]) \
+        * (1.0 + s) ** -1.7 * torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0,
+                                            1.0, 0.0])
+    vals = rng.standard_normal((n, 5, k)).astype(np.float32)
+    offs = rng.integers(0, block, size=(n, 5, k))
+    vals[[2, 5]] = 0.0                      # never parked: all zero
+    offs[[2, 5]] = 0
+    vals = torch.from_numpy(vals)
+    idx = payloads.to_u16(torch.from_numpy(offs))
+    want = scatter_agg_plain(vals, idx, w, block)
+    got = scatter_agg(vals.to(dev), idx.to(dev), w.to(dev), block)
+    _same(got.view(torch.int32), want.view(torch.int32))
+    L = 127
+    codes = torch.from_numpy(rng.integers(-L, L + 1, size=(n, 5, block)))
+    codes[[2, 5]] = 0
+    words = payloads.pack_codes(codes, 8).to(dev)
+    scale = torch.rand((n, 5), device=dev)
+    scale[[2, 5]] = 0.0
+    wd = w.to(dev)
+    _same(unpack_mma(words, scale, wd, 8, block),
+          unpack_mma_plain(words, scale, wd, 8, block))
+
+
+@pytest.mark.parametrize("kind", ["topk", "quant"])
+def test_async_rounds_park_and_deliver_on_card(dev, kind):
+    """Four reduced async rounds (gather 2 of 4, pallas, max staleness 2,
+    departures and arrivals at 1/2), card against CPU from the same weights,
+    batches, cohorts and events (all drawn on CPU generators): the counters
+    equal, the buffer's origins and occupancy equal, payloads parked and
+    delivered, f and g_hat at rtol 1e-4, all but 0.1% of w within rtol
+    1e-4 / atol 1e-6; on the card the reduce kernel launches twice a round
+    (the fresh messages and the buffer)."""
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import AsyncConfig
+    from repro_torch.engine import async_rounds
+    from repro_torch.launch import train
+    args = train.parser().parse_args(
+        ["--reduced", "--seq", "16", "--device", "cpu", "--clients", "4",
+         "--participating", "2", "--participation", "gather", "--comm",
+         "pallas", "--uplink", kind])
+    state0, batch_fn, pair, fed, _, _ = train.setup(args)
+    fed = fed.replace(async_=AsyncConfig(enabled=True, max_staleness=2,
+                                         depart=0.5, rejoin=0.5,
+                                         staleness="poly"))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state = rounds_init(state0, fed, d)
+        kernels.reset_launches()
+        out[d.type] = async_rounds.async_run_rounds(
+            state, lambda t, g: _batch_to(batch_fn(t, g), d), pair, fed, 4,
+            device=d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+    runs = len(flat.wire_layout(state0.spec, fed.uplink).runs)
+    enc, red = ("block_topk", "scatter_agg") if kind == "topk" else \
+        ("quantize_ef_pack", "unpack_mma")
+    want = {name: 0 for name in kernels.WRAPPERS}
+    want.update({enc: 4 * runs, red: 8 * runs, "segment_rows": 8})
+    assert counts == want
+    (sc, bc, hc), (sh, bh, hh) = out["cuda"], out["cpu"]
+    for name in ("fresh", "departed", "merged", "dropped", "occupancy",
+                 "max_age"):
+        np.testing.assert_array_equal(getattr(hc, name), getattr(hh, name))
+    assert hc.departed.sum() > 0 and hc.merged.sum() > 0
+    assert torch.equal(bc.origin.cpu(), bh.origin)
+    assert torch.equal(bc.occupied.cpu(), bh.occupied)
+    np.testing.assert_allclose(hc.round.f, hh.round.f, rtol=1e-4)
+    np.testing.assert_allclose(hc.round.g_hat, hh.round.g_hat, rtol=1e-4)
+    far = ~torch.isclose(sc.w.cpu(), sh.w, rtol=1e-4, atol=1e-6)
+    assert float(far.float().mean()) <= 1e-3
+
+
+def rounds_init(state0, fed, d):
+    from repro_torch.comm import flat
+    from repro_torch.engine import rounds
+    return rounds.init_state(flat.unflatten(state0.spec, state0.w.to(d)),
+                             fed, device=d)
+
+
+def _batch_to(batch, d):
+    return type(batch)(*(x.to(d) for x in batch))
+
+
+def test_async_obs_launcher_on_card(dev, tmp_path, monkeypatch):
+    """The launcher's async, obs, sink and profile flags on the card
+    (reduced config): ten rounds of JSONL records with the async counters
+    and finite telemetry, and a trace holding the stage spans and the
+    card's kernels."""
+    import json
+    from repro_torch.launch import train
+    monkeypatch.chdir(tmp_path)
+    train.main(["--reduced", "--seq", "16", "--batch", "1", "--clients",
+                "4", "--participating", "2", "--participation", "gather",
+                "--comm", "pallas", "--uplink", "topk", "--rounds", "10",
+                "--fleet", "--fleet-pool", "3", "--sampler", "markov",
+                "--async-buffer", "--staleness", "constraint",
+                "--max-staleness", "3", "--depart", "0.5", "--obs",
+                "--obs-window", "4", "--sink", "jsonl", "--sink-path",
+                "m.jsonl", "--log-level", "warning", "--profile", "0:10"])
+    lines = [json.loads(x) for x in (tmp_path / "m.jsonl").read_text()
+             .splitlines()]
+    assert lines[0]["meta"]["device"].startswith("cuda")
+    recs = lines[1:]
+    assert [r["round"] for r in recs] == list(range(1, 11))
+    assert all(np.isfinite(r["tel_up_ratio"]) and "merged" in r
+               for r in recs)
+    with open(tmp_path / "profiles" / "trace_0_10.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"round.encode", "round.reduce", "kernel.block_topk",
+            "kernel.scatter_agg"} <= names
+    assert any(e.get("cat") == "kernel" for e in events)

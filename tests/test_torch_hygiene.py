@@ -2,6 +2,8 @@
 entry points run on ``cuda`` unless asked for the CPU, and its kernel
 wrappers run the plain versions on CPU tensors without counting a launch."""
 import ast
+import json
+import os
 import pathlib
 
 import numpy as np
@@ -87,19 +89,87 @@ def test_round_step_needs_a_card_unless_asked_for_cpu(no_card):
 
 
 def test_not_ported_paths_raise():
-    """Async rounds, the wire runtime, obs and the slot store raise, and so
-    do the samplers' mid-round events (they come with the async engine);
-    the launcher has no flag for the tuner, which is not ported either."""
-    for flag in (["--async-buffer"], ["--wire", "2"], ["--obs"],
-                 ["--ef-slots", "4"], ["--fleet", "--async-buffer"]):
+    """The wire runtime and the slot store raise; async rounds and obs are
+    ported (they set up), and so are the samplers' mid-round events.  The
+    launcher has no flag for the tuner or checkpoints, which are not ported
+    either."""
+    for flag in (["--wire", "2"], ["--ef-slots", "4"],
+                 ["--fleet", "--async-buffer", "--wire", "2"]):
         args = train.parser().parse_args(["--device", "cpu"] + flag)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.setup(args)
+    with pytest.raises(SystemExit):
+        train.parser().parse_args(["--ckpt-dir", "x"])
+    for flag in (["--async-buffer"], ["--obs"],
+                 ["--fleet", "--async-buffer", "--obs"]):
+        args = train.parser().parse_args(
+            ["--device", "cpu", "--reduced", "--seq", "8", "--batch", "1",
+             "--clients", "2"] + flag)
+        state, _, _, fed, _, _ = train.setup(args)
+        assert fed.async_.enabled == ("--async-buffer" in flag)
+        assert fed.obs.enabled == ("--obs" in flag)
     for name in ("uniform", "weighted", "markov"):
         fed = _fed().replace(fleet=FleetConfig(sampler=name))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            samplers.get_sampler(name).events(
-                torch.Generator(), fed, torch.ones(2))
+        ev, _ = samplers.get_sampler(name).events(
+            torch.Generator().manual_seed(0), fed, torch.ones(2),
+            torch.ones(2) if name == "markov" else None)
+        assert ev.depart.shape == ev.arrive.shape == (2,)
+
+
+def test_new_modules_are_scanned():
+    """The async engine and obs modules are among the files the import
+    scan reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("engine/async_rounds.py", "obs/__init__.py", "obs/bus.py",
+                "obs/log.py", "obs/sinks.py", "obs/trace.py"):
+        assert f"src/repro_torch/{mod}" in scanned
+
+
+@pytest.mark.parametrize("fleet", [False, True])
+def test_async_obs_launcher_needs_a_card_unless_asked_for_cpu(
+        no_card, tmp_path, capsys, fleet):
+    """``--async-buffer`` with the telemetry bus, the JSONL sink and a
+    profile window: raises without a card; on the CPU, ten rounds of
+    records with the async counters and the telemetry, one trace."""
+    path = tmp_path / "m.jsonl"
+    argv = ["--reduced", "--seq", "8", "--batch", "1", "--clients", "4",
+            "--participating", "2", "--participation", "gather", "--comm",
+            "pallas", "--uplink", "topk", "--rounds", "1", "--async-buffer",
+            "--staleness", "constraint", "--max-staleness", "2", "--depart",
+            "0.5", "--obs", "--obs-window", "3", "--sink", "jsonl",
+            "--sink-path", str(path), "--log-level", "warning",
+            "--profile", "0:10"]
+    if fleet:
+        argv += ["--fleet", "--fleet-pool", "3", "--sampler", "markov"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    path.unlink(missing_ok=True)
+    cwd = pathlib.Path.cwd()
+    try:
+        os.chdir(tmp_path)
+        state = train.main(argv + ["--device", "cpu"])
+    finally:
+        os.chdir(cwd)
+    assert state.t == 10 and torch.isfinite(state.w).all()
+    lines = [json.loads(x) for x in path.read_text().splitlines()]
+    assert lines[0]["meta"]["async_buffer"] and lines[0]["meta"]["obs"]
+    recs = lines[1:]
+    assert [r["round"] for r in recs] == list(range(1, 11))
+    assert all("merged" in r and "tel_buf_stale_hist" in r for r in recs)
+    assert sum(r["departed"] for r in recs) > 0
+    assert (tmp_path / "profiles" / "trace_0_10.json").exists()
+    assert capsys.readouterr().out == ""     # --log-level warning
+
+
+def test_stdout_sink_reports_async_counters(no_card, capsys):
+    train.main(["--reduced", "--seq", "8", "--batch", "1", "--clients", "2",
+                "--rounds", "1", "--async-buffer", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 11 and "async buffer" in out[0]
+    assert all("buffered=" in x and "merged=" in x for x in out[1:])
+    train.main(["--reduced", "--seq", "8", "--batch", "1", "--clients", "2",
+                "--rounds", "1", "--device", "cpu", "--quiet"])
+    assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("sampler", ["weighted", "markov"])

@@ -19,7 +19,12 @@ def n(x) -> np.ndarray:
 
 
 def assert_bits_equal(a, b) -> None:
-    """Bit-for-bit equality (``-0.0 != +0.0`` here)."""
+    """Bit-for-bit equality (``-0.0 != +0.0`` here); None equals only
+    None (an absent metric, e.g. ``RoundMetrics.telemetry`` with obs
+    off)."""
+    if a is None or b is None:
+        assert a is None and b is None, (a, b)
+        return
     a, b = n(a), n(b)
     assert a.shape == b.shape, (a.shape, b.shape)
     assert a.dtype.itemsize == b.dtype.itemsize, (a.dtype, b.dtype)
