@@ -95,14 +95,39 @@ Phases, each fatal on failure (nonzero exit):
    buffer off equal to the synchronous rounds bit for bit (pallas and
    dense), obs on equal to obs off, gather equal to mask, the card against
    the CPU from the same cohorts and events; over the phase at least one
-   payload parks, one delivers and one expires.
+   payload parks, one delivers and one expires;
+13. population scale-out and checkpoints: (a) at 2 layers, full width
+   otherwise, 3 rounds each on recorded cohorts (``fixed`` sampler): a slot
+   store of cap 8 >= n = 8 against the dense residual, bit for bit (pallas
+   top-k and quant up and down, dense-wire top-k); an evicting store (cap
+   4 of n = 12) on the card against the CPU, with at least one eviction
+   and each round's flush partial bit-equal to ``scatter_agg``'s plain
+   version on the same orphan payloads, and every ``scatter_agg`` launch
+   of the 12-row fresh reduce and ``segment_rows`` launch into 12 rows
+   bit-equal to its plain version on the same inputs; cohorts k = 2 and 4 against k = 1
+   (top-k bit for bit, quant within rtol 1e-5); save -> restore ->
+   continue of an evicting store, the async buffer and a Markov fleet,
+   bit for bit against the uninterrupted run, and a compressed-residual
+   sidecar restoring ``decode(pack(e))``; (b) the slot store at full
+   width: 32 clients, 4 sampled, ``--ef-slots 8``, pallas top-k 0.1 up and
+   down, ``--sparse-eval``, ``--lean-metrics`` (the ``delta_norm``
+   diagnostic scatters ``[n, d]``), T rounds, with its resident bytes,
+   evictions and flushed HT mass, then one more round whose 32-row
+   ``scatter_agg`` and ``segment_rows`` launches are each held bit-equal
+   to their plain versions; (c) two-tier aggregation at full width:
+   gather 4 of 8, ``--cohorts 4``, pallas 8-bit quant up and down,
+   ``--sparse-eval``, T rounds, one round's tiered ``v_bar`` against the single-tier reduce of
+   the same messages and a strided cohort slice through ``unpack_mma``
+   against its plain version.
 
-In phases 5, 7, 8, 9, 11 and 12 the launch counts are zeroed just before
+In phases 5, 7, 8, 9, 11, 12 and 13 the launch counts are zeroed just before
 each part and read just after: each kernel must have launched exactly as
 often per round as the wire layout demands (on ``comm="pallas"`` the
-encode kernel once per wire run and direction; the reduce kernel once per
-run on the pallas and packed wires, twice in an async round;
-``segment_rows`` twice in a gather round; no kernel on the dense wire), and ``loss_pair`` as often as the round's
+encode kernel once per wire run and direction, and once more for a slot
+store's eviction flush; the reduce kernel once per run and cohort on the
+pallas and packed wires, twice in an async round, once more per run for
+the flush; ``segment_rows`` twice in a gather round, once with
+``lean_metrics``; no kernel on the dense wire), and ``loss_pair`` as often as the round's
 forwards (n*E fused, n + m*E unfused); f and g_hat must be finite and
 ``up_bytes`` / ``down_bytes`` the wires' bytes.  One more round per phase
 then runs under ``torch.profiler`` for the device time by operator and
@@ -121,6 +146,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -565,7 +591,7 @@ def setup_phase(torch, argv, downlink: bool, **fed_over):
     """The launcher's ``setup`` for ``argv``; with ``downlink`` the uplink's
     compressor runs on the downlink too, and ``fed_over`` changes the
     FedConfig, through the engine API (the launcher keeps the identity
-    downlink and the full eval, as the reference's does)."""
+    downlink, as the reference's does)."""
     from repro_torch.comm import flat
     from repro_torch.engine import rounds
     from repro_torch.launch import train
@@ -584,30 +610,36 @@ def setup_phase(torch, argv, downlink: bool, **fed_over):
 def expected_launches(fed, runs: int) -> dict:
     """Kernel launches per round that the wire layout demands: on
     ``comm="pallas"`` the uplink kind's encode kernel once per run and
-    compressed direction; the reduce kernel once per run on the pallas and
-    packed wires (the reference reaches neither on its dense wire), twice
-    in an async round (the fresh messages, then the buffer's); in a gather
-    round ``segment_rows`` twice (the message's float field and the
-    ``delta_norm`` deltas)."""
+    compressed direction, and once more for a slot store's eviction flush
+    (present when its capacity is below n); the reduce kernel once per run
+    and cohort on the pallas and packed wires (the reference reaches
+    neither on its dense wire), twice in an async round (the fresh
+    messages, then the buffer's), and once more per run for the flush
+    (a single-tier reduce); in a gather round ``segment_rows`` twice (the
+    message's float field and the ``delta_norm`` deltas), once with
+    ``lean_metrics``."""
     enc, red = PHASE_KERNELS[fed.uplink.kind]
+    flush = int(0 < fed.scale.ef_slots < fed.n_clients)
     want = {}
     if fed.comm == "pallas":
-        want[enc] = runs * (2 if fed.downlink.kind != "none" else 1)
+        want[enc] = runs * (1 + (fed.downlink.kind != "none") + flush)
     if fed.comm in ("pallas", "packed"):
         # an async round reduces twice: the fresh messages and the buffer
-        want[red] = runs * (2 if fed.async_.enabled else 1)
+        want[red] = runs * (fed.scale.cohorts
+                            * (2 if fed.async_.enabled else 1) + flush)
     if fed.participation == "gather":
-        want["segment_rows"] = 2
+        want["segment_rows"] = 1 if fed.lean_metrics else 2
     return want
 
 
 def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
-                fleet_fn=None, **fed_over):
-    """Phases 5, 7, 8 and 9: full-width training rounds through the
+                fleet_fn=None, after=None, **fed_over):
+    """Phases 5, 7, 8, 9 and 13: full-width training rounds through the
     launcher's setup and ``run_rounds``, on per-round batches or on a
     client fleet (the launcher's ``--fleet``, or ``fleet_fn(fed, dev)``
     through the engine API); returns the phase record (launch
-    counts included).  Every kernel must launch as often as the wire layout
+    counts included, and the fields ``after(state, hist, batches,
+    loss_pair, fed, dev)`` returns, called last).  Every kernel must launch as often as the wire layout
     demands, no other kernel may launch, and ``loss_pair`` must run once
     per forward of the round (fused or not); on a fleet every provisioned
     row must lie below its client's count."""
@@ -697,6 +729,8 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     rec["profile"] = profile_round(torch, state, batches, pair, fed, dev,
                                    rec["s_per_round_after_first"])
     print(json.dumps({"profile": name, **rec["profile"]}), flush=True)
+    if after is not None:
+        rec.update(after(state, hist, batches, pair, fed, dev))
     del state
     torch.cuda.empty_cache()
     return rec
@@ -1935,6 +1969,501 @@ def async_phase(torch, dev, T: int = ASYNC_ROUNDS) -> tuple:
              for p in (part_a, part_b)])
 
 
+# phase 13: population scale-out and checkpoints.  The checks of 13(a) at
+# 2 layers, full width otherwise; 13(b) and 13(c) T rounds at full width
+SCALE_CHECK_ROUNDS = 3
+SCALE_CLIENTS, SCALE_SLOTS = 32, 8          # 13(b): n and the store's cap
+EVICT_CLIENTS, EVICT_SLOTS = 12, 4          # 13(a): the evicting store
+# 13(a): the evicting store's cohorts (4 of 12): disjoint, so round 1 takes
+# every slot from its owner, then a mix of hits and misses
+EVICT_COHORTS = [[0, 1, 2, 3], [4, 5, 6, 7], [0, 5, 8, 11]]
+# 13(a): cohorts (4 of 8) whose members beyond the first cohort's fall one
+# to a cohort at k = 2 (cohorts of 4) and k = 4 (of 2): a cohort's partial
+# adds its rows in client order and m = 4 divides exactly, so the tiers
+# add the same terms in the same order
+TIERED_COHORTS = [[0, 1, 2, 4], [0, 1, 3, 6], [0, 1, 2, 5]]
+TIER_RTOL, TIER_ATOL = 1e-5, 1e-6
+
+
+def cohort_masks(np, n: int, cohorts) -> "np.ndarray":
+    masks = np.zeros((len(cohorts), n), np.float32)
+    for r, ids in enumerate(cohorts):
+        masks[r, ids] = 1.0
+    return masks
+
+
+class ReduceRecorder:
+    """Records, while active, every call of ``FlatTransport.<method>`` made
+    on the thread that entered it whose weights have ``rows`` rows (or that
+    has more than one cohort, ``tiered``): the messages, weights, m and
+    result (a concurrent run on another thread is not recorded)."""
+
+    def __init__(self, method: str, rows: int = 0, tiered: bool = False):
+        self.method, self.rows, self.tiered = method, rows, tiered
+        self.calls = []
+
+    def __enter__(self):
+        import threading
+        from repro_torch.comm import flat
+        self._orig = getattr(flat.FlatTransport, self.method)
+        self._thread = threading.get_ident()
+        rec = self
+
+        def wrapped(ft, msgs, weights, m):
+            out = rec._orig(ft, msgs, weights, m)
+            if threading.get_ident() == rec._thread and (
+                    (rec.tiered and ft.cohorts > 1)
+                    or (rec.rows and weights.shape[0] == rec.rows)):
+                rec.calls.append((ft, msgs, weights, m, out))
+            return out
+        setattr(flat.FlatTransport, self.method, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.comm import flat
+        setattr(flat.FlatTransport, self.method, self._orig)
+
+
+class KernelRecorder:
+    """Records, while active, every call of the kernel wrapper
+    ``module.<name>`` made on the thread that entered it and accepted by
+    ``keep(*args)``: its arguments and result (a concurrent run on another
+    thread is not recorded).  The wrapper counts its launches on the
+    module's attribute (``<name>.launches``), so the stand-in carries the
+    count while it is installed and hands it back."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        import threading
+        self._orig = getattr(self.module, self.name)
+        self._thread = threading.get_ident()
+        rec = self
+
+        def wrapped(*args):
+            out = rec._orig(*args)
+            if threading.get_ident() == rec._thread and rec.keep(*args):
+                rec.calls.append((args, out))
+            return out
+        wrapped.launches = self._orig.launches
+        self._wrapped = wrapped
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        self._orig.launches = self._wrapped.launches
+        setattr(self.module, self.name, self._orig)
+
+
+def row_kernel_recorders(rows: int):
+    """Recorders of the ``scatter_agg`` launches over ``rows`` stacked
+    payload rows and the ``segment_rows`` launches into ``rows`` rows: a
+    round's fresh reduce and its ``[n]``-layout scatters at n = ``rows``."""
+    from repro_torch.kernels import scatter_agg
+    return (KernelRecorder(scatter_agg, "scatter_agg",
+                           lambda vals, *a: vals.shape[0] == rows),
+            KernelRecorder(scatter_agg, "segment_rows",
+                           lambda r, seg, n: n == rows))
+
+
+def check_recorded(torch, name: str, reduce_rec, seg_rec) -> dict:
+    """Every recorded ``scatter_agg`` / ``segment_rows`` launch against its
+    plain version on the same inputs, on the card, tolerance 0."""
+    from repro_torch.kernels import scatter_agg
+    err = {"scatter_agg": 0.0, "segment_rows": 0.0}
+    for kname, rec, plain in (
+            ("scatter_agg", reduce_rec, scatter_agg.scatter_agg_plain),
+            ("segment_rows", seg_rec, scatter_agg.segment_rows_plain)):
+        for args, got in rec.calls:
+            err[kname] = max(err[kname],
+                             max_err(torch, [got], [plain(*args)]))
+    out = {"kernel_check": name, "scatter_agg_calls": len(reduce_rec.calls),
+           "segment_rows_calls": len(seg_rec.calls),
+           "scatter_agg_rows": sorted({tuple(a[0].shape[:2])
+                                       for a, _ in reduce_rec.calls}),
+           "segment_rows_shapes": sorted({(a[0].shape[0], a[2])
+                                          for a, _ in seg_rec.calls}),
+           "max_abs_err": err, "tolerance": 0.0}
+    print(json.dumps(out), flush=True)
+    if any(err.values()) or not (reduce_rec.calls and seg_rec.calls):
+        raise AssertionError(f"{name}: a recorded kernel launch differs "
+                             f"from its plain version, or none ran: {out}")
+    reduce_rec.calls.clear()
+    seg_rec.calls.clear()
+    return out
+
+
+def scale_checks(torch, dev, T: int = SCALE_CHECK_ROUNDS,
+                 layers: int = 2) -> dict:
+    """Phase 13(a), at full width and ``layers`` layers, top-k 0.1 or 8-bit
+    quant, E = 1, on recorded cohorts: (i) a store of cap >= n against the
+    dense residual, bit for bit (state, metrics, every owned pool row);
+    (ii) an evicting store on the card against the CPU (the store's
+    integer leaves and weights, the slot counters equal; f and g_hat at
+    rtol 1e-4), at least one eviction, every round's flush partial
+    bit-equal to the single-tier reduce's plain version (``scatter_agg``
+    on the CPU) of the same orphan payloads; (iii) cohorts k = 2 and 4
+    against k = 1; (iv) save -> restore -> continue with the evicting
+    store, the async buffer and a Markov fleet, bit for bit, and a
+    compressed-residual sidecar.  The CPU side of (ii) runs in a thread
+    beside the card's checks (its plain top-k sorts take most of its
+    time)."""
+    import tempfile
+    import threading
+    import numpy as np
+    from repro_torch import checkpoint, configs
+    from repro_torch.configs.base import (AsyncConfig, CompressorConfig,
+                                          FedConfig, FleetConfig, ObsConfig,
+                                          ScaleConfig, SwitchConfig)
+    from repro_torch.data import synthetic
+    from repro_torch.engine import async_rounds, rounds
+    from repro_torch.fleet import samplers
+    from repro_torch.models import build
+    from repro_torch.scale import slots
+    from repro_torch.tasks import lm
+    cfg = dataclasses.replace(configs.get_config("smollm-360m"),
+                              n_layers=layers)
+    fns = build(cfg)
+    loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
+    params0 = fns.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+    def fed_of(kind="topk", comm="pallas", n=N_GATHER, cap=0, cohorts=1,
+               **kw):
+        cc = CompressorConfig(kind=kind, ratio=0.1, bits=8)
+        return FedConfig(
+            n_clients=n, m=M_GATHER, local_steps=1, lr=0.03,
+            switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0), uplink=cc,
+            downlink=cc, comm=comm, participation="gather",
+            fleet=FleetConfig(sampler="fixed"),
+            scale=ScaleConfig(ef_slots=cap, cohorts=cohorts), **kw)
+
+    def run(fed, device, cohorts, T=T):
+        d = torch.device(device)
+
+        def batch_fn(t, g):
+            toks, mask = synthetic.client_token_batches(
+                g, fed.n_clients, 2, 64, cfg.vocab, hetero=0.5, device=d)
+            return lm.LMBatch(tokens=toks, minority_mask=mask)
+        masks = cohort_masks(np, fed.n_clients, cohorts)
+        state = rounds.init_state(to_device(params0, d), fed, device=d)
+        state = state._replace(sampler=samplers.fixed_state(masks, masks))
+        return rounds.run_rounds(state, batch_fn, loss_pair, fed, T,
+                                 device=d)
+
+    def state_of(s):
+        return (s.w, s.x, s.wbar_sum, s.wbar_weight)
+
+    def report(rec, ok):
+        print(json.dumps(rec), flush=True)
+        if not ok:
+            raise AssertionError(f"scale check failed: {rec}")
+
+    out, seconds = {}, {}
+    # (ii)'s CPU side, in a thread beside the card's work
+    evict_fed = fed_of(n=EVICT_CLIENTS, cap=EVICT_SLOTS, full_eval=False,
+                       obs=ObsConfig(enabled=True))
+    host = {}
+
+    def host_run():
+        t_host = time.time()
+        try:
+            host["run"] = run(evict_fed, "cpu", EVICT_COHORTS)
+        except BaseException as e:          # re-raised after the join
+            host["error"] = e
+        host["seconds"] = time.time() - t_host
+    thread = threading.Thread(target=host_run, daemon=True)
+    thread.start()
+    t0 = time.time()
+    red12, seg12 = row_kernel_recorders(EVICT_CLIENTS)
+    with ReduceRecorder("reduce_single", rows=evict_fed.m) as flushes, \
+            red12, seg12:
+        sc, hc = run(evict_fed, dev, EVICT_COHORTS)
+    seconds["evicting_card"] = time.time() - t0
+    out["evicting store kernels"] = check_recorded(
+        torch, f"13(a) evicting store: {EVICT_CLIENTS}-row fresh reduce "
+        f"and [{EVICT_CLIENTS}] scatters", red12, seg12)
+
+    # (i) cap >= n is the dense residual
+    t0 = time.time()
+    for kind, comm in (("topk", "pallas"), ("quant", "pallas"),
+                       ("topk", "dense")):
+        sd, hd = run(fed_of(kind, comm), dev, TIERED_COHORTS)
+        ss, hs = run(fed_of(kind, comm, cap=N_GATHER), dev, TIERED_COHORTS)
+        owner = ss.e_up.owner.tolist()
+        rows_ok = all(bits_equal(torch, np, ss.e_up.pool[s_], sd.e_up[j])
+                      for s_, j in enumerate(owner) if j >= 0)
+        ok = (bits_equal(torch, np, state_of(sd), state_of(ss))
+              and bits_equal(torch, np, hd, hs) and rows_ok
+              and sorted(j for j in owner if j >= 0)
+              == sorted({j for c in TIERED_COHORTS for j in c}))
+        key = f"slots cap {N_GATHER} >= n == dense, {kind} on {comm}"
+        out[key] = ok
+        report({"scale_check": key, "layers": layers, "rounds": T,
+                "bit_equal": ok, "owner": owner}, ok)
+        del sd, ss
+    torch.cuda.empty_cache()
+    seconds["cap_ge_n"] = time.time() - t0
+    # (iii) cohorts k = 2 and 4 against k = 1
+    t0 = time.time()
+    for kind in ("topk", "quant"):
+        s1, h1 = run(fed_of(kind), dev, TIERED_COHORTS)
+        for k in (2, 4):
+            sk, hk = run(fed_of(kind, cohorts=k), dev, TIERED_COHORTS)
+            same = bits_equal(torch, np, (state_of(s1), s1.e_up, h1),
+                              (state_of(sk), sk.e_up, hk))
+            err = float((sk.w - s1.w).abs().max())
+            close = bool(torch.allclose(sk.w, s1.w, rtol=TIER_RTOL,
+                                        atol=TIER_ATOL))
+            key = f"cohorts {k} vs 1, {kind}"
+            out[key] = {"bit_equal": same, "w_max_abs_err": err}
+            report({"scale_check": key, "cohorts": TIERED_COHORTS,
+                    "bit_equal": same, "w_max_abs_err": err,
+                    "tolerance": "bit-equal" if kind == "topk" else
+                    f"rtol {TIER_RTOL} atol {TIER_ATOL}"},
+                   same if kind == "topk" else close)
+            del sk
+        del s1
+    torch.cuda.empty_cache()
+    seconds["cohorts"] = time.time() - t0
+
+    # (iv) save -> restore -> continue
+    t0 = time.time()
+    fed = FedConfig(
+        n_clients=N_GATHER, m=M_GATHER, local_steps=1, lr=0.03,
+        switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
+        uplink=CompressorConfig(kind="topk", ratio=0.1),
+        downlink=CompressorConfig(kind="topk", ratio=0.1), comm="pallas",
+        participation="gather", full_eval=False,
+        fleet=FleetConfig(sampler="markov", avail_stay=0.6, batch_size=2,
+                          redraw=True),
+        async_=AsyncConfig(enabled=True, staleness="constant",
+                           max_staleness=3),
+        scale=ScaleConfig(ef_slots=M_GATHER), obs=ObsConfig(enabled=True))
+    fleet = lm.make_fleet(torch.Generator().manual_seed(1), fed, pool=8,
+                          seq_len=64, vocab=cfg.vocab, hetero=0.5,
+                          device=dev)
+
+    def fresh():
+        return rounds.init_state(to_device(params0, dev), fed, device=dev)
+
+    def arun(state, buf, T_):
+        return async_rounds.async_run_rounds(state, lambda t, g: fleet,
+                                             loss_pair, fed, T_, device=dev,
+                                             buf=buf)
+    straight, sbuf, sh = arun(fresh(), None, 2 * T)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        state, buf, _ = arun(fresh(), None, T)
+        checkpoint.save_round(tmp, T, state, fleet=fleet, cfg=fed)
+        checkpoint.save_buffer(tmp, T, async_rounds.buffer_wire(buf, state,
+                                                                fed))
+        like = fresh()
+        (restored, fleet_r), t_r = checkpoint.restore_round(
+            tmp, like, like_fleet=fleet)
+        wire = checkpoint.restore_buffer(
+            tmp, t_r, async_rounds.buffer_wire_struct(like, fed), device=dev)
+        restored_ok = (t_r == T and bits_equal(
+            torch, np, (state_of(state), state.e_up, state.sampler, buf),
+            (state_of(restored), restored.e_up, restored.sampler, wire))
+            and torch.equal(state.gen.get_state(), restored.gen.get_state())
+            and bits_equal(torch, np, tuple(fleet.data),
+                           tuple(fleet_r.data)))
+        del state, buf, like
+        cont, cbuf, ch = arun(restored, async_rounds.buffer_from_wire(
+            wire, restored, fed), T)
+        cont_ok = (bits_equal(torch, np, (state_of(straight), straight.e_up,
+                                          straight.sampler, sbuf),
+                              (state_of(cont), cont.e_up, cont.sampler,
+                               cbuf))
+                   and bits_equal(torch, np, rounds_from(sh, T), ch)
+                   and torch.equal(straight.gen.get_state(),
+                                   cont.gen.get_state()))
+        # the compressed-residual sidecar: decode(pack(pool)), row by row
+        up, _ = rounds.flat_transports_for(fed, cont.spec)
+        checkpoint.save_round(tmp, 2 * T, cont, cfg=fed,
+                              compress_residual=True, params=cont.spec)
+        back, _ = checkpoint.restore_round(tmp, fresh(), params=cont.spec,
+                                           cfg=fed)
+        exp = up.codec.decode(up.codec.pack(cont.e_up.pool))
+        eup_ok = (all(bits_equal(torch, np, back.e_up.pool[r], exp[r])
+                      for r in range(exp.shape[0]))
+                  and bits_equal(torch, np, back.e_up._replace(pool=None),
+                                 cont.e_up._replace(pool=None))
+                  and bits_equal(torch, np, state_of(back), state_of(cont)))
+        files = sorted(os.listdir(tmp))
+    rec = {"scale_check": "checkpoint save -> restore -> continue",
+           "rounds": [T, T], "slots": M_GATHER,
+           "evictions": sh.round.telemetry.slot_evictions.tolist(),
+           "departed": sh.departed.tolist(), "merged": sh.merged.tolist(),
+           "restored_bit_equal": restored_ok,
+           "continue_bit_equal": cont_ok,
+           "compressed_residual_is_decode_pack": eup_ok, "files": files}
+    out["checkpoint"] = rec
+    report(rec, restored_ok and cont_ok and eup_ok
+           and sum(rec["evictions"]) >= 1 and sum(rec["departed"]) >= 1)
+    del straight, cont, back, restored, fleet
+    torch.cuda.empty_cache()
+    seconds["checkpoint"] = time.time() - t0
+    # (ii) the evicting store, card against CPU, and its flush partials
+    t0 = time.time()
+    thread.join()
+    seconds["evicting_cpu_wait"] = time.time() - t0
+    seconds["evicting_cpu"] = host["seconds"]
+    if "error" in host:
+        raise host["error"]
+    sh, hh = host["run"]
+    fed = evict_fed
+    up, _ = rounds.flat_transports_for(fed, sc.spec)
+    flush_err = []
+    for ft, msgs, w, m, got in flushes.calls:
+        host = type(msgs)(*(x.cpu() for x in msgs))
+        want = up.codec.reduce(host, w.cpu(), m)
+        flush_err.append(not bits_equal(torch, np, got.cpu(), want))
+    tc, th = hc.telemetry, hh.telemetry
+    rec = {"scale_check": "evicting store, card vs cpu",
+           "clients": fed.n_clients, "slots": EVICT_SLOTS,
+           "cohorts": EVICT_COHORTS,
+           "occupancy": [tc.slot_occupancy.tolist(),
+                         th.slot_occupancy.tolist()],
+           "evictions": [tc.slot_evictions.tolist(),
+                         th.slot_evictions.tolist()],
+           "flush_weight": [tc.slot_flush_weight.tolist(),
+                            th.slot_flush_weight.tolist()],
+           "f": [hc.f.tolist(), hh.f.tolist()],
+           "g_hat": [hc.g_hat.tolist(), hh.g_hat.tolist()],
+           "flush_partials_checked": len(flushes.calls),
+           "flush_partials_differing": sum(flush_err)}
+    ok = (all(torch.equal(getattr(sc.e_up, f).cpu(), getattr(sh.e_up, f))
+              for f in ("owner", "stamp", "client_slot", "weight"))
+          and rec["occupancy"][0] == rec["occupancy"][1]
+          and rec["evictions"][0] == rec["evictions"][1]
+          and sum(rec["evictions"][0]) >= 1
+          and np.allclose(hc.f, hh.f, rtol=1e-4)
+          and np.allclose(hc.g_hat, hh.g_hat, rtol=1e-4)
+          and len(flushes.calls) == T and not any(flush_err))
+    out["evicting store card vs cpu"] = rec
+    report(rec, ok)
+    del sc, sh, flushes
+    torch.cuda.empty_cache()
+
+    out["seconds"] = seconds
+    print(json.dumps({"scale_check_seconds": seconds}), flush=True)
+    return out
+
+
+def rounds_from(rec, k: int):
+    """A host metric record (numpy arrays with a leading round axis,
+    nested, None fields kept) from round ``k`` on."""
+    if rec is None:
+        return None
+    if isinstance(rec, tuple):
+        return type(rec)(*(rounds_from(x, k) for x in rec))
+    return rec[k:]
+
+
+def slot_store_record(state, hist, batches, pair, fed, dev) -> dict:
+    """Phase 13(b)'s fields: the store's resident bytes against the dense
+    residual's, and per round its occupancy, evictions and flushed HT
+    mass (the telemetry); then one more round whose ``scatter_agg``
+    launches over the ``[n]``-row messages (the fresh reduce) and whose
+    ``segment_rows`` launches into ``[n]`` rows are each held against
+    their plain versions, tolerance 0 (:func:`check_recorded`)."""
+    import torch
+    from repro_torch.engine import rounds
+    from repro_torch.scale import slots
+    tel = hist.telemetry
+    rec = {"slot_resident_bytes": slots.resident_bytes(state.e_up),
+           "dense_residual_bytes": fed.n_clients * state.spec.d * 4,
+           "slot_occupancy": tel.slot_occupancy.tolist(),
+           "slot_evictions": tel.slot_evictions.tolist(),
+           "slot_flush_weight": tel.slot_flush_weight.tolist()}
+    print(json.dumps({"slot_store": fed.n_clients, **rec}), flush=True)
+    red, seg = row_kernel_recorders(fed.n_clients)
+    with red, seg:
+        rounds.round_step(state, batches(0, torch.Generator().manual_seed(7)),
+                          pair, fed, device=dev)
+    rec["row_kernels"] = check_recorded(
+        torch, f"13(b) slot store: {fed.n_clients}-row fresh reduce and "
+        f"[{fed.n_clients}] scatters", red, seg)
+    return rec
+
+
+def tiered_record(state, hist, batches, pair, fed, dev) -> dict:
+    """Phase 13(c)'s check, after the counted rounds: one more round's
+    tiered ``v_bar`` against the single-tier reduce of the same messages
+    (rtol ``TIER_RTOL``, atol ``TIER_ATOL``), and ``unpack_mma`` on the
+    second cohort's rows -- a view into the stacked payload with its
+    leading stride -- against its plain version, run by run, tolerance
+    0."""
+    import torch
+    from repro_torch.engine import rounds
+    from repro_torch.kernels import unpack_mma
+    with ReduceRecorder("reduce", tiered=True) as rec_red:
+        rounds.round_step(state, batches(0, torch.Generator().manual_seed(7)),
+                          pair, fed, device=dev)
+    ft, msgs, w, m, got = rec_red.calls[0]
+    single = ft.reduce_single(msgs, w, m)
+    err = float((got - single).abs().max())
+    close = bool(single.allclose(got, rtol=TIER_RTOL, atol=TIER_ATOL))
+    size = w.shape[0] // fed.scale.cohorts
+    sl = slice(size, 2 * size)
+    slice_err = 0.0
+    for r in ft.codec.layout.runs:
+        words = msgs.words[sl, r.woff:r.woff + r.nblocks * r.W].reshape(
+            size, r.nblocks, r.W)
+        scale = msgs.scale[sl, r.boff:r.boff + r.nblocks]
+        args = (words, scale, w[sl], fed.uplink.bits, r.block)
+        a, b = unpack_mma.unpack_mma(*args), unpack_mma.unpack_mma_plain(
+            *args)
+        slice_err = max(slice_err, float((a - b).abs().max()))
+    rec = {"tiered_vs_single_max_abs_err": err,
+           "tiered_vs_single_bit_equal": bool(single.equal(got)),
+           "tiered_vs_single_tolerance": f"rtol {TIER_RTOL} atol "
+                                         f"{TIER_ATOL}",
+           "cohort_slice_unpack_mma_err": slice_err,
+           "cohort_rows": [size, 2 * size], "weights": w.tolist()}
+    print(json.dumps({"tiered_check": fed.scale.cohorts, **rec}),
+          flush=True)
+    if not close or slice_err != 0.0:
+        raise AssertionError(f"two-tier reduce check failed: {rec}")
+    return rec
+
+
+def scale_phase(torch, dev, T: int) -> tuple:
+    """Phase 13: (a) :func:`scale_checks`; (b) the slot store at full
+    width, 32 clients, 4 sampled, 8 slots, pallas top-k 0.1 up and down,
+    ``--sparse-eval``, ``--lean-metrics``, telemetry on; (c) gather 4 of 8
+    with 4 cohorts, pallas 8-bit quant up and down, ``--sparse-eval`` --
+    T rounds each through the launcher's setup.  Returns ``(records, launch records)``."""
+    t0 = time.time()
+    checks = scale_checks(torch, dev)
+    t1 = time.time()
+    part_b = train_phase(
+        torch, f"smollm-360m slot store gather {M_GATHER} of "
+        f"{SCALE_CLIENTS}, {SCALE_SLOTS} slots, topk up and down",
+        ["--clients", str(SCALE_CLIENTS), "--participating", str(M_GATHER),
+         "--participation", "gather", "--comm", "pallas", "--uplink",
+         "topk", "--ef-slots", str(SCALE_SLOTS), "--sparse-eval",
+         "--lean-metrics", "--obs"], T, downlink=True,
+        after=slot_store_record)
+    t2 = time.time()
+    part_c = train_phase(
+        torch, f"smollm-360m two-tier gather {M_GATHER} of {N_GATHER}, "
+        "4 cohorts, quant up and down",
+        ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
+         "--participation", "gather", "--comm", "pallas", "--uplink",
+         "quant", "--cohorts", "4", "--sparse-eval"], T, downlink=True,
+        after=tiered_record)
+    seconds = {"checks_a": t1 - t0, "slots_b": t2 - t1,
+               "tiered_c": time.time() - t2}
+    print(json.dumps({"scale_seconds": seconds}), flush=True)
+    return ({"checks": checks, "slots": part_b, "tiered": part_c,
+             "seconds": seconds},
+            [{"phase": p["phase"], "launches": p["launches"]}
+             for p in (part_b, part_c)])
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -2056,10 +2585,11 @@ def main(argv=None) -> int:
     np_rec = np_phase(torch, dev)
     paper_rec, paper_launches = paper_phase(torch, dev)
     async_rec, async_launches = async_phase(torch, dev)
+    scale_rec, scale_launches = scale_phase(torch, dev, args.rounds)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
-        + async_launches
+        + async_launches + scale_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -2074,6 +2604,7 @@ def main(argv=None) -> int:
                                     "phases": phases, "np": np_rec,
                                     "paper": paper_rec,
                                     "async": async_rec,
+                                    "scale": scale_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

@@ -25,7 +25,10 @@ mask and gather mode, for the uplink and the primal-EF21 downlink).
     :class:`FlatQuant` (bit-packed words, ``unpack_mma``) for quant.  On
     ``comm="packed"`` top-k selects by a stable sort per block (sort-free
     on giant leaves) and quant packs unfused; on ``comm="pallas"`` the
-    ``block_topk`` and fused ``quantize_ef_pack`` kernels encode.
+    ``block_topk`` and fused ``quantize_ef_pack`` kernels encode;
+  - ``cohorts=k`` makes :meth:`FlatTransport.reduce` two-tier: k edge
+    reducers over contiguous cohorts of the stacked rows, their partials
+    summed left to right (``ScaleConfig.cohorts``, the uplink only).
 """
 from __future__ import annotations
 
@@ -442,13 +445,22 @@ class FlatTransport:
 
         >>> up = FlatTransport(get_transport(cfg, "packed"), spec_of(params))
         >>> v_bar, e_new = up.transmit(e, deltas, mask, m, key=key)
+
+    ``cohorts=k > 1`` makes :meth:`reduce` the two-tier aggregation: the
+    stacked rows split into k contiguous cohorts, each reduces on its own
+    (:meth:`reduce_single`, the kernels getting leading-axis views of the
+    payload) and the k partials add left to right.  ``cohorts=1`` is the
+    single-tier reduce itself; select partials re-associate the same
+    weighted sums, quant's are a reordered sum (allclose).
     """
 
-    def __init__(self, t: transports.Transport, spec: FlatSpec):
+    def __init__(self, t: transports.Transport, spec: FlatSpec,
+                 cohorts: int = 1):
         self.cfg = t.cfg
         self.kind = t.kind
         self.backend = t.backend
         self.spec = spec
+        self.cohorts = max(1, int(cohorts))
         self.codec = _make_codec(t, spec)
         if self.codec is None and t.kind == "quant" and t.backend != "ref":
             # quant at a bit width that does not pack, on the packed or
@@ -460,6 +472,10 @@ class FlatTransport:
     @property
     def is_identity(self) -> bool:
         return self.t.is_identity
+
+    @property
+    def needs_residual(self) -> bool:
+        return self.t.needs_residual
 
     @property
     def tracks_center(self) -> bool:
@@ -517,18 +533,32 @@ class FlatTransport:
         if self.codec is not None and self.codec.fused_ef:
             return self.codec.ef(e, deltas)
         buf = e + deltas
+        msgs = self._messages(buf, key, ids)
+        return msgs, buf.sub_(self.decompress(msgs))      # buf is ours
+
+    def _messages(self, buf, key, ids):
+        """The messages of the rows of ``buf``; the random kinds draw row
+        i from stream ``ids[i]`` of ``key``."""
         if self.needs_key:
             if key is None:
                 raise ValueError(f"{self.kind} needs the round's WireKey")
             rows = [self.compress(buf[i], key.generator(j, buf.device))
                     for i, j in enumerate(ids)]
-            msgs = torch.stack(rows) if self.codec is None else \
+            return torch.stack(rows) if self.codec is None else \
                 type(rows[0])(*(torch.stack(f) for f in zip(*rows)))
-        elif self.codec is None:
-            msgs = self._dense(buf)
-        else:
-            msgs = self.codec.pack(buf)
-        return msgs, buf.sub_(self.decompress(msgs))      # buf is ours
+        if self.codec is None:
+            return self._dense(buf)
+        return self.codec.pack(buf)
+
+    def flush_messages(self, rows, key=None):
+        """The messages of residual rows encoded at a zero residual, the
+        reference's ``_ef_clients(zeros_like(rows), rows)`` without its
+        residual: ``rows`` (ours, overwritten) become ``0 + rows`` in place,
+        which turns their -0.0 into +0.0 as that encode does.  The random
+        kinds draw row i from stream i of ``key`` (the slot store's flush
+        stream)."""
+        with stage("comm.ef_encode"):
+            return self._messages(rows.add_(0.0), key, range(rows.shape[0]))
 
     def encode(self, e, deltas, mask, key=None):
         """Per-client EF14 encode over the ``[n, d]`` stacks: ``(msgs,
@@ -559,14 +589,38 @@ class FlatTransport:
         e.index_copy_(0, idx, e_stack)
         return transports.scatter_rows(msgs, idx, n, unique), e
 
-    def reduce(self, msgs, weights, m) -> torch.Tensor:
-        """Weighted aggregation of stacked messages into ``[d]``:
-        ``sum_j weights_j * decode(msgs_j) / m``, in the payload domain on
-        a packed wire."""
+    def reduce_single(self, msgs, weights, m) -> torch.Tensor:
+        """Single-tier weighted aggregation of stacked messages into
+        ``[d]``: ``sum_j weights_j * decode(msgs_j) / m``, in the payload
+        domain on a packed wire (one edge reducer of the two-tier form)."""
         with stage("comm.reduce"):
             if self.wire == "dense":
                 return transports.masked_mean(msgs, weights, m)
             return self.codec.reduce(msgs, weights, m)
+
+    def reduce(self, msgs, weights, m) -> torch.Tensor:
+        """Weighted aggregation of stacked messages into ``[d]``; with
+        ``cohorts=k > 1`` the two-tier form (k edge reductions over
+        contiguous cohorts of rows, partials added left to right).  Rows
+        that do not split into k equal cohorts raise ``ValueError``."""
+        k = self.cohorts
+        if k <= 1:
+            return self.reduce_single(msgs, weights, m)
+        rows = weights.shape[0]
+        if rows % k:
+            raise ValueError(
+                f"two-tier aggregation: {rows} stacked payload rows do not "
+                f"split into {k} equal cohorts -- ScaleConfig.cohorts must "
+                "divide the client-row count")
+        size = rows // k
+        acc = None
+        for c in range(k):
+            sl = slice(c * size, (c + 1) * size)
+            sub = msgs[sl] if isinstance(msgs, torch.Tensor) else \
+                type(msgs)(*(x[sl] for x in msgs))
+            part = self.reduce_single(sub, weights[sl], m)
+            acc = part if acc is None else acc + part
+        return acc
 
     def transmit(self, e, deltas, mask, m, key=None):
         if self.is_identity:
@@ -591,8 +645,11 @@ class FlatTransport:
 
 
 def flat_transports_for(cfg, spec: FlatSpec):
-    """(uplink, downlink) :class:`FlatTransport` pair for a FedConfig."""
+    """(uplink, downlink) :class:`FlatTransport` pair for a FedConfig;
+    ``cfg.scale.cohorts`` sets the uplink's two-tier aggregation (the
+    downlink is one broadcast and never tiers)."""
     backend = transports.backend_for(cfg.comm)
-    return (FlatTransport(transports.get_transport(cfg.uplink, backend), spec),
+    return (FlatTransport(transports.get_transport(cfg.uplink, backend), spec,
+                          cohorts=cfg.scale.cohorts),
             FlatTransport(transports.get_transport(cfg.downlink, backend),
                           spec))

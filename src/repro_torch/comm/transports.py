@@ -137,17 +137,19 @@ class WireKey(NamedTuple):
     reference's ``k_up`` / ``k_down``).  Client j's stream is a
     ``torch.Generator`` on the round's device seeded from (seed, round,
     direction, j), so a client draws the same numbers in mask and gather
-    mode; the downlink's one message draws as client 0."""
+    mode; the downlink's one message draws as client 0.  The slot store's
+    eviction flush draws from a third direction, ``FLUSH``, row i as
+    client i (the reference's ``fold_in(key, FLUSH_TAG)`` stream)."""
     seed: int
     round: int
-    direction: int              # UPLINK or DOWNLINK
+    direction: int              # UPLINK, DOWNLINK or FLUSH
 
     def generator(self, client: int, device) -> torch.Generator:
         return torch.Generator(device=device).manual_seed(
             _mix64(self.seed, self.round, self.direction, client))
 
 
-UPLINK, DOWNLINK = 0, 1
+UPLINK, DOWNLINK, FLUSH = 0, 1, 2
 
 
 class Transport:

@@ -6,7 +6,8 @@ import importlib
 
 from repro_torch.configs.base import (CompressorConfig,  # noqa: F401
                                       FedConfig, FleetConfig, ModelConfig,
-                                      SwitchConfig, reduce_model)
+                                      ScaleConfig, SwitchConfig,
+                                      reduce_model)
 
 ALIASES = {"smollm-360m": "smollm_360m"}
 

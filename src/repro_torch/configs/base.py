@@ -1,5 +1,6 @@
 """Configuration dataclasses (port of ``repro.configs.base``, the part the
-dense LM trainer on every wire, the async engine and obs need).
+dense LM trainer on every wire, the async engine, obs and the population
+scale-out need).
 
 Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
 full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
@@ -108,6 +109,22 @@ class ObsConfig:
 
 
 @dataclass(frozen=True)
+class ScaleConfig:
+    """Population scale-out (``repro_torch.scale``).  The defaults are the
+    parity point: the dense ``[n, d]`` uplink residual and single-tier
+    aggregation."""
+    ef_slots: int = 0               # >0: capacity of the [cap, d] uplink EF
+                                    # slot store (scale.slots) replacing the
+                                    # dense residual; needs gather mode and
+                                    # cap >= m; cap >= n_clients is the dense
+                                    # residual bit for bit (no eviction)
+    cohorts: int = 1                # >1: two-tier aggregation, k edge
+                                    # reducers over contiguous cohorts of the
+                                    # stacked rows, partials summed left to
+                                    # right; must divide the rows (n)
+
+
+@dataclass(frozen=True)
 class FleetConfig:
     """The client-population axis (``repro_torch.fleet``).  The defaults
     are the parity point: IID partition, uniform sampler, full-shard
@@ -147,6 +164,9 @@ class FedConfig:
     strategy: str = "fedsgm"        # engine.strategies registry key
     participation: str = "mask"     # mask (dense simulation) | gather
                                     # (compute-sparse: local steps over m)
+    client_chunk: int = 0           # the reference's chunked client vmap;
+                                    # the port runs clients one after another
+                                    # (per-client results do not depend on it)
     full_eval: bool = True          # eval forward over all n clients; False:
                                     # the m sampled only, fused with the
                                     # first local step (engine.rounds)
@@ -154,6 +174,7 @@ class FedConfig:
     rho: float = 1.0                # penalty-fedavg strength
     fleet: FleetConfig = field(default_factory=FleetConfig)
     async_: AsyncConfig = field(default_factory=AsyncConfig)
+    scale: ScaleConfig = field(default_factory=ScaleConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
 
     def replace(self, **kw) -> "FedConfig":

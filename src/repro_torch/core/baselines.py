@@ -34,18 +34,17 @@ def penalty_config(rho: float, eps: float, lr: float, local_steps: int,
                    n_clients: int, m: int, proj_radius: float = 0.0,
                    participation: str = "mask",
                    client_chunk: int = 0) -> FedConfig:
-    """The engine config equivalent of the penalty-FedAvg arguments.
-    ``client_chunk`` (chunked client batches) is not ported yet: a nonzero
-    value raises."""
-    if client_chunk:
-        raise NotImplementedError("client_chunk is not ported yet")
+    """The engine config equivalent of the penalty-FedAvg arguments
+    (``client_chunk`` passes through; the port's clients run one after
+    another whatever its value)."""
     return FedConfig(
         n_clients=n_clients, m=m, local_steps=local_steps, lr=lr,
         switch=SwitchConfig(mode="hard", eps=eps),
         uplink=CompressorConfig(kind="none"),
         downlink=CompressorConfig(kind="none"),
         proj_radius=proj_radius, track_wbar=False,
-        strategy="penalty-fedavg", rho=rho, participation=participation)
+        strategy="penalty-fedavg", rho=rho, participation=participation,
+        client_chunk=client_chunk)
 
 
 def penalty_round(state: PenaltyState, batches, loss_pair: Callable,

@@ -36,9 +36,9 @@ def proximal_point(loss_pair: Callable, batches, w, *, rho_hat: float = 2.0,
     of the surrogate objective or of the constraint, whichever the switch
     ``g > eps`` chooses (the reference computes both and selects; the
     chosen one is the same number).  Returns the parameter tree of w_hat.
-    ``client_chunk`` is not ported yet: a nonzero value raises."""
-    if client_chunk:
-        raise NotImplementedError("client_chunk is not ported yet")
+    ``client_chunk`` is the reference's chunked client vmap: the clients run
+    one after another here whatever its value, and the result does not
+    depend on it."""
     spec = flat.spec_of(w)
     w0 = flat.flatten(spec, w).detach()
     n = n_rows(batches)

@@ -33,9 +33,16 @@ rounds overwrite in place.
 
 ``AsyncConfig.enabled=False`` is the parity point: :func:`async_round_step`
 *is* ``rounds.round_step`` and :func:`init_buffer` returns None, so the
-async drive loops give the synchronous trajectories bit for bit.  The
-checkpoint sidecar (``buffer_wire`` / ``buffer_from_wire``) is not ported:
-it comes with ``checkpoint.py``.
+async drive loops give the synchronous trajectories bit for bit.
+
+With a slot-store residual (``ScaleConfig.ef_slots``) the encode runs
+through ``scale.slots.encode``: the eviction flush's partial joins the
+fresh aggregate and the store's counters feed the telemetry.
+
+The checkpoint sidecar is the buffer itself (:func:`buffer_wire` /
+:func:`buffer_from_wire`): ``msgs`` already holds each parked uplink's wire
+representation, so ``checkpoint.save_buffer`` writes exactly what crossed
+the wire.
 """
 from __future__ import annotations
 
@@ -192,6 +199,51 @@ def init_buffer(state: FedState, cfg) -> Optional[StaleBuffer]:
                        occupied=zeros(torch.float32))
 
 
+# ---------------------------------------------------------------------------
+# Buffer checkpoint sidecar: the parked payloads in wire form
+# ---------------------------------------------------------------------------
+
+def buffer_wire(buf: Optional[StaleBuffer], state: FedState,
+                cfg) -> Optional[StaleBuffer]:
+    """The buffer in its checkpoint sidecar form: the buffer itself, since
+    ``msgs`` already holds each parked uplink's wire representation (uint32
+    words and scales, values and uint16 offsets, or dense rows), so save ->
+    restore -> continue is bit-exact by construction.  ``state`` stands in
+    for the reference's ``params`` (the port's buffers are built from the
+    state)."""
+    return buf
+
+
+def buffer_from_wire(wire: Optional[StaleBuffer], state: FedState, cfg,
+                     sig: Optional[str] = None) -> Optional[StaleBuffer]:
+    """A :func:`buffer_wire` sidecar back as the engine's buffer (the same
+    object).  ``sig``, the payload signature of the reference's wire frames,
+    is checked against this process's transport there; the port has no
+    ``wire.frames`` yet, so a signature raises ``NotImplementedError``."""
+    if sig is not None:
+        raise NotImplementedError(
+            "buffer_from_wire(sig=...) is not ported yet: the payload "
+            "signature check needs wire.frames.row_signature")
+    return wire
+
+
+def buffer_wire_struct(state: FedState, cfg) -> Optional[StaleBuffer]:
+    """The sidecar's structure for ``checkpoint.restore_buffer``: a
+    :class:`StaleBuffer` of ``meta`` tensors with the buffer's shapes and
+    dtypes (nothing is allocated; ``restore_buffer`` puts the restored
+    leaves on the device it is given).  None when the buffer is disabled."""
+    if not cfg.async_.enabled:
+        return None
+    n = cfg.n_clients
+
+    def meta(dtype):
+        return torch.empty((n,), dtype=dtype, device="meta")
+    return StaleBuffer(msgs=wire_msg_struct(state.spec, cfg),
+                       origin=meta(torch.int32), sigma=meta(torch.float32),
+                       weight=meta(torch.float32),
+                       occupied=meta(torch.float32))
+
+
 def _nominal_metrics(mets: RoundMetrics, cfg) -> AsyncMetrics:
     dev = mets.f.device
     m = torch.full((), float(cfg.m), dtype=torch.float32, device=dev)
@@ -248,14 +300,18 @@ def async_round_step(state: FedState, buf: Optional[StaleBuffer], batches,
     #    the fresh fraction aggregates at the barrier ----------------------
     uplink, downlink = flat.flat_transports_for(cfg, spec)
     with stage("round.encode"):
-        msgs, e_up, _, _ = participation.encode_flush(
-            uplink, state.e_up, deltas, part,
+        msgs, e_up, v_flush, slot_stats = participation.encode_flush(
+            uplink, state.e_up, deltas, part, t=t,
             key=transports.WireKey(cfg.seed, t, transports.UPLINK))
     fresh = part.mask * (1.0 - depart)
     part_fresh = participation.compose_weights(part, 1.0 - depart)
     w_fresh = participation.agg_weights(part_fresh)
     with stage("round.reduce"):
         v_bar = uplink.reduce(msgs, w_fresh, m)
+    if v_flush is not None:
+        # the slot store's eviction flush (cap < n) joins the fresh
+        # aggregate; absent at cap >= n, the dense async path bit for bit
+        v_bar = v_bar + v_flush
 
     # -- staleness buffer: deliver, expire, park --------------------------
     age = (t - buf.origin).to(torch.float32)
@@ -286,7 +342,8 @@ def async_round_step(state: FedState, buf: Optional[StaleBuffer], batches,
     #    buffer-merged direction; delta_norm reads the fresh participation
     new_state, round_metrics = rounds.finish_round(
         state, strat, cfg, spec, wf, part_fresh, deltas, v_bar, e_up,
-        uplink, downlink, samp_state, f_part, g_hat, g_full, f_full, sigma)
+        uplink, downlink, samp_state, f_part, g_hat, g_full, f_full, sigma,
+        slot_stats=slot_stats)
 
     new_age = t - buf_new.origin
     if cfg.obs.enabled:

@@ -131,22 +131,37 @@ def encode(transport, e, deltas, part: Participation, key=None):
                                      unique=not part.short, key=key)
 
 
-def encode_flush(transport, e, deltas, part: Participation, key=None):
-    """:func:`encode` plus the slot store's flush aggregate and counters,
-    both None: the port's residual is always the dense ``[n, d]`` stack
-    (the slot store is not ported).  Returns ``(msgs, e_new, None,
-    None)``."""
+def encode_flush(transport, e, deltas, part: Participation, *, t,
+                 key=None):
+    """:func:`encode` with the slot store: when ``e`` is a
+    :class:`repro_torch.scale.slots.SlotStore` the encode runs through
+    ``slots.encode`` (pool lookup, LRU allocation, eviction flush).
+    Returns ``(msgs, e_new, v_flush, slot_stats)``: the flush partial to add
+    to the round's fresh reduce (None for a dense residual and for a store
+    with ``cap >= n``) and the store's
+    :class:`repro_torch.scale.slots.SlotStats` (None for a dense residual).
+    ``t`` is the round (the store's LRU stamp)."""
+    from repro_torch.scale import slots
+    if isinstance(e, slots.SlotStore):
+        return slots.encode(transport, e, deltas, part, t, key=key)
     msgs, e_out = encode(transport, e, deltas, part, key=key)
     return msgs, e_out, None, None
 
 
-def transmit(transport, e, deltas, part: Participation, key=None):
+def transmit(transport, e, deltas, part: Participation, key=None, *, t):
     """The engine's single uplink call site: EF14 + aggregation, dispatched
-    to the transport's dense-mask or gathered execution; ``key`` is the
-    round's uplink :class:`repro_torch.comm.transports.WireKey`.  Returns
-    ``(v_bar, e_new)``."""
+    to the transport's dense-mask or gathered execution, or to the slot
+    store's (``slots.transmit``, ``t`` its LRU stamp) when ``e`` is a
+    :class:`repro_torch.scale.slots.SlotStore`; ``key`` is the round's
+    uplink :class:`repro_torch.comm.transports.WireKey`.  Returns ``(v_bar,
+    e_new, slot_stats)``, the last None for a dense residual."""
+    from repro_torch.scale import slots
+    if isinstance(e, slots.SlotStore):
+        return slots.transmit(transport, e, deltas, part, t, key=key)
     w = agg_weights(part)
     if part.idx is None:
-        return transport.transmit(e, deltas, w, part.m, key=key)
-    return transport.transmit_gathered(e, deltas, part.idx, w, part.m,
-                                       unique=not part.short, key=key)
+        v_bar, e_new = transport.transmit(e, deltas, w, part.m, key=key)
+    else:
+        v_bar, e_new = transport.transmit_gathered(
+            e, deltas, part.idx, w, part.m, unique=not part.short, key=key)
+    return v_bar, e_new, None

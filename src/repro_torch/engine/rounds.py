@@ -48,6 +48,15 @@ default).  The stages run inside ``repro_torch.obs.trace.stage`` spans
 ``round.encode_reduce``, ``round.server_update``, ``round.downlink``,
 ``round.telemetry``); with ``cfg.obs.enabled`` each round's metrics carry a
 :class:`repro_torch.obs.Telemetry` record.
+
+With ``cfg.scale.ef_slots`` the uplink residual is a
+:class:`repro_torch.scale.slots.SlotStore` (a ``[cap, d]`` pool, gather mode
+only) instead of the dense ``[n, d]`` stack; ``cfg.scale.cohorts`` makes the
+uplink's reduce two-tier (``comm.flat``).  ``cfg.client_chunk`` is the
+reference's chunked client vmap, a bound on its activation memory: the port
+runs the clients one after another whatever its value, and per-client
+results do not depend on it (the reference's own law), so every chunk gives
+the same trajectory.
 """
 from __future__ import annotations
 
@@ -66,13 +75,15 @@ from repro_torch.fleet.partitions import leaves_of, rebuild
 from repro_torch.obs import bus as obs_bus
 from repro_torch.obs.trace import stage
 from repro_torch.optim.sgd import axpy
+from repro_torch.scale import slots as slot_store
 
 
 class FedState(NamedTuple):
     w: torch.Tensor               # broadcast model w_t, flat [d]
     x: Optional[torch.Tensor]     # server center x_t, flat [d] (None unless
                                   # the downlink compresses: then x == w)
-    e_up: Optional[torch.Tensor]  # uplink EF residuals [n_clients, d]
+    e_up: object                  # uplink EF residuals: [n_clients, d],
+                                  # a scale.slots.SlotStore, or None
     wbar_sum: Optional[torch.Tensor]  # weighted sum of w_t, flat [d]
     wbar_weight: torch.Tensor
     t: int
@@ -98,7 +109,8 @@ class RoundMetrics(NamedTuple):
 
 def check_ported(cfg) -> None:
     """Raise for the parts of a FedConfig the port does not run yet (and
-    for a config the strategy rejects)."""
+    for a config the strategy rejects).  Every ``client_chunk`` runs: the
+    clients go one after another (see the module docstring)."""
     if cfg.participation not in participation.MODES:
         raise NotImplementedError(
             f"participation mode {cfg.participation!r} is not ported yet")
@@ -115,14 +127,24 @@ def transports_for(cfg):
 
 def init_state(params, cfg, device="cuda") -> FedState:
     """Round-0 state: the flattened ``params`` on ``device`` (``cuda``
-    unless the caller asks for the CPU) and the zero uplink residual."""
+    unless the caller asks for the CPU) and the zero uplink residual --
+    the dense ``[n, d]`` stack, or with ``cfg.scale.ef_slots`` an empty
+    :class:`repro_torch.scale.slots.SlotStore` of that capacity (after
+    ``slots.validate``)."""
     dev = resolve_device(device)
     check_ported(cfg)
     spec = flat.spec_of(params)
     w = flat.flatten(spec, params).to(dev).contiguous()
     uplink, downlink = transports_for(cfg)
-    e_up = (torch.zeros((cfg.n_clients, spec.d), dtype=spec.dtype,
-                        device=dev) if uplink.needs_residual else None)
+    e_up = None
+    if uplink.needs_residual:
+        if cfg.scale.ef_slots:
+            slot_store.validate(cfg)
+            e_up = slot_store.init(cfg.n_clients, cfg.scale.ef_slots,
+                                   spec.d, spec.dtype, dev)
+        else:
+            e_up = torch.zeros((cfg.n_clients, spec.d), dtype=spec.dtype,
+                               device=dev)
     return FedState(
         # x starts as w itself: no round updates either buffer in place
         w=w, x=w if downlink.tracks_center else None, e_up=e_up,
@@ -289,11 +311,14 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
 
 def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
                  e_up, uplink, downlink, samp_state, f_part, g_hat, g_full,
-                 f_full, sigma) -> tuple[FedState, RoundMetrics]:
+                 f_full, sigma, slot_stats=None
+                 ) -> tuple[FedState, RoundMetrics]:
     """Stages 6-7 + bookkeeping, shared with the asynchronous round: server
     update of the center on the aggregated direction, primal-EF21 downlink
     broadcast, averaged-iterate accounting, metrics (with the telemetry
-    record when ``cfg.obs.enabled``)."""
+    record when ``cfg.obs.enabled``; ``slot_stats`` is the slot store's
+    :class:`repro_torch.scale.slots.SlotStats` from the uplink call site,
+    None for a dense residual)."""
     with stage("round.server_update"):
         xf = state.x if state.x is not None else wf
         x_new = strat.server_update(xf, v_bar, cfg, spec)
@@ -312,7 +337,7 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
         with stage("round.telemetry"):
             telemetry = obs_bus.round_telemetry(
                 cfg, deltas, e_up, x_new, wf, w_new, g_hat, sigma, uplink,
-                downlink)
+                downlink, slot_stats)
     metrics = RoundMetrics(
         f=f_part, g_hat=g_hat, g_full=g_full, sigma=sigma,
         feasible=(g_hat <= cfg.switch.eps).to(torch.float32),
@@ -336,8 +361,9 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
     shards.
 
     The uplink residual ``state.e_up`` is updated in place (the ``[n, d]``
-    buffer is the largest state of a round); the returned state holds it.
-    In gather mode the local steps run over the m participants only."""
+    buffer, or the slot store's pool, is the largest state of a round); the
+    returned state holds it.  In gather mode the local steps run over the m
+    participants only."""
     dev = resolve_device(device)
     if state.w.device != dev:
         raise ValueError(f"round_step on {dev}: the state lives on "
@@ -352,12 +378,13 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
         state, wf, spec, batches, part, strat, loss_pair, cfg, fleet)
     uplink, downlink = flat_transports_for(cfg, spec)
     with stage("round.encode_reduce"):
-        v_bar, e_up = participation.transmit(
+        v_bar, e_up, slot_stats = participation.transmit(
             uplink, state.e_up, deltas, part,
-            key=transports.WireKey(cfg.seed, state.t, transports.UPLINK))
+            key=transports.WireKey(cfg.seed, state.t, transports.UPLINK),
+            t=state.t)
     return finish_round(state, strat, cfg, spec, wf, part, deltas, v_bar,
                         e_up, uplink, downlink, samp_state, f_part, g_hat,
-                        g_full, f_full, sigma)
+                        g_full, f_full, sigma, slot_stats=slot_stats)
 
 
 def run_rounds(state: FedState, batch_fn: Callable, loss_pair: Callable,

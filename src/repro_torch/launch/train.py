@@ -1,6 +1,5 @@
 """Training launcher: FedSGM rounds of the LM task on one device (port of
-``repro.launch.train``, the path without the wire runtime, the slot store
-or checkpoints).
+``repro.launch.train``, the path without the wire runtime).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --uplink topk --rounds 20                 # the dense wire (default)
@@ -18,6 +17,17 @@ or checkpoints).
     PYTHONPATH=src python -m repro_torch.launch.train --fleet \\
         --async-buffer --sampler markov --staleness constraint --obs \\
         --sink jsonl --sink-path metrics.jsonl --profile 10:20 --rounds 30
+    # 32 clients, 4 a round, their residuals in an 8-slot store, the eval
+    # on the 4 and no delta_norm (its [32, d] scatter would not fit on an
+    # 80 GB card); round checkpoints under ckpt/ (a rerun resumes from the
+    # newest)
+    PYTHONPATH=src python -m repro_torch.launch.train --clients 32 \
+        --participating 4 --participation gather --comm pallas --ef-slots 8 \
+        --sparse-eval --lean-metrics --ckpt-dir ckpt --rounds 10
+    # two-tier aggregation over 2 cohorts of 4 clients
+    PYTHONPATH=src python -m repro_torch.launch.train --clients 8 \
+        --participating 4 --participation gather --comm pallas \
+        --uplink quant --cohorts 2
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
@@ -28,7 +38,19 @@ sequences and the rounds provision ``--batch`` of them per client, drawn
 afresh every round (``lm.make_fleet``).  ``--async-buffer`` runs the rounds
 through ``engine.async_rounds`` (the buffer carried across chunks); every
 round is reported through the ``--sink`` (``repro_torch.obs.sinks``), with
-the ``buffered=... merged=...`` counters on async rounds.  Like the
+the ``buffered=... merged=...`` counters on async rounds.  ``--ef-slots``
+keeps the uplink residuals in a slot store of that capacity
+(``repro_torch.scale.slots``; gather mode), ``--cohorts`` makes the uplink's
+reduce two-tier, ``--client-chunk`` is accepted for the reference's
+command lines (the clients run one after another whatever its value).
+``--sparse-eval`` and ``--lean-metrics`` (``FedConfig.full_eval=False``,
+``lean_metrics=True``) keep a round's memory in m rather than n: at full
+width the ``delta_norm`` metric's ``[n, d]`` gather-mode scatter is 46 GB
+at n = 32.
+With ``--ckpt-dir`` the run restores the newest round checkpoint there at
+start and saves one after every chunk of 10 rounds (``repro_torch.
+checkpoint``), with the fleet sidecar under ``--fleet`` and the staleness
+buffer's under ``--async-buffer``.  Like the
 reference's launcher it keeps the identity downlink; the compressed
 downlink is reached through the engine API (``rounds.init_state`` /
 ``run_rounds`` with a ``FedConfig``).  Flags of the reference that the port
@@ -41,10 +63,10 @@ import time
 
 import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import checkpoint, configs, resolve_device
 from repro_torch.configs.base import (AsyncConfig, CompressorConfig,
                                       FedConfig, FleetConfig, ObsConfig,
-                                      SwitchConfig)
+                                      ScaleConfig, SwitchConfig)
 from repro_torch.data import synthetic
 from repro_torch.engine import async_rounds, rounds
 from repro_torch.models import build
@@ -53,7 +75,7 @@ from repro_torch.obs import sinks as obs_sinks
 from repro_torch.obs import trace as obs_trace
 from repro_torch.tasks import lm
 
-_NOT_PORTED = (("wire", "--wire"), ("ef_slots", "--ef-slots"))
+_NOT_PORTED = (("wire", "--wire"),)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -78,6 +100,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--strategy", default="fedsgm")
     ap.add_argument("--participation", default="mask",
                     choices=["mask", "gather"])
+    ap.add_argument("--client-chunk", type=int, default=0,
+                    help="the reference's chunked client vmap; the clients "
+                         "run one after another here, so every value gives "
+                         "the same rounds")
     ap.add_argument("--fleet", action="store_true",
                     help="client fleet: per-client sequence pools, --batch "
                          "of them provisioned per client and round")
@@ -102,6 +128,28 @@ def parser() -> argparse.ArgumentParser:
                     help="mid-round departure probability for samplers "
                          "without an availability model (markov uses its "
                          "own chain)")
+    ap.add_argument("--ef-slots", type=int, default=0,
+                    help="capacity of the [cap, d] uplink EF slot store "
+                         "(repro_torch.scale.slots) in place of the dense "
+                         "[n, d] residual; needs --participation gather "
+                         "and cap >= m.  0 keeps the dense residual")
+    ap.add_argument("--cohorts", type=int, default=1,
+                    help="two-tier payload aggregation: this many edge "
+                         "reducers each reduce their cohort's payloads, "
+                         "the server sums the partials")
+    ap.add_argument("--lean-metrics", action="store_true",
+                    help="leave the round's delta_norm metric out (0): in "
+                         "gather mode its aggregate scatters the m deltas "
+                         "into an [n, d] stack, 4*n*d bytes, which bounds "
+                         "n at full width before the residual does")
+    ap.add_argument("--sparse-eval", action="store_true",
+                    help="evaluate f and g on the m sampled clients' rows, "
+                         "fused with their first local step "
+                         "(FedConfig.full_eval=False); by default every "
+                         "client runs an eval forward")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the newest round checkpoint here at "
+                         "start, save one after every 10 rounds")
     ap.add_argument("--obs", action="store_true",
                     help="telemetry bus (repro_torch.obs): per-round "
                          "optimizer-health counters ride the metrics; off "
@@ -127,7 +175,6 @@ def parser() -> argparse.ArgumentParser:
                          "profiles/)")
     # reference flags whose paths are not ported yet: they raise
     ap.add_argument("--wire", type=int, default=0)
-    ap.add_argument("--ef-slots", type=int, default=0)
     return ap
 
 
@@ -152,6 +199,8 @@ def setup(args):
         uplink=CompressorConfig(kind=args.uplink, ratio=args.ratio),
         downlink=CompressorConfig(kind="none"), comm=args.comm,
         strategy=args.strategy, participation=args.participation,
+        full_eval=not args.sparse_eval, lean_metrics=args.lean_metrics,
+        client_chunk=args.client_chunk,
         fleet=FleetConfig(sampler=args.sampler, batch_size=args.batch,
                           redraw=True) if args.fleet else FleetConfig(
                               sampler=args.sampler),
@@ -159,6 +208,7 @@ def setup(args):
                            staleness=args.staleness,
                            max_staleness=args.max_staleness,
                            depart=args.depart),
+        scale=ScaleConfig(ef_slots=args.ef_slots, cohorts=args.cohorts),
         obs=ObsConfig(enabled=args.obs, window=args.obs_window))
     loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
     state = rounds.init_state(params, fed, device=dev)
@@ -177,18 +227,41 @@ def setup(args):
     return state, batch_fn, loss_pair, fed, cfg, dev
 
 
+def restore(args, state, fed, dev):
+    """``--ckpt-dir``: the newest round checkpoint there (and its staleness
+    buffer under ``--async-buffer``), else the fresh state.  Returns
+    ``(state, buffer, round)``."""
+    buf = async_rounds.init_buffer(state, fed)
+    if not args.ckpt_dir:
+        return state, buf, 0
+    restored, t0 = checkpoint.restore_round(args.ckpt_dir, state)
+    if restored is None:
+        return state, buf, 0
+    obs_log.log(f"restored checkpoint at round {t0}")
+    wire = checkpoint.restore_buffer(
+        args.ckpt_dir, t0, async_rounds.buffer_wire_struct(restored, fed),
+        device=dev)
+    if wire is not None:
+        buf = async_rounds.buffer_from_wire(wire, restored, fed)
+        obs_log.log(f"restored staleness buffer at round {t0}")
+    return restored, buf, t0
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     obs_log.set_level("warning" if args.quiet else args.log_level)
     profile = obs_trace.ProfileWindow(args.profile)
     state, batches, loss_pair, fed, cfg, dev = setup(args)
+    state, buf, start = restore(args, state, fed, dev)
     pool = f", fleet pool {args.fleet_pool}" if args.fleet else ""
     mode = (f", async buffer ({fed.async_.staleness} law, max staleness "
             f"{fed.async_.max_staleness})" if args.async_buffer else "")
+    slots = (f", {fed.scale.ef_slots} residual slots"
+             if fed.scale.ef_slots else "")
     obs_log.log(f"{cfg.name}: d={state.spec.d} params on {dev}, "
                 f"{fed.m} of {fed.n_clients} clients ({fed.participation}, "
                 f"{fed.fleet.sampler} sampler{pool}), "
-                f"uplink {fed.uplink.kind} on comm={fed.comm}{mode}",
+                f"uplink {fed.uplink.kind} on comm={fed.comm}{mode}{slots}",
                 flush=True)
     sink = obs_sinks.get_sink(
         args.sink, **({"path": args.sink_path} if args.sink == "jsonl"
@@ -197,11 +270,10 @@ def main(argv=None):
                     "comm": args.comm, "strategy": args.strategy,
                     "participation": args.participation,
                     "async_buffer": args.async_buffer, "obs": args.obs,
-                    "device": str(dev)})
+                    "device": str(dev), "start_round": start})
     batch_fn = (lambda t, g: batches) if args.fleet else batches
-    buf = async_rounds.init_buffer(state, fed)
     t0 = time.time()
-    done = 0
+    done = start
     try:
         for _ in range(max(args.rounds // 10, 1)):
             profile.tick(done)
@@ -215,9 +287,18 @@ def main(argv=None):
             done += 10
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            for rec in obs_sinks.rows(hist, start_round=done - 10,
-                                      s_per_round=(time.time() - t0) / done):
+            for rec in obs_sinks.rows(
+                    hist, start_round=done - 10,
+                    s_per_round=(time.time() - t0) / (done - start)):
                 sink.emit(rec)
+            if args.ckpt_dir:
+                checkpoint.save_round(
+                    args.ckpt_dir, done, state,
+                    metadata={"arch": cfg.name},
+                    fleet=batches if args.fleet else None, cfg=fed)
+                checkpoint.save_buffer(
+                    args.ckpt_dir, done,
+                    async_rounds.buffer_wire(buf, state, fed))
         profile.close()
     finally:
         sink.close()

@@ -4,10 +4,10 @@
 the round from buffers the round already holds and moved to the host with
 the other round metrics (once per metric segment): the EF residual norms
 and residual-to-delta ratios per direction, the constraint margin, the
-trailing switching fraction, the wire bytes, and the staleness buffer's
-occupancy, parked HT mass and age histogram.  Each counter is a 0-d
-float32 tensor on the round's device (the histogram ``[max_staleness +
-1]``); the slot-store fields stay 0 (the slot store is not ported).
+trailing switching fraction, the wire bytes, the slot store's occupancy,
+evictions and flushed HT mass, and the staleness buffer's occupancy,
+parked HT mass and age histogram.  Each counter is a 0-d float32 tensor on
+the round's device (the histogram ``[max_staleness + 1]``).
 
 With ``ObsConfig.enabled=False`` the ``RoundMetrics.telemetry`` field is
 None and the round computes nothing here.  Enabled, telemetry is
@@ -43,9 +43,9 @@ class Telemetry(NamedTuple):
                                   # reports this round's sigma)
     wire_up_bytes: torch.Tensor   # uplink wire bytes of the whole round
     wire_down_bytes: torch.Tensor  # downlink broadcast bytes
-    slot_occupancy: torch.Tensor  # slot store (not ported): 0
-    slot_evictions: torch.Tensor  # slot store (not ported): 0
-    slot_flush_weight: torch.Tensor  # slot store (not ported): 0
+    slot_occupancy: torch.Tensor  # slot-store owned slots (0 dense)
+    slot_evictions: torch.Tensor  # slots reallocated this round (0 dense)
+    slot_flush_weight: torch.Tensor  # HT mass flushed by evictions (0 dense)
     buf_occupancy: torch.Tensor   # StaleBuffer occupied slots (0 sync)
     buf_parked_weight: torch.Tensor  # HT mass parked in the buffer (0 sync)
     buf_stale_hist: torch.Tensor  # [max_staleness + 1] occupied by age
@@ -55,7 +55,7 @@ def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
-def empty_telemetry(cfg, device="cpu") -> Telemetry:
+def empty_telemetry(cfg, device) -> Telemetry:
     """An all-zero record with ``cfg``'s shapes on ``device``."""
     z = _zero(device)
     return Telemetry(*([z] * 13), buf_stale_hist=torch.zeros(
@@ -68,18 +68,27 @@ def _fro(x: torch.Tensor) -> torch.Tensor:
 
 
 def residual_norm(e_up) -> torch.Tensor:
-    """Frobenius norm of the uplink EF residual (the dense ``[n, d]``
-    stack), or 0 when there is none (an uncompressed uplink)."""
+    """Frobenius norm of the uplink EF residual: the dense ``[n, d]``
+    stack, or a :class:`repro_torch.scale.slots.SlotStore`'s owned pool
+    rows only (per-row norms combined, no ``[cap, d]`` temporary), or 0
+    when there is none (an uncompressed uplink; on the CPU)."""
     if e_up is None:
         return torch.zeros((), dtype=torch.float32)
+    from repro_torch.scale import slots
+    if isinstance(e_up, slots.SlotStore):
+        rows = torch.linalg.vector_norm(e_up.pool.to(torch.float32), dim=1)
+        return torch.sqrt(torch.sum(torch.where(e_up.owner >= 0,
+                                                rows * rows, 0.0)))
     return _fro(e_up)
 
 
 def round_telemetry(cfg, deltas, e_up, x_new, wf, w_new_f, g_hat, sigma,
-                    uplink, downlink) -> Telemetry:
+                    uplink, downlink, slot_stats=None) -> Telemetry:
     """One round's :class:`Telemetry` from the tail of
     ``rounds.finish_round`` (every input is already there; the counters
-    are reductions, so the state is untouched)."""
+    are reductions, so the state is untouched).  ``slot_stats`` is the
+    round's :class:`repro_torch.scale.slots.SlotStats`, None for a dense
+    residual."""
     dev = wf.device
 
     def const(v):
@@ -87,10 +96,14 @@ def round_telemetry(cfg, deltas, e_up, x_new, wf, w_new_f, g_hat, sigma,
         # for the stream
         return torch.full((), v, dtype=torch.float32, device=dev)
     delta_n = _fro(deltas)
-    res_n = _fro(e_up) if e_up is not None else const(0.0)
+    res_n = residual_norm(e_up) if e_up is not None else const(0.0)
     step_n = _fro(x_new - wf)
     err_n = _fro(x_new - w_new_f)
     tel = empty_telemetry(cfg, dev)
+    if slot_stats is not None:
+        tel = tel._replace(slot_occupancy=slot_stats.occupancy,
+                           slot_evictions=slot_stats.evictions,
+                           slot_flush_weight=slot_stats.flush_weight)
     return tel._replace(
         up_res_norm=res_n,
         up_ratio=res_n / torch.maximum(delta_n, const(_TINY)),
@@ -117,7 +130,7 @@ def staleness_hist(occupied: torch.Tensor, age: torch.Tensor,
 # The trailing switching-fraction window (drive-loop ring)
 # ---------------------------------------------------------------------------
 
-def ring_init(cfg, device="cpu"):
+def ring_init(cfg, device):
     """The sigma ring riding the drive-loop carry when telemetry is on: a
     ``[window]`` float32 buffer on ``device`` and the rounds seen."""
     w = max(1, int(cfg.obs.window))

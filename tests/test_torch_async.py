@@ -285,7 +285,7 @@ def test_buffer_structure_matches_reference_and_encode(comm, kind):
         deltas = t(rng.standard_normal((rows, spec.d)).astype(np.float32))
         e = torch.zeros((N, spec.d)) if up.t.needs_residual else None
         msgs, _, flush, stats = participation.encode_flush(
-            up, e, deltas, part, key=WireKey(0, 0, UPLINK))
+            up, e, deltas, part, t=0, key=WireKey(0, 0, UPLINK))
         assert flush is None and stats is None
         for g, b in zip(_leaves(msgs), _leaves(got)):
             assert g.shape == b.shape and g.dtype == b.dtype

@@ -846,3 +846,119 @@ def test_async_obs_launcher_on_card(dev, tmp_path, monkeypatch):
     assert {"round.encode", "round.reduce", "kernel.block_topk",
             "kernel.scatter_agg"} <= names
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+def _same_bits(a, b):
+    assert torch.equal(_bits(a).cpu(), _bits(b).cpu())
+
+
+SLOT_STEPS = ([0, 1], [2, 3], [1, 4])
+# short cohorts: one client sampled, its id repeated as the padding
+SHORT_SLOT_STEPS = ([0, 1], [2, 2], [3, 3], [2, 4])
+
+
+def _slot_encode_steps(d_dev, kind, steps=SLOT_STEPS):
+    """Slot-store encodes (6 clients, 2 slots, 2 sampled: every round
+    after the first evicts) on ``d_dev``, from the same numpy deltas: the
+    messages, flush partials, stats and stores."""
+    from repro_torch.comm import flat, transports
+    from repro_torch.configs.base import CompressorConfig
+    from repro_torch.engine import participation
+    from repro_torch.scale import slots
+    n_clients, m, d = 6, 2, 128
+    spec = flat.spec_of({"w": torch.zeros(d)})
+    cc = CompressorConfig(kind=kind, ratio=0.25, block=32, bits=8)
+    ft = flat.FlatTransport(transports.get_transport(cc, "pallas"), spec)
+    store = slots.init(n_clients, m, d, torch.float32, d_dev)
+    rng = np.random.default_rng(0)
+    out = []
+    for r, ids in enumerate(steps):
+        idx = torch.tensor(ids, dtype=torch.int64)
+        mask = torch.zeros(n_clients).index_fill_(0, idx, 1.0)
+        weights = mask * torch.tensor([1.5, 0.5, 2.0, 1.0, 0.75, 1.25])
+        short = len(set(ids)) < m
+        part = participation.Participation(
+            mask.to(d_dev), idx.to(d_dev), n_clients, m,
+            weights.to(d_dev), short, idx)
+        deltas = torch.from_numpy(rng.standard_normal((m, d)).astype(
+            np.float32)).to(d_dev)
+        if short:       # a padded copy computes its client's row
+            deltas[1:] = deltas[0]
+        full, store, v_flush, stats = slots.encode(ft, store, deltas, part,
+                                                   r)
+        out.append((full, v_flush, stats,
+                    slots.SlotStore(*(x.clone() for x in store))))
+    return out
+
+
+@pytest.mark.parametrize("steps", [SLOT_STEPS, SHORT_SLOT_STEPS],
+                         ids=["full", "short"])
+@pytest.mark.parametrize("kind", ["topk", "quant"])
+def test_slot_store_on_card_equals_cpu(dev, kind, steps):
+    """The store's int32 leaves (``index_select`` / ``index_copy`` /
+    ``index_fill_`` with a spare entry, the stable ``argsort``), the pool
+    rows (copied out, then ``index_copy_`` in place), the messages and the
+    flush partials on the card, bit for bit the CPU's; with short cohorts
+    too, whose repeated ids write one slot, and the store keeps owner[s]
+    == j <=> client_slot[j] == s."""
+    card = _slot_encode_steps(dev, kind, steps)
+    host = _slot_encode_steps(torch.device("cpu"), kind, steps)
+    for (fc, vc, sc, stc), (fh, vh, sh, sth) in zip(card, host):
+        for a, b in zip(fc, fh):
+            _same_bits(a, b)
+        assert (vc is None) == (vh is None)
+        if vc is not None:
+            _same_bits(vc, vh)
+        for a, b in zip(sc, sh):
+            _same_bits(a, b)
+        for a, b in zip(stc, sth):
+            _same_bits(a, b)
+        assert stc.owner.dtype == torch.int32
+        owner, cslot = stc.owner.tolist(), stc.client_slot.tolist()
+        held = [j for j in owner if j >= 0]
+        assert len(held) == len(set(held))
+        assert all(cslot[j] == s_ for s_, j in enumerate(owner) if j >= 0)
+        assert all(owner[s_] == j for j, s_ in enumerate(cslot) if s_ >= 0)
+    assert float(card[-1][2].evictions) >= 1.0
+
+
+@pytest.mark.parametrize("kind", ["topk", "quant"])
+def test_cohort_slice_through_reduce_kernels(dev, kind):
+    """A cohort's rows are a leading-axis view of the stacked payload (its
+    parent's strides): ``scatter_agg`` and ``unpack_mma`` on it equal
+    their plain versions on the CPU, and the two-tier reduce equals the
+    single tier's within the reordered sum."""
+    from repro_torch.comm import flat, transports
+    from repro_torch.configs.base import CompressorConfig
+    spec = flat.spec_of({"W": torch.zeros(24, 96), "b": torch.zeros(96)})
+    cc = CompressorConfig(kind=kind, ratio=0.25, block=32, bits=8)
+    t = transports.get_transport(cc, "pallas")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((8, spec.d)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, 8).astype(np.float32)).to(dev)
+    one = flat.FlatTransport(t, spec)
+    msgs = one.codec.pack(x)
+    sl = slice(4, 6)
+    for r in one.codec.layout.runs:
+        if kind == "topk":
+            cols = slice(r.koff, r.koff + r.nblocks * r.k)
+            vals = msgs.values[sl, cols].reshape(2, r.nblocks, r.k)
+            idx = msgs.indices[sl, cols].reshape(2, r.nblocks, r.k)
+            assert vals.stride(0) == msgs.values.stride(0)
+            got = scatter_agg(vals, idx, w[sl], r.block)
+            want = scatter_agg_plain(vals.cpu(), idx.cpu(), w[sl].cpu(),
+                                     r.block)
+        else:
+            words = msgs.words[sl, r.woff:r.woff + r.nblocks * r.W] \
+                .reshape(2, r.nblocks, r.W)
+            scale = msgs.scale[sl, r.boff:r.boff + r.nblocks]
+            assert words.stride(0) == msgs.words.stride(0)
+            got = unpack_mma(words, scale, w[sl], 8, r.block)
+            want = unpack_mma_plain(words.cpu(), scale.cpu(), w[sl].cpu(),
+                                    8, r.block)
+        _same_bits(got, want)
+    single = one.reduce(msgs, w, 4.0)
+    for k in (2, 4):
+        tiered = flat.FlatTransport(t, spec, cohorts=k).reduce(msgs, w, 4.0)
+        assert torch.allclose(tiered, single, rtol=1e-5, atol=1e-6)

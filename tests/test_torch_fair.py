@@ -173,8 +173,8 @@ def test_penalty_round_matches_reference(np_data):
 
 def test_penalty_round_on_plain_tuples_and_checks(np_data):
     """The reference hands plain tuples to the engine: the same round on
-    ``(xs, ys)`` as on the NamedTuple, bit for bit; ``client_chunk`` is not
-    ported and raises."""
+    ``(xs, ys)`` as on the NamedTuple, bit for bit; ``client_chunk`` passes
+    through to the engine config and leaves the round as it is."""
     xs, ys = np_data
     kw = dict(rho=1.0, eps=0.35, lr=0.1, local_steps=2, n_clients=10, m=5,
               device="cpu")
@@ -190,8 +190,15 @@ def test_penalty_round_on_plain_tuples_and_checks(np_data):
     assert_bits_equal(ma["f"], mb["f"])
     cfg = baselines.penalty_config(1.0, 0.35, 0.1, 2, 10, 5)
     assert cfg.strategy == "penalty-fedavg" and not cfg.track_wbar
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        baselines.penalty_config(1.0, 0.35, 0.1, 2, 10, 5, client_chunk=4)
+    assert baselines.penalty_config(1.0, 0.35, 0.1, 2, 10, 5,
+                                    client_chunk=4).client_chunk == 4
+    st = baselines.penalty_init(npc.init_params(30, device="cpu"))
+    for _ in range(2):
+        st, m = baselines.penalty_round(st, (t(xs), t(ys)), npc.loss_pair,
+                                        client_chunk=4, **kw)
+    for k in ("w", "b"):
+        assert_bits_equal(st.w[k], sa.w[k])
+    assert_bits_equal(m["f"], ma["f"])
 
 
 def test_penalty_baseline_rho_sensitivity(np_data):

@@ -89,25 +89,29 @@ def test_round_step_needs_a_card_unless_asked_for_cpu(no_card):
 
 
 def test_not_ported_paths_raise():
-    """The wire runtime and the slot store raise; async rounds and obs are
-    ported (they set up), and so are the samplers' mid-round events.  The
-    launcher has no flag for the tuner or checkpoints, which are not ported
-    either."""
-    for flag in (["--wire", "2"], ["--ef-slots", "4"],
+    """The wire runtime raises; the slot store, two-tier cohorts,
+    ``--client-chunk``, checkpoints, async rounds and obs are ported (they
+    set up), and so are the samplers' mid-round events.  The launcher has
+    no flag for the tuner, which is not ported either."""
+    for flag in (["--wire", "2"],
                  ["--fleet", "--async-buffer", "--wire", "2"]):
         args = train.parser().parse_args(["--device", "cpu"] + flag)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.setup(args)
-    with pytest.raises(SystemExit):
-        train.parser().parse_args(["--ckpt-dir", "x"])
+    assert train.parser().parse_args(["--ckpt-dir", "x"]).ckpt_dir == "x"
     for flag in (["--async-buffer"], ["--obs"],
-                 ["--fleet", "--async-buffer", "--obs"]):
+                 ["--fleet", "--async-buffer", "--obs"],
+                 ["--ef-slots", "2", "--participation", "gather"],
+                 ["--cohorts", "2"], ["--client-chunk", "1"]):
         args = train.parser().parse_args(
             ["--device", "cpu", "--reduced", "--seq", "8", "--batch", "1",
              "--clients", "2"] + flag)
         state, _, _, fed, _, _ = train.setup(args)
         assert fed.async_.enabled == ("--async-buffer" in flag)
         assert fed.obs.enabled == ("--obs" in flag)
+        assert fed.scale.ef_slots == (2 if "--ef-slots" in flag else 0)
+        assert fed.scale.cohorts == (2 if "--cohorts" in flag else 1)
+        assert fed.client_chunk == (1 if "--client-chunk" in flag else 0)
     for name in ("uniform", "weighted", "markov"):
         fed = _fed().replace(fleet=FleetConfig(sampler=name))
         ev, _ = samplers.get_sampler(name).events(
@@ -117,11 +121,15 @@ def test_not_ported_paths_raise():
 
 
 def test_new_modules_are_scanned():
-    """The async engine and obs modules are among the files the import
-    scan reads."""
+    """The async engine, obs, scale-out, sharding and checkpoint modules
+    are among the files the import scan reads."""
     scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("engine/async_rounds.py", "obs/__init__.py", "obs/bus.py",
-                "obs/log.py", "obs/sinks.py", "obs/trace.py"):
+                "obs/log.py", "obs/sinks.py", "obs/trace.py",
+                "checkpoint.py", "scale/__init__.py", "scale/slots.py",
+                "scale/shard.py", "sharding/__init__.py",
+                "sharding/partition.py", "core/packing.py",
+                "core/error_feedback.py"):
         assert f"src/repro_torch/{mod}" in scanned
 
 

@@ -111,8 +111,13 @@ def test_stationarity_decreases_with_training(np4):
 
 
 def test_client_chunk_is_not_ported(np4):
+    """``client_chunk`` is the reference's chunked client vmap; the port's
+    clients run one after another, so the knob is accepted and leaves the
+    proximal point as it is, bit for bit."""
     xs, ys = np4
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        weakly_convex.proximal_point(npc.loss_pair, (t(xs), t(ys)),
-                                     npc.init_params(30, device="cpu"),
-                                     client_chunk=2)
+    out = [weakly_convex.proximal_point(npc.loss_pair, (t(xs), t(ys)),
+                                        npc.init_params(30, device="cpu"),
+                                        inner_steps=20, client_chunk=chunk)
+           for chunk in (0, 2)]
+    for k in ("w", "b"):
+        assert torch.equal(out[0][k], out[1][k])
