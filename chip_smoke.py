@@ -118,9 +118,24 @@ Phases, each fatal on failure (nonzero exit):
    gather 4 of 8, ``--cohorts 4``, pallas 8-bit quant up and down,
    ``--sparse-eval``, T rounds, one round's tiered ``v_bar`` against the single-tier reduce of
    the same messages and a strided cohort slice through ``unpack_mma``
-   against its plain version.
+   against its plain version;
+14. the token-only model families at full published width, T rounds each
+   through the launcher's setup (``--arch``; depth cut through a config
+   where one card forces it) and ``run_rounds``, batch 2, seq 64: (a)
+   mamba2-130m, all 24 layers, gather 4 of 8, pallas top-k 0.1 up and
+   down; (b) recurrentgemma-2b at 3 of 26 layers (one ``(rec, rec,
+   attn)`` period), 2 clients, pallas 8-bit quant up; (c) gemma3-4b at 2
+   of 34 layers (two local layers: ``blocks == []``), 2 clients, pallas
+   top-k 0.1 up; in each one more round whose every wire-kernel launch is
+   held against its plain version on the same inputs, tolerance 0 (the
+   new block layouts: 24, 838, 896; 640, 960, 256; 640, 256, 1024); (d)
+   each of the five families' reduced configs (qwen3-4b, minitron-4b,
+   gemma3-4b, mamba2-130m, recurrentgemma-2b) at seq 64, 2 rounds on the
+   card against the CPU, dense top-k up and down then pallas 8-bit quant
+   up: f and g_hat at rtol 1e-4, all but 0.1% of w within rtol 1e-4 /
+   atol 1e-6.
 
-In phases 5, 7, 8, 9, 11, 12 and 13 the launch counts are zeroed just before
+In phases 5, 7, 8, 9, 11, 12, 13 and 14 the launch counts are zeroed just before
 each part and read just after: each kernel must have launched exactly as
 often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
@@ -497,7 +512,7 @@ RANDOM_CASES = [("packed randk up/down", "packed", "randk"),
                 ("dense natural up/down", "dense", "natural")]
 
 
-def reference_case(torch, argv, downlink, device="cpu", **over):
+def reference_case(torch, argv, downlink, device="cpu", seq=16, **over):
     """The launcher's reduced setup on ``device`` for ``argv``, with the
     uplink's compressor changed by ``over`` (kind, bits) and, with
     ``downlink``, the same compressor on the downlink."""
@@ -505,7 +520,7 @@ def reference_case(torch, argv, downlink, device="cpu", **over):
     from repro_torch.engine import rounds
     from repro_torch.launch import train
     state, _, loss_pair, fed, cfg, _ = train.setup(train.parser().parse_args(
-        ["--reduced", "--seq", "16", "--device", device] + argv))
+        ["--reduced", "--seq", str(seq), "--device", device] + argv))
     cc = dataclasses.replace(fed.uplink, **over)
     fed = fed.replace(uplink=cc, downlink=cc if downlink else fed.downlink)
     state = rounds.init_state(flat.unflatten(state.spec, state.w), fed,
@@ -587,16 +602,17 @@ def reference_check(torch):
     kernels.reset_launches()
 
 
-def setup_phase(torch, argv, downlink: bool, **fed_over):
-    """The launcher's ``setup`` for ``argv``; with ``downlink`` the uplink's
-    compressor runs on the downlink too, and ``fed_over`` changes the
-    FedConfig, through the engine API (the launcher keeps the identity
-    downlink, as the reference's does)."""
+def setup_phase(torch, argv, downlink: bool, cfg=None, **fed_over):
+    """The launcher's ``setup`` for ``argv`` (``cfg``, when given, in place
+    of ``--arch``'s config); with ``downlink`` the uplink's compressor runs
+    on the downlink too, and ``fed_over`` changes the FedConfig, through
+    the engine API (the launcher keeps the identity downlink, as the
+    reference's does)."""
     from repro_torch.comm import flat
     from repro_torch.engine import rounds
     from repro_torch.launch import train
     state, batch_fn, loss_pair, fed, cfg, dev = train.setup(
-        train.parser().parse_args(argv))
+        train.parser().parse_args(argv), cfg)
     fed = fed.replace(**fed_over)
     if downlink:
         fed = fed.replace(downlink=fed.uplink)
@@ -633,9 +649,12 @@ def expected_launches(fed, runs: int) -> dict:
 
 
 def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
-                fleet_fn=None, after=None, **fed_over):
-    """Phases 5, 7, 8, 9 and 13: full-width training rounds through the
-    launcher's setup and ``run_rounds``, on per-round batches or on a
+                fleet_fn=None, after=None, cfg=None, d_want=D_FULL,
+                **fed_over):
+    """Phases 5, 7, 8, 9, 13 and 14: full-width training rounds through the
+    launcher's setup (``cfg`` in place of ``--arch``'s config where depth
+    is cut; the flat buffer must hold ``d_want`` parameters) and
+    ``run_rounds``, on per-round batches or on a
     client fleet (the launcher's ``--fleet``, or ``fleet_fn(fed, dev)``
     through the engine API); returns the phase record (launch
     counts included, and the fields ``after(state, hist, batches,
@@ -648,14 +667,14 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     from repro_torch.comm import flat
     from repro_torch.engine import participation, rounds, strategies
     from repro_torch.fleet import provision
-    state, batch_fn, pair, fed, dev = setup_phase(torch, argv, downlink,
+    state, batch_fn, pair, fed, dev = setup_phase(torch, argv, downlink, cfg,
                                                   **fed_over)
     if fleet_fn is not None:
         batch_fn = fleet_fn(fed, dev)
     fleet = batch_fn if isinstance(batch_fn, provision.Fleet) else None
     batches = batch_fn if fleet is None else (lambda t, g: fleet)
-    if state.spec.d != D_FULL:
-        raise AssertionError(f"d = {state.spec.d}, expected {D_FULL}")
+    if state.spec.d != d_want:
+        raise AssertionError(f"d = {state.spec.d}, expected {d_want}")
     up, down = rounds.flat_transports_for(fed, state.spec)
     runs = len(flat.wire_layout(state.spec, fed.uplink).runs)
     want = expected_launches(fed, runs)
@@ -1113,19 +1132,10 @@ def to_device(tree, device):
 
 
 def meta_spec(torch, cfg):
-    """The flat spec of a dense model config, from ``meta`` tensors."""
+    """The flat spec of a model config, from ``meta`` tensors."""
     from repro_torch.comm import flat
-    from repro_torch.models import transformer
-    meta = {}
-
-    def walk(tree, node):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                walk(v, node.setdefault(k, {}))
-            else:
-                node[k] = torch.empty(v, device="meta")
-    walk(transformer.param_shapes(cfg), meta)
-    return flat.spec_of(meta)
+    from repro_torch.models import build, common
+    return flat.spec_of(common.meta_tree(build(cfg).param_shapes(cfg)))
 
 
 def check_layout_kernels(torch, dev, name, layout, n, encode: bool):
@@ -2464,6 +2474,247 @@ def scale_phase(torch, dev, T: int) -> tuple:
              for p in (part_b, part_c)])
 
 
+# phase 14: the token-only model families at full published width.  Each
+# cell: (name, arch, layers kept (None: the whole model), launcher
+# arguments, compressed downlink).  Depth is cut only where one card
+# forces it: a fused round holds about 16 + 2.2n fp32 copies of d, so
+# recurrentgemma-2b (2.56B) and gemma3-4b (3.88B) keep one pattern period
+# and two local layers
+FAMILY_CELLS = [
+    ("14a mamba2-130m", "mamba2-130m", None,
+     ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
+      "--participation", "gather", "--comm", "pallas", "--uplink", "topk"],
+     True),
+    ("14b recurrentgemma-2b", "recurrentgemma-2b", 3,
+     ["--clients", "2", "--comm", "pallas", "--uplink", "quant"], False),
+    ("14c gemma3-4b", "gemma3-4b", 2,
+     ["--clients", "2", "--comm", "pallas", "--uplink", "topk"], False),
+]
+# 14(d): each family's reduced config, card against CPU, at seq 64 (gemma3's
+# window 32 masks, Mamba-2 runs two SSD chunks): (name, launcher arguments,
+# compressed downlink)
+FAMILY_CHECK_ARCHS = ["qwen3-4b", "minitron-4b", "gemma3-4b", "mamba2-130m",
+                      "recurrentgemma-2b"]
+FAMILY_CHECK_WIRES = [("dense topk up/down", ["--uplink", "topk"], True),
+                      ("pallas quant", ["--comm", "pallas", "--uplink",
+                                        "quant"], False)]
+FAMILY_CHECK_ROUNDS = 2
+FAMILY_CHECK_SEQ = 64
+# block rows per slice of a plain version in :class:`PlainCheck` (bounds
+# the extra memory of holding a full-width launch against its plain version)
+PLAIN_ROWS = 1 << 16
+
+
+def _plain_pieces():
+    """``ops`` dispatcher -> (kernel, block rows of a call, the kernel's
+    output and the plain version's on one slice of block rows); the
+    dispatchers' own casts are repeated on the plain side."""
+    import torch
+    from repro_torch.kernels import (quantize_ef_pack, scatter_agg,
+                                     topk_block, unpack_mma)
+
+    def topk(out, sl, x, k):
+        return ([o[..., sl, :] for o in out],
+                topk_block.block_topk_plain(x[..., sl, :], k))
+
+    def quant(out, sl, e, d, bits):
+        return ([o[..., sl, :] for o in out],
+                quantize_ef_pack.quantize_ef_pack_plain(
+                    e[..., sl, :], d[..., sl, :], bits))
+
+    def agg(out, sl, vals, idx, w, block):
+        return ([out[sl]], [scatter_agg.scatter_agg_plain(
+            vals[:, sl], idx[:, sl], w.to(torch.float32), block)])
+
+    def qagg(out, sl, words, scale, w, bits, block):
+        return ([out[sl]], [unpack_mma.unpack_mma_plain(
+            words[:, sl], scale[:, sl], w.to(torch.float32), bits, block)])
+
+    def seg(out, sl, rows, ids, n):
+        m = rows.shape[0]
+        want = scatter_agg.segment_rows_plain(
+            rows.reshape(m, -1)[:, sl].to(torch.float32), ids, n)
+        return [out.reshape(n, -1)[:, sl]], [want.to(rows.dtype)]
+
+    return {
+        "block_topk": ("block_topk", lambda x, k: x.shape[-2], topk),
+        "quantize_ef_pack": ("quantize_ef_pack",
+                             lambda e, d, bits: e.shape[-2], quant),
+        "scatter_agg": ("scatter_agg",
+                        lambda vals, idx, w, block:
+                        vals.shape[1] if block > 1 else 0, agg),
+        "quant_agg": ("unpack_mma",
+                      lambda words, scale, w, bits, block: words.shape[1],
+                      qagg),
+        "segment_rows": ("segment_rows",
+                         lambda rows, ids, n: rows[0].numel(), seg),
+    }
+
+
+class PlainCheck:
+    """While active, every kernel launch through the ``ops`` dispatchers
+    (``block_topk``, ``quantize_ef_pack``, ``scatter_agg``, ``quant_agg``
+    -> ``unpack_mma``, ``segment_rows``) made on this thread is held
+    against the kernel's plain version on the same inputs, on the spot and
+    in slices of ``PLAIN_ROWS`` block rows, tolerance 0.  The plain
+    versions launch no kernel, so the launch counts stay the path's."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls, self.err, self.layouts = {}, {}, {}
+
+    def __enter__(self):
+        import threading
+        from repro_torch.kernels import ops
+        self._orig = {}
+        thread = threading.get_ident()
+        for disp, (kname, rows_of, piece) in _plain_pieces().items():
+            orig = self._orig[disp] = getattr(ops, disp)
+
+            def wrapped(*args, _orig=orig, _k=kname, _rows=rows_of,
+                        _piece=piece):
+                out = _orig(*args)
+                rows = _rows(*args)
+                if threading.get_ident() != thread or not rows or \
+                        not args[0].is_cuda:
+                    return out
+                err = 0.0
+                for i in range(0, rows, PLAIN_ROWS):
+                    got, want = _piece(out, slice(i, i + PLAIN_ROWS), *args)
+                    err = max(err, max_err(self.torch, got, want))
+                self.calls[_k] = self.calls.get(_k, 0) + 1
+                self.err[_k] = max(self.err.get(_k, 0.0), err)
+                shape = [int(x) for x in args[0].shape]
+                self.layouts.setdefault(_k, [])
+                if shape not in self.layouts[_k]:
+                    self.layouts[_k].append(shape)
+                return out
+            setattr(ops, disp, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for disp, fn in self._orig.items():
+            setattr(ops, disp, fn)
+
+
+def plain_check_record(state, hist, batches, pair, fed, dev) -> dict:
+    """Phase 14's check, after the counted rounds: one more round whose
+    every wire-kernel launch is held against its plain version
+    (:class:`PlainCheck`)."""
+    import torch
+    from repro_torch.engine import rounds
+    with PlainCheck(torch) as chk:
+        rounds.round_step(state, batches(0, torch.Generator().manual_seed(7)),
+                          pair, fed, device=dev)
+    torch.cuda.synchronize()
+    rec = {"kernel_calls": chk.calls, "max_abs_err": chk.err,
+           "input_shapes": chk.layouts, "tolerance": 0.0}
+    print(json.dumps({"kernel_check": f"{fed.comm} {fed.uplink.kind} "
+                      "every launch of one round", **rec}), flush=True)
+    if any(chk.err.values()) or not chk.calls:
+        raise AssertionError(f"a kernel launch differs from its plain "
+                             f"version, or none ran: {rec}")
+    return {"plain_check": rec}
+
+
+def family_card_check(torch) -> list:
+    """Phase 14(d): each token-only family's reduced config, 2 rounds on
+    the card against the same rounds on the CPU, dense top-k up and down
+    then pallas 8-bit quant up: f and g_hat within phase 4's tolerances
+    (rtol 1e-4), all but 0.1% of w within rtol 1e-4 / atol 1e-6."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.engine import rounds
+    from repro_torch.tasks import lm
+    out = []
+    for arch in FAMILY_CHECK_ARCHS:
+        for wire, argv, downlink in FAMILY_CHECK_WIRES:
+            state, loss_pair, fed, cfg = reference_case(
+                torch, ["--arch", arch] + argv, downlink,
+                seq=FAMILY_CHECK_SEQ)
+            nc, S = fed.n_clients, FAMILY_CHECK_SEQ
+            rng = np.random.default_rng(0)
+            batches = []
+            for _ in range(FAMILY_CHECK_ROUNDS):
+                toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (nc, 2, S)))
+                mask = torch.zeros((nc, 2, S))
+                mask[..., -4:] = 1.0
+                batches.append((toks, mask))
+            res = {}
+            for device in ("cuda", "cpu"):
+                # copies: a round updates its state's buffers and
+                # generator in place, and both devices start from state
+                on = state._replace(gen=torch.Generator().set_state(
+                    state.gen.get_state()), **{
+                    f: getattr(state, f).to(device, copy=True) for f in
+                    ("w", "x", "e_up", "wbar_sum", "wbar_weight")
+                    if getattr(state, f) is not None})
+                if on.x is not None:
+                    on = on._replace(x=on.w)
+                fs, gs = [], []
+                for toks, mask in batches:
+                    on, met = rounds.round_step(
+                        on, lm.LMBatch(toks.to(device), mask.to(device)),
+                        loss_pair, fed, device=device)
+                    fs.append(float(met.f))
+                    gs.append(float(met.g_hat))
+                res[device] = (on.w.cpu(), fs, gs)
+            far = ~torch.isclose(res["cuda"][0], res["cpu"][0], rtol=1e-4,
+                                 atol=1e-6)
+            ok = (all(math.isfinite(v) for v in res["cuda"][1]
+                      + res["cuda"][2])
+                  and all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(
+                      res["cuda"][1] + res["cuda"][2],
+                      res["cpu"][1] + res["cpu"][2]))
+                  and float(far.float().mean()) <= 1e-3)
+            rec = {"family_check": f"{arch} {wire}", "d": state.spec.d,
+                   "f": [res["cuda"][1], res["cpu"][1]],
+                   "g_hat": [res["cuda"][2], res["cpu"][2]],
+                   "w_far_fraction": float(far.float().mean()), "ok": ok}
+            print(json.dumps(rec), flush=True)
+            out.append(rec)
+            if not ok:
+                raise AssertionError(f"14(d) {arch} {wire}: card and CPU "
+                                     "disagree")
+    kernels.reset_launches()
+    return out
+
+
+def family_phase(torch, dev, T: int) -> tuple:
+    """Phase 14: (a)-(c) the token-only families at full published width
+    (:data:`FAMILY_CELLS`), T rounds each through the launcher's setup and
+    ``run_rounds``, every kernel launch of one more round held against its
+    plain version; (d) :func:`family_card_check`.  Returns ``(records,
+    launch records)``."""
+    from repro_torch import configs
+    t0 = time.time()
+    cells = []
+    for name, arch, layers, argv, downlink in FAMILY_CELLS:
+        cfg = configs.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        spec = meta_spec(torch, cfg)
+        print(json.dumps({"family_cell": name, "arch": arch,
+                          "n_layers": cfg.n_layers, "d": spec.d}),
+              flush=True)
+        rec = train_phase(torch, name, ["--arch", arch] + argv, T,
+                          downlink=downlink, after=plain_check_record,
+                          cfg=cfg, d_want=spec.d)
+        rec.update({"arch": arch, "n_layers": cfg.n_layers,
+                    "seconds": time.time() - t0})
+        cells.append(rec)
+        t0 = time.time()
+    checks = family_card_check(torch)
+    seconds = {c["phase"]: c["seconds"] for c in cells}
+    seconds["checks_d"] = time.time() - t0
+    print(json.dumps({"family_seconds": seconds}), flush=True)
+    return ({"cells": cells, "checks": checks, "seconds": seconds},
+            [{"phase": c["phase"], "launches": c["launches"]}
+             for c in cells])
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -2586,10 +2837,11 @@ def main(argv=None) -> int:
     paper_rec, paper_launches = paper_phase(torch, dev)
     async_rec, async_launches = async_phase(torch, dev)
     scale_rec, scale_launches = scale_phase(torch, dev, args.rounds)
+    family_rec, family_launches = family_phase(torch, dev, args.rounds)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
-        + async_launches + scale_launches
+        + async_launches + scale_launches + family_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -2605,6 +2857,7 @@ def main(argv=None) -> int:
                                     "paper": paper_rec,
                                     "async": async_rec,
                                     "scale": scale_rec,
+                                    "families": family_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

@@ -60,26 +60,36 @@ class LeafSpec(NamedTuple):
 class FlatSpec(NamedTuple):
     """Static metadata of one flattening (hashable)."""
     paths: tuple            # key path of each leaf, in flattening order
+                            # (dict keys, and list indices as ints)
     leaves: tuple           # tuple[LeafSpec]
     d: int
     dtype: torch.dtype      # buffer dtype: the leaves' common promotion
+    empties: tuple = ()     # paths of the tree's empty lists and dicts
+                            # (no leaf; :func:`unflatten` gives them back)
 
 
-def _leaves(tree, path=()):
-    """(path, leaf) pairs with dict keys sorted, as ``jax.tree_util``."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (k,))
+def _leaves(tree, path=(), empties=None):
+    """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
+    list entries by index; an empty list or dict gives no leaf (its path
+    goes into ``empties`` when given).  Anything else, tuples included,
+    is a leaf."""
+    if isinstance(tree, (dict, list)):
+        keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+        if not keys and empties is not None:
+            empties.append((path, type(tree)))
+        for k in keys:
+            yield from _leaves(tree[k], path + (k,), empties)
     else:
         yield path, tree
 
 
 def spec_of(tree) -> FlatSpec:
-    """The :class:`FlatSpec` of a nested dict of tensors (any device,
-    ``meta`` included)."""
+    """The :class:`FlatSpec` of a nested dict / list of tensors (any
+    device, ``meta`` included)."""
     paths, specs, off = [], [], 0
     dtype = None
-    for path, leaf in _leaves(tree):
+    empties: list = []
+    for path, leaf in _leaves(tree, empties=empties):
         size = 1
         for s in leaf.shape:
             size *= int(s)
@@ -88,12 +98,14 @@ def spec_of(tree) -> FlatSpec:
         dtype = leaf.dtype if dtype is None else \
             torch.promote_types(dtype, leaf.dtype)
         off += size
-    return FlatSpec(tuple(paths), tuple(specs), off, dtype or torch.float32)
+    return FlatSpec(tuple(paths), tuple(specs), off, dtype or torch.float32,
+                    tuple(empties))
 
 
 def flatten(spec: FlatSpec, tree) -> torch.Tensor:
-    """Nested dict -> contiguous buffer.  Leading axes shared by every leaf
-    (a stacked ``[n, ...]`` tree) are kept: the output is ``[*lead, d]``."""
+    """Nested dict / list -> contiguous buffer.  Leading axes shared by
+    every leaf (a stacked ``[n, ...]`` tree) are kept: the output is
+    ``[*lead, d]``."""
     leaves = [leaf for _, leaf in _leaves(tree)]
     if len(leaves) != len(spec.leaves):
         raise ValueError(f"flatten: tree has {len(leaves)} leaves but the "
@@ -105,20 +117,35 @@ def flatten(spec: FlatSpec, tree) -> torch.Tensor:
     return torch.cat(out, dim=-1) if len(out) > 1 else out[0]
 
 
-def unflatten(spec: FlatSpec, flat: torch.Tensor) -> dict:
-    """Buffer ``[*lead, d]`` -> nested dict with leaf shapes
+def _rebuild(node):
+    """Nested dicts keyed by path entries -> the tree: a node keyed by
+    list indices becomes a list, dict keys come back sorted."""
+    if not isinstance(node, dict) or not node:
+        return node
+    if all(isinstance(k, int) for k in node):
+        return [_rebuild(node[i]) for i in range(len(node))]
+    return {k: _rebuild(node[k]) for k in sorted(node)}
+
+
+def unflatten(spec: FlatSpec, flat: torch.Tensor):
+    """Buffer ``[*lead, d]`` -> the nested dict / list with leaf shapes
     ``[*lead, *leaf_shape]``.  On a 1-D buffer every leaf is a view (a
     ``split``, so the backward of a gradient through all leaves is one
     concatenation into ``[d]``)."""
     lead = tuple(flat.shape[:-1])
     parts = flat.split([ls.size for ls in spec.leaves], dim=-1)
-    tree: dict = {}
-    for path, ls, part in zip(spec.paths, spec.leaves, parts):
-        node = tree
+    root: dict = {}
+
+    def put(path, value):
+        node = root
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = part.reshape(lead + ls.shape).to(ls.dtype)
-    return tree
+        node[path[-1]] = value
+    for path, kind in spec.empties:
+        put(path, kind())
+    for path, ls, part in zip(spec.paths, spec.leaves, parts):
+        put(path, part.reshape(lead + ls.shape).to(ls.dtype))
+    return _rebuild(root)
 
 
 def tree_norm(spec: FlatSpec, flat: torch.Tensor) -> torch.Tensor:

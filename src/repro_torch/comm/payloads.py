@@ -282,21 +282,26 @@ def is_payload(x) -> bool:
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of a nested dict (tensors and payloads are
-    leaves), zipped with the leaves of ``rest``, trees of the same keys.
-    Leaves are visited with keys sorted (``jax.tree_util``'s order), so a
-    ``fn`` that draws random numbers draws them in the reference's leaf
-    order."""
+    """``fn`` over the leaves of a nested dict / list (tensors, payloads
+    and tuples are leaves), zipped with the leaves of ``rest``, trees of
+    the same structure.  Leaves are visited in ``jax.tree_util``'s order
+    (dict keys sorted, list entries by index), so a ``fn`` that draws
+    random numbers draws them in the reference's leaf order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a nested dict, keys sorted (``jax.tree_util``'s order)."""
+    """Leaves of a nested dict / list in ``jax.tree_util``'s order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

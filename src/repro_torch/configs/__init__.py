@@ -1,23 +1,44 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)`` (port of
-``repro.configs``; only the architectures ported so far are registered)."""
+``repro.configs``; the token-only architectures are registered, the others
+raise ``NotImplementedError`` naming what they still need)."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (CompressorConfig,  # noqa: F401
                                       FedConfig, FleetConfig, ModelConfig,
-                                      ScaleConfig, SwitchConfig,
-                                      reduce_model)
+                                      RGLRUConfig, ScaleConfig, SSMConfig,
+                                      SwitchConfig, reduce_model)
 
-ALIASES = {"smollm-360m": "smollm_360m"}
+ALIASES = {
+    "qwen3-4b": "qwen3_4b",
+    "mamba2-130m": "mamba2_130m",
+    "minitron-4b": "minitron_4b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "smollm-360m": "smollm_360m",
+    "gemma3-4b": "gemma3_4b",
+}
+
+# the reference's other architectures -> what the port still lacks for them
+MISSING = {
+    "deepseek-v3-671b": "the moe family (MoE routing, MLA, MTP, "
+                        "aux_constraint)",
+    "deepseek-v2-236b": "the moe family (MoE routing, MLA, aux_constraint)",
+    "llama-3.2-vision-90b": "the vlm family (cross-attention, "
+                            "LMBatch.media)",
+    "whisper-small": "the audio family (the whisper encoder-decoder, "
+                     "LMBatch.media)",
+}
 
 
 def _module(name: str):
     mod = ALIASES.get(name)
     if mod is None:
+        lacks = MISSING.get(name)
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet; ported: "
-            f"{sorted(ALIASES)}")
+            f"architecture {name!r} is not ported yet"
+            + (f": it needs {lacks}" if lacks else "")
+            + f"; ported: {sorted(ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -1,6 +1,7 @@
 """Configuration dataclasses (port of ``repro.configs.base``, the part the
-dense LM trainer on every wire, the async engine, obs and the population
-scale-out need).
+LM trainer's token-only families (dense, patterned dense, Mamba-2,
+Griffin) on every wire, the async engine, obs and the population scale-out
+need).
 
 Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
 full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -16,9 +18,27 @@ from dataclasses import dataclass, field
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0              # 0 => d_model
+    d_conv: int = 4
+    block_pattern: Tuple[str, ...] = ("rec", "rec", "attn")
+    window: int = 2048
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family ported so far)
+    family: str                     # dense | ssm | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,11 +46,14 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0               # 0 => d_model // n_heads
+    qk_norm: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     window: int = 0                 # 0 => full attention
-    local_global_ratio: int = 0
+    local_global_ratio: int = 0     # e.g. 5 => 5 local : 1 global
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     cross_attn_every: int = 0
 
     @property
@@ -38,14 +61,19 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def n_params(self) -> int:
-        """Parameter count of the dense stack (embeddings included)."""
+        """Analytic parameter count, the reference's (approximate for the
+        ssm family, norms and biases left out; embeddings included)."""
         d, L, V = self.d_model, self.n_layers, self.vocab
         hd = self.resolved_head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
-        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
-            + self.n_heads * hd * d
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
-        return emb + L * per_layer + d
+        if self.ssm is not None:
+            di = self.ssm.expand * d
+            per_layer = d * (2 * di) + di * self.ssm.d_conv + di * d \
+                + 2 * di * self.ssm.d_state // max(self.ssm.n_groups, 1)
+        else:
+            per_layer = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                + self.n_heads * hd * d + 3 * d * self.d_ff
+        return emb + L * per_layer
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +210,7 @@ class FedConfig:
 
 
 def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """The reduced smoke-test variant of a full dense config."""
+    """The reduced smoke-test variant of a full config."""
     kw = dict(
         n_layers=2,
         d_model=min(cfg.d_model, 128),
@@ -192,6 +220,11 @@ def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab=min(cfg.vocab, 512),
         head_dim=32 if cfg.head_dim else 0,
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
+                                        chunk=32)
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=0, window=32)
     if cfg.window:
         kw["window"] = 32
     kw.update(overrides)

@@ -97,10 +97,13 @@ def segment_rows(rows: torch.Tensor, seg: torch.Tensor,
 
 
 def switch_blend_tree(gf_tree, gg_tree, sigma: torch.Tensor):
-    """:func:`switch_blend` over a nested dict of gradient tensors (each leaf
-    blended flat, then given back its shape)."""
+    """:func:`switch_blend` over a nested dict / list of gradient tensors
+    (each leaf blended flat, then given back its shape)."""
     if isinstance(gf_tree, dict):
         return {k: switch_blend_tree(gf_tree[k], gg_tree[k], sigma)
                 for k in gf_tree}
+    if isinstance(gf_tree, list):
+        return [switch_blend_tree(f, g, sigma)
+                for f, g in zip(gf_tree, gg_tree)]
     return switch_blend(gf_tree.reshape(-1), gg_tree.reshape(-1),
                         sigma).reshape(gf_tree.shape)

@@ -28,6 +28,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --clients 8 \
         --participating 4 --participation gather --comm pallas \
         --uplink quant --cohorts 2
+    # the other token-only families: qwen3-4b, minitron-4b, gemma3-4b
+    # (dense, qk-norm, 5:1 local:global), mamba2-130m (ssm),
+    # recurrentgemma-2b (hybrid); --reduced for the smoke variants
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --clients 8 --participating 4 --participation gather --comm pallas
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
@@ -80,7 +85,9 @@ _NOT_PORTED = (("wire", "--wire"),)
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="a config of repro_torch.configs.ALIASES (the "
+                         "reference's moe, vlm and audio archs raise)")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced smoke-test config")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -178,18 +185,22 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def setup(args):
+def setup(args, cfg=None):
     """Everything a run needs, from parsed arguments: ``(state, batches,
     loss_pair, fed, cfg, device)``; ``batches`` is the per-round batch
     function, or under ``--fleet`` the :class:`repro_torch.fleet.Fleet`.
-    Raises for the reference's paths that are not ported yet."""
+    ``cfg``, when given, takes the place of the config ``--arch`` names
+    (the engine API's way to cut a model's depth: the launcher, like the
+    reference's, has no depth flag).  Raises for the reference's paths
+    that are not ported yet."""
     for attr, flag in _NOT_PORTED:
         if getattr(args, attr):
             raise NotImplementedError(f"{flag} is not ported yet")
-    dev = resolve_device(args.device)
-    cfg = configs.get_reduced(args.arch) if args.reduced \
-        else configs.get_config(args.arch)
+    if cfg is None:
+        cfg = configs.get_reduced(args.arch) if args.reduced \
+            else configs.get_config(args.arch)
     fns = build(cfg)
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = fns.init(gen, cfg, device=dev)
     n = args.clients

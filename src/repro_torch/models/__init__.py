@@ -1,5 +1,6 @@
 """Model registry: dispatch on ``ModelConfig.family`` (port of
-``repro.models``; only the dense training forward is ported so far)."""
+``repro.models``; the training forwards of the token-only families are
+ported: ``dense`` (homogeneous or patterned), ``ssm`` and ``hybrid``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -9,18 +10,35 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
+# the reference's other families -> the ROADMAP item that brings them
+_NOT_PORTED = {
+    "moe": "Queue 1 item 6b (MoE routing, MLA, MTP, aux_constraint)",
+    "vlm": "Queue 1 item 6c (cross-attention, LMBatch.media)",
+    "audio": "Queue 1 item 6c (the whisper encoder-decoder, LMBatch.media)",
+}
+
 
 class ModelFns(NamedTuple):
     init: object             # (gen, cfg, device) -> params
     forward: object          # (params, cfg, tokens) -> logits
+    param_shapes: object     # cfg -> the params' tree of leaf shapes
 
 
 def build(cfg: ModelConfig) -> ModelFns:
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        from repro_torch.models import transformer as m
+    elif cfg.family == "ssm":
+        from repro_torch.models import mamba2 as m
+    elif cfg.family == "hybrid":
+        from repro_torch.models import griffin as m
+    elif cfg.family in _NOT_PORTED:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet")
-    from repro_torch.models import transformer as m
-    return ModelFns(init=m.init, forward=m.forward)
+            f"model family {cfg.family!r} is not ported yet: ROADMAP "
+            f"{_NOT_PORTED[cfg.family]}")
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    return ModelFns(init=m.init, forward=m.forward,
+                    param_shapes=m.param_shapes)
 
 
 def params_from_numpy(tree, device=None):

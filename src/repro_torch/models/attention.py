@@ -1,6 +1,7 @@
 """Causal GQA self-attention with RoPE, training mode (port of the train
-path of ``repro.models.attention``).  Written plainly, as the reference is:
-grouped scores, a ``-1e30`` causal bias and an f32 softmax."""
+path of ``repro.models.attention``, qk-norm and sliding windows included).
+Written plainly, as the reference is: grouped scores, a ``-1e30`` causal
+bias and an f32 softmax."""
 from __future__ import annotations
 
 import math
@@ -10,23 +11,31 @@ import torch
 from repro_torch.models import common
 
 
-def attn_shapes(d: int, n_heads: int, n_kv: int, head_dim: int) -> dict:
-    return {"wq": (d, n_heads * head_dim), "wk": (d, n_kv * head_dim),
-            "wv": (d, n_kv * head_dim), "wo": (n_heads * head_dim, d)}
+def attn_shapes(d: int, n_heads: int, n_kv: int, head_dim: int,
+                qk_norm: bool = False) -> dict:
+    shapes = {"wq": (d, n_heads * head_dim), "wk": (d, n_kv * head_dim),
+              "wv": (d, n_kv * head_dim), "wo": (n_heads * head_dim, d)}
+    if qk_norm:
+        shapes["q_norm"] = (head_dim,)
+        shapes["k_norm"] = (head_dim,)
+    return shapes
 
 
 def init_attn(gen, d: int, n_heads: int, n_kv: int, head_dim: int,
-              device=None) -> dict:
-    return {name: common.dense_init(gen, shape, device=device)
-            for name, shape in attn_shapes(d, n_heads, n_kv,
-                                           head_dim).items()}
+              qk_norm: bool = False, device=None) -> dict:
+    return common.init_tree(
+        gen, attn_shapes(d, n_heads, n_kv, head_dim, qk_norm), device)
 
 
-def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta):
+def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
+                 qk_norm: bool, norm_eps: float):
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
     k = (x @ p["wk"]).reshape(B, S, n_kv, head_dim)
     v = (x @ p["wv"]).reshape(B, S, n_kv, head_dim)
+    if qk_norm:
+        q = common.rms_norm(q, p["q_norm"], norm_eps)
+        k = common.rms_norm(k, p["k_norm"], norm_eps)
     q = common.apply_rope(q, positions, theta)
     k = common.apply_rope(k, positions, theta)
     return q, k, v
@@ -56,8 +65,11 @@ def causal_bias(q_pos, kv_pos, window: int = 0):
 
 
 def self_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,
-                   window: int = 0):
-    """Full-sequence causal attention (training / scoring)."""
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta)
+                   window: int = 0, qk_norm: bool = False,
+                   norm_eps: float = 1e-6):
+    """Full-sequence causal attention (training / scoring); ``qk_norm``
+    RMS-normalises q and k over ``head_dim`` before RoPE."""
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
+                           qk_norm, norm_eps)
     out = attend(q, k, v, causal_bias(positions, positions, window))
     return out @ p["wo"]

@@ -20,6 +20,18 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
                        dtype=torch.float32) * 0.02
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
+    (``logaddexp(x, 0)``; ``F.softplus`` returns ``x`` above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -44,6 +56,74 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def unstack(tree, n: int) -> list:
+    """A tree of ``[n, ...]``-stacked layer leaves as n per-layer trees.
+    Each leaf is unbound once, so its backward stacks the per-layer
+    gradients in one allocation (indexing layer by layer would build a
+    full-stack zero gradient for every layer)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def stack_shapes(shapes, n: int):
+    """A tree of leaf shapes with a leading ``[n]`` axis on every leaf."""
+    if isinstance(shapes, dict):
+        return {k: stack_shapes(v, n) for k, v in shapes.items()}
+    return (n,) + tuple(shapes)
+
+
+# leaves drawn or filled by name (the reference's initializers); every
+# other leaf is a fan-in scaled normal, its fan-in the axis before the last
+_ZEROS = {"ln", "ln1", "ln2", "ln_f", "gnorm", "q_norm", "k_norm", "conv_b",
+          "b_a", "b_i"}
+
+
+def _init_leaf(gen, name: str, shape: tuple, device) -> torch.Tensor:
+    def fill(row):                       # a per-layer row on every layer
+        return row.to(device).expand(shape).contiguous()
+    if name in _ZEROS:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if name == "embed":
+        return embed_init(gen, *shape, device=device)
+    if name == "conv_w":
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32) * 0.1
+    if name == "A_log":                  # Mamba-2 decay rates 1..16
+        return fill(torch.log(torch.linspace(1.0, 16.0, shape[-1])))
+    if name == "D":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if name == "dt_bias":
+        return torch.full(shape, -1.0, dtype=torch.float32, device=device)
+    if name == "lam":                    # RG-LRU gate constants 2..5
+        return fill(torch.linspace(2.0, 5.0, shape[-1]))
+    return dense_init(gen, shape, in_axis=len(shape) - 2, device=device)
+
+
+def init_tree(gen: torch.Generator, shapes, device=None):
+    """Random weights for a tree of leaf shapes (dicts and lists inner,
+    shape tuples leaves; draws in the tree's own order): the reference's
+    distributions, not its bits."""
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        return _init_leaf(gen, name, tuple(tree), device)
+    return walk(shapes, None)
+
+
+def meta_tree(shapes):
+    """A tree of leaf shapes as ``meta`` tensors (for ``flat.spec_of``
+    without an allocation)."""
+    if isinstance(shapes, dict):
+        return {k: meta_tree(v) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [meta_tree(v) for v in shapes]
+    return torch.empty(tuple(shapes), device="meta")
 
 
 def swiglu(x, w_gate, w_up, w_down):

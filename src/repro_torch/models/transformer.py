@@ -1,13 +1,21 @@
-"""Dense decoder-only transformer, homogeneous stack, training forward (port
-of ``repro.models.transformer``: ``init`` and ``forward`` for the dense
-stack; patterned stacks, prefill and decode are not ported yet).
+"""Dense decoder-only transformer, training forward (port of
+``repro.models.transformer``: ``init`` and ``forward`` for homogeneous
+stacks and for local:global patterned stacks, with optional qk-norm;
+cross-attention layers, prefill and decode are not ported yet).
 
-Parameters are a nested dict laid out as the reference's pytree, per-layer
-leaves stacked on a leading ``[n_layers]`` axis::
+Parameters are a nested dict laid out as the reference's pytree.  A
+homogeneous stack keeps its per-layer leaves stacked on a leading
+``[n_layers]`` axis::
 
     {"embed": [V, d], "ln_f": [d],
-     "layers": {"attn": {"wq", "wk", "wv", "wo"}, "ln1": [L, d], "ln2": [L, d],
+     "layers": {"attn": {"wq", "wk", "wv", "wo"[, "q_norm", "k_norm"]},
+                "ln1": [L, d], "ln2": [L, d],
                 "mlp": {"w_gate", "w_up", "w_down"}}}
+
+A patterned stack (``local_global_ratio``: one pattern period is that many
+local layers and one global layer) holds ``"blocks"``, a list of P
+per-position stacks over the ``n_full`` whole periods (``[]`` when there is
+none), and ``"rest"``, a list of the remainder's unstacked layers.
 """
 from __future__ import annotations
 
@@ -19,49 +27,103 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.local_global_ratio or cfg.cross_attn_every:
+def _is_patterned(cfg: ModelConfig) -> bool:
+    return bool(cfg.local_global_ratio or cfg.cross_attn_every)
+
+
+def _period(cfg: ModelConfig) -> int:
+    if cfg.cross_attn_every:
+        return cfg.cross_attn_every
+    if cfg.local_global_ratio:
+        return cfg.local_global_ratio + 1
+    return 1
+
+
+def _pos_plan(cfg: ModelConfig, pos: int) -> dict:
+    """Kind and window of position ``pos`` within a pattern period."""
+    P = _period(cfg)
+    kind = "self"
+    window = cfg.window
+    if cfg.cross_attn_every and pos == P - 1:
+        kind = "cross"
+    if cfg.local_global_ratio:
+        window = 0 if pos == P - 1 else cfg.window
+    return {"kind": kind, "window": window}
+
+
+def layer_plan(cfg: ModelConfig) -> list:
+    return [_pos_plan(cfg, i % _period(cfg)) for i in range(cfg.n_layers)]
+
+
+def _split_blocks(cfg: ModelConfig):
+    P = _period(cfg)
+    n_full = cfg.n_layers // P
+    return P, n_full, cfg.n_layers - n_full * P
+
+
+def _layer_shapes(cfg: ModelConfig, kind: str = "self") -> dict:
+    if kind == "cross":
         raise NotImplementedError(
-            "patterned transformer stacks are not ported yet")
+            "cross-attention layers (the vlm family) are not ported yet: "
+            "ROADMAP Queue 1 item 6c")
+    d = cfg.d_model
+    return {"ln1": (d,), "ln2": (d,),
+            "attn": attention.attn_shapes(d, cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.resolved_head_dim, cfg.qk_norm),
+            "mlp": {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+                    "w_down": (cfg.d_ff, d)}}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Nested dict of leaf shapes (the layout :func:`init` fills)."""
-    _check_dense(cfg)
-    d, L, hd = cfg.d_model, cfg.n_layers, cfg.resolved_head_dim
-    shapes = {"embed": (cfg.vocab, d), "ln_f": (d,)}
+    """The tree of leaf shapes :func:`init` fills."""
+    shapes = {"embed": (cfg.vocab, cfg.d_model), "ln_f": (cfg.d_model,)}
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab)
-    attn = attention.attn_shapes(d, cfg.n_heads, cfg.n_kv_heads, hd)
-    shapes["layers"] = {
-        "attn": {k: (L,) + s for k, s in attn.items()},
-        "ln1": (L, d), "ln2": (L, d),
-        "mlp": {"w_gate": (L, d, cfg.d_ff), "w_up": (L, d, cfg.d_ff),
-                "w_down": (L, cfg.d_ff, d)}}
+        shapes["lm_head"] = (cfg.d_model, cfg.vocab)
+    if _is_patterned(cfg):
+        P, n_full, rest = _split_blocks(cfg)
+        shapes["blocks"] = [common.stack_shapes(_layer_shapes(
+            cfg, _pos_plan(cfg, p)["kind"]), n_full)
+            for p in range(P)] if n_full else []
+        shapes["rest"] = [_layer_shapes(cfg, _pos_plan(cfg, i)["kind"])
+                          for i in range(rest)]
+    else:
+        shapes["layers"] = common.stack_shapes(_layer_shapes(cfg),
+                                               cfg.n_layers)
     return shapes
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """Random weights (the reference's distributions, not its bits): fan-in
     scaled normals per layer, 0.02-scaled embedding, zero norm gains."""
-    def make(path, shape):
-        if path[-1] in ("ln1", "ln2", "ln_f"):
-            return torch.zeros(shape, dtype=torch.float32, device=device)
-        if path[-1] == "embed":
-            return common.embed_init(gen, *shape, device=device)
-        # per-layer fan-in is the first axis after the stacked layer axis
-        return common.dense_init(gen, shape, in_axis=len(shape) - 2,
-                                 device=device)
-
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        return make(path, tree)
-    return walk(param_shapes(cfg), ())
+    return common.init_tree(gen, param_shapes(cfg), device)
 
 
-def _mlp(p, x):
-    return common.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+def _apply_layer(lp, cfg: ModelConfig, h, plan, positions):
+    """One self-attention layer in train mode (window from ``plan``)."""
+    a = attention.self_attention(
+        lp["attn"], common.rms_norm(h, lp["ln1"], cfg.norm_eps),
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, positions=positions,
+        theta=cfg.rope_theta, window=plan["window"], qk_norm=cfg.qk_norm,
+        norm_eps=cfg.norm_eps)
+    h = h + a
+    mlp = lp["mlp"]
+    return h + common.swiglu(common.rms_norm(h, lp["ln2"], cfg.norm_eps),
+                             mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+
+
+def _run_patterned(params, cfg: ModelConfig, h, positions):
+    """The whole periods in order (each position's layer from its stack),
+    then the remainder's layers."""
+    P, n_full, _ = _split_blocks(cfg)
+    plans = [_pos_plan(cfg, p) for p in range(P)]
+    blocks = [common.unstack(b, n_full) for b in params["blocks"]]
+    for i in range(n_full):
+        for p in range(P):
+            h = _apply_layer(blocks[p][i], cfg, h, plans[p], positions)
+    for i, lp in enumerate(params["rest"]):
+        h = _apply_layer(lp, cfg, h, plans[i % P], positions)
+    return h
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -72,25 +134,13 @@ def _logits(params, cfg: ModelConfig, h):
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens ``[B, S]`` -> logits ``[B, S, V]``."""
-    _check_dense(cfg)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     h = params["embed"][tokens] * math.sqrt(float(cfg.d_model))
     positions = torch.arange(S, device=tokens.device)
-    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-              head_dim=cfg.resolved_head_dim, positions=positions,
-              theta=cfg.rope_theta, window=cfg.window)
-    # unbind once per stacked leaf: its backward stacks the per-layer
-    # gradients in one allocation (indexing layer by layer would build a
-    # full-stack zero gradient for every layer)
-    layers = params["layers"]
-    attn = {k: v.unbind(0) for k, v in layers["attn"].items()}
-    mlp = {k: v.unbind(0) for k, v in layers["mlp"].items()}
-    ln1, ln2 = layers["ln1"].unbind(0), layers["ln2"].unbind(0)
-    for i in range(cfg.n_layers):
-        a = attention.self_attention(
-            {k: v[i] for k, v in attn.items()},
-            common.rms_norm(h, ln1[i], cfg.norm_eps), **kw)
-        h = h + a
-        h = h + _mlp({k: v[i] for k, v in mlp.items()},
-                     common.rms_norm(h, ln2[i], cfg.norm_eps))
+    if _is_patterned(cfg):
+        h = _run_patterned(params, cfg, h, positions)
+    else:
+        plan = {"kind": "self", "window": cfg.window}
+        for lp in common.unstack(params["layers"], cfg.n_layers):
+            h = _apply_layer(lp, cfg, h, plan, positions)
     return _logits(params, cfg, h)

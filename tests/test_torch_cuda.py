@@ -962,3 +962,88 @@ def test_cohort_slice_through_reduce_kernels(dev, kind):
     for k in (2, 4):
         tiered = flat.FlatTransport(t, spec, cohorts=k).reduce(msgs, w, 4.0)
         assert torch.allclose(tiered, single, rtol=1e-5, atol=1e-6)
+
+
+FAMILY_ARCHS = ["qwen3-4b", "minitron-4b", "gemma3-4b", "mamba2-130m",
+                "recurrentgemma-2b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_grad_on_card_match_cpu(dev, arch):
+    """Each token-only family at its reduced size (seq 64: gemma3's window
+    32 masks, Mamba-2 runs two SSD chunks): logits, f, g and the gradient
+    of f on the card against the CPU from the same weights and tokens --
+    logits and f, g at rtol 1e-4 / atol 1e-5, the gradient at rtol 1e-3 /
+    atol 1e-6 (float32 GEMMs and reductions in another order; TF32 off)."""
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.models import build
+    from repro_torch.tasks import lm
+    cfg = configs.get_reduced(arch)
+    fns = build(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg)
+    spec = flat.spec_of(params)
+    w0 = flat.flatten(spec, params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+    mask = torch.zeros((2, 64))
+    mask[:, -4:] = 1.0
+    pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        w = w0.to(d).requires_grad_(True)
+        p = flat.unflatten(spec, w)
+        logits = fns.forward(p, cfg, toks.to(d))
+        f, g = pair(p, lm.LMBatch(toks.to(d), mask.to(d)))
+        f.backward()
+        out[d.type] = (logits.detach().cpu(), f.item(), g.item(),
+                       w.grad.cpu())
+    (lc, fc, gc, dc), (lh, fh, gh, dh) = out["cuda"], out["cpu"]
+    assert torch.isfinite(lc).all() and torch.isfinite(dc).all()
+    torch.testing.assert_close(lc, lh, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose([fc, gc], [fh, gh], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dc, dh, rtol=1e-3, atol=1e-6)
+
+
+# (block, k) of the token-only families' top-k wire runs that the smollm
+# layouts do not have: Mamba-2's per-head leaves (24), in_proj (838),
+# conv (896); gemma3's and Griffin's 640 / 256 / 1024 / 960 blocks
+FAMILY_TOPK_BLOCKS = [(24, 2), (838, 84), (896, 90), (256, 26), (1024, 102)]
+# the quant wire's blocks of Griffin's layout
+FAMILY_QUANT_BLOCKS = [640, 960, 256]
+
+
+@pytest.mark.parametrize("block,k", FAMILY_TOPK_BLOCKS)
+def test_topk_kernels_at_family_blocks(dev, block, k):
+    """``block_topk`` (special rows written in) and ``scatter_agg`` with
+    non-unit weights (on the top-k payloads of finite rows) at the new
+    block layouts: bit-equal to their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(block)
+    x = torch.randn((3, 7, block), generator=g, device=dev)
+    clean = x.clone()
+    _topk_rows(x)
+    _check_topk(x, k)
+    vals, idx = block_topk_plain(clean, k)
+    idx = payloads.to_u16(idx)
+    w = torch.tensor([1.0, 0.5, 1.75], device=dev)
+    want = scatter_agg_plain(vals.cpu(), idx.cpu(), w.cpu(), block)
+    got = scatter_agg(vals, idx, w, block)
+    _same(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("block", FAMILY_QUANT_BLOCKS)
+def test_quant_kernels_at_family_blocks(dev, block):
+    """``quantize_ef_pack`` and ``unpack_mma`` (8 bits, non-unit weights)
+    at Griffin's quant blocks: bit-equal to their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(block)
+    e = torch.randn((2, 5, block), generator=g, device=dev) * 0.1
+    d = torch.randn((2, 5, block), generator=g, device=dev)
+    e[0, 0] = 0.0
+    d[0, 0] = 0.0
+    got = quantize_ef_pack(e, d, 8)
+    for a, b in zip(got, quantize_ef_pack_plain(e, d, 8)):
+        _same(a, b)
+    words, scale = got[0], got[1][..., 0]
+    w = torch.tensor([0.25, 1.5], device=dev)
+    _same(unpack_mma(words, scale, w, 8, block),
+          unpack_mma_plain(words, scale, w, 8, block))

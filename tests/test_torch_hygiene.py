@@ -129,8 +129,26 @@ def test_new_modules_are_scanned():
                 "checkpoint.py", "scale/__init__.py", "scale/slots.py",
                 "scale/shard.py", "sharding/__init__.py",
                 "sharding/partition.py", "core/packing.py",
-                "core/error_feedback.py"):
+                "core/error_feedback.py", "models/mamba2.py",
+                "models/griffin.py", "configs/qwen3_4b.py",
+                "configs/minitron_4b.py", "configs/gemma3_4b.py",
+                "configs/mamba2_130m.py", "configs/recurrentgemma_2b.py"):
         assert f"src/repro_torch/{mod}" in scanned
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "minitron-4b", "gemma3-4b",
+                                  "mamba2-130m", "recurrentgemma-2b"])
+def test_family_launcher_needs_a_card_unless_asked_for_cpu(no_card, arch):
+    """``--arch`` of each token-only family: raises without a card; on the
+    CPU, one chunk of ten reduced rounds on the pallas wire."""
+    argv = ["--arch", arch, "--reduced", "--seq", "8", "--batch", "1",
+            "--clients", "2", "--comm", "pallas", "--uplink", "quant",
+            "--rounds", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    state = train.main(argv + ["--device", "cpu"])
+    assert state.w.device.type == "cpu" and state.t == 10
+    assert torch.isfinite(state.w).all()
 
 
 @pytest.mark.parametrize("fleet", [False, True])
