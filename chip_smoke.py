@@ -133,11 +133,28 @@ Phases, each fatal on failure (nonzero exit):
    gemma3-4b, mamba2-130m, recurrentgemma-2b) at seq 64, 2 rounds on the
    card against the CPU, dense top-k up and down then pallas 8-bit quant
    up: f and g_hat at rtol 1e-4, all but 0.1% of w within rtol 1e-4 /
-   atol 1e-6.
+   atol 1e-6;
+15. the moe family: (a) deepseek-v2-236b at its published widths (d_model
+   5120, 128 heads, MLA kv_lora 512 / rope 64 / nope 128 / v 128, d_expert
+   1536, 2 shared experts, top-6, capacity 1.25), cut to 2 of 60 layers
+   (the leading dense layer and one MoE layer), 16 of 160 routed experts
+   and 12,800 of 102,400 vocab rows (d = 1,203,480,576), T rounds through
+   the launcher's setup (2 clients, pallas top-k 0.1 up, g the router's
+   load imbalance minus 6) and ``run_rounds``; one more round whose every
+   wire-kernel launch is held against its plain version, tolerance 0 (the
+   block layouts printed: 512, 576, 800, 768, 16 among them), the peak
+   leaving at least 5 GB of the card free, and the MoE layer's parts
+   timed (routing, dispatch, expert GEMMs, combine; its forward and
+   backward profiled); (b) the hidden state that enters 15(a)'s MoE layer
+   through that layer on the card and on the CPU: ``idx`` equal wherever
+   the CPU's margin exceeds 1e-5 (the count under it printed), y and aux +
+   1 within rtol 1e-4 on the tokens whose routing agrees, and the card's
+   draw-free core on the CPU's routing within the same; (c) the reduced
+   deepseek-v2 and deepseek-v3 (MTP, low-rank queries) as in 14(d).
 
-In phases 5, 7, 8, 9, 11, 12, 13 and 14 the launch counts are zeroed just before
-each part and read just after: each kernel must have launched exactly as
-often per round as the wire layout demands (on ``comm="pallas"`` the
+In phases 5, 7, 8, 9, 11, 12, 13, 14 and 15 the launch counts are zeroed
+just before each part and read just after: each kernel must have launched
+exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
 store's eviction flush; the reduce kernel once per run and cohort on the
 pallas and packed wires, twice in an async round, once more per run for
@@ -2618,17 +2635,19 @@ def plain_check_record(state, hist, batches, pair, fed, dev) -> dict:
     return {"plain_check": rec}
 
 
-def family_card_check(torch) -> list:
-    """Phase 14(d): each token-only family's reduced config, 2 rounds on
-    the card against the same rounds on the CPU, dense top-k up and down
-    then pallas 8-bit quant up: f and g_hat within phase 4's tolerances
-    (rtol 1e-4), all but 0.1% of w within rtol 1e-4 / atol 1e-6."""
+def family_card_check(torch, archs=FAMILY_CHECK_ARCHS,
+                      label: str = "14(d)") -> list:
+    """Phase 14(d) (and 15(c) for the moe archs): each arch's reduced
+    config, 2 rounds on the card against the same rounds on the CPU, dense
+    top-k up and down then pallas 8-bit quant up: f and g_hat within
+    phase 4's tolerances (rtol 1e-4), all but 0.1% of w within rtol 1e-4 /
+    atol 1e-6."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.engine import rounds
     from repro_torch.tasks import lm
     out = []
-    for arch in FAMILY_CHECK_ARCHS:
+    for arch in archs:
         for wire, argv, downlink in FAMILY_CHECK_WIRES:
             state, loss_pair, fed, cfg = reference_case(
                 torch, ["--arch", arch] + argv, downlink,
@@ -2676,7 +2695,7 @@ def family_card_check(torch) -> list:
             print(json.dumps(rec), flush=True)
             out.append(rec)
             if not ok:
-                raise AssertionError(f"14(d) {arch} {wire}: card and CPU "
+                raise AssertionError(f"{label} {arch} {wire}: card and CPU "
                                      "disagree")
     kernels.reset_launches()
     return out
@@ -2715,30 +2734,262 @@ def family_phase(torch, dev, T: int) -> tuple:
              for c in cells])
 
 
-def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
-    """One more round (after the counted ones) under ``torch.profiler``:
-    the device time by operator and the device's busy share of an
-    unprofiled round's wall time ``s_round``."""
+# phase 15: the moe family.  15(a) trains deepseek-v2-236b at its published
+# widths (d_model 5120, 128 heads, MLA kv_lora 512 / q_lora 0 / rope 64 /
+# nope 128 / v 128, d_expert 1536, 2 shared experts, top-6, capacity 1.25,
+# router group 4096) through the launcher's setup, cut where one card
+# forces it: a fused 2-client round holds 13-14.3 fp32 copies of d (phase
+# 14), so a card holds about 1.4B parameters.  Depth 60 -> 2 (the leading
+# dense layer and one MoE layer, the MoE period), routed experts 160 -> 16
+# (the router 16 wide, top-k still 6; 24 would reach the card's 80 GB),
+# vocab 102,400 -> 12,800 (an eighth): d = 1,203,480,576
+MOE_ARCH = "deepseek-v2-236b"
+MOE_CUTS = {"n_layers": 2, "n_experts": 16, "vocab": 12_800}
+MOE_ARGV = ["--clients", "2", "--comm", "pallas", "--uplink", "topk"]
+MOE_FREE_GB = 5.0              # 15(a)'s peak must leave this much free
+MOE_MARGIN = 1e-5              # 15(b): idx must agree where the CPU's
+                               # k-th minus (k+1)-th probability exceeds it
+MOE_RTOL = 1e-4                # 15(b): y and aux + 1, card against CPU
+MOE_CHECK_ARCHS = ["deepseek-v2-236b", "deepseek-v3-671b"]     # 15(c)
+
+
+def moe_cut(cfg):
+    """15(a)'s config: ``cfg`` with :data:`MOE_CUTS`."""
+    return dataclasses.replace(
+        cfg, n_layers=MOE_CUTS["n_layers"], vocab=MOE_CUTS["vocab"],
+        moe=dataclasses.replace(cfg.moe, n_experts=MOE_CUTS["n_experts"]))
+
+
+class MoEInputRecorder:
+    """While active, records the tokens ``x [T, d]`` that enter every
+    ``moe.moe_ffn`` call (the hidden state after an MoE layer's ln2)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe.moe_ffn
+        self.inputs = []
+
+        def wrapped(p, x, mcfg):
+            self.inputs.append(x.detach().clone())
+            return self._orig(p, x, mcfg)
+        moe.moe_ffn = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_ffn = self._orig
+
+
+def profile_device(torch, fn) -> tuple:
+    """``fn()`` once under ``torch.profiler``: ``(device ms, kernel
+    launches, the profile's key averages of device work)``."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.engine import rounds
-    batches = batch_fn(0, torch.Generator().manual_seed(7))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rounds.round_step(state, batches, loss_pair, fed, device=dev)
+        fn()
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
     # device-side entries only: an operator's entry repeats the time of
     # the kernels it launched, a span's device-side annotation their extent
     kernels = [e for e in prof.key_averages()
                if is_kernel(e) and dev_us(e) > 0]
-    total_ms = sum(dev_us(e) for e in kernels) / 1e3
+    return (sum(dev_us(e) for e in kernels) / 1e3,
+            sum(e.count for e in kernels), kernels)
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def moe_layer_parts(torch, p, mcfg, x) -> dict:
+    """The MoE layer's device cost on 15(a)'s tokens: CUDA-event ms of the
+    forward's parts (routing, dispatch, expert GEMMs, combine) and, under
+    the profiler, the device ms and launches of the layer's forward and
+    backward."""
+    from repro_torch.comm import payloads
+    from repro_torch.models import moe
+    E, k = mcfg.n_experts, mcfg.top_k
+    with torch.no_grad():
+        xg = moe.groups(x, mcfg)
+        ng, G, d = xg.shape
+        C = moe.capacity(G, mcfg)
+        probs, gates, idx = moe.route(p["router"], xg, k)
+        ein, slot, keep = moe.dispatch(xg, idx, E, C)
+        ei = ein.transpose(0, 1).reshape(E, ng * C, d)
+        eo = moe.experts(p["experts"], ei).reshape(E, ng, C, d) \
+            .transpose(0, 1)
+        parts = {
+            "route_ms": time_ms(torch, lambda: moe.route(p["router"], xg, k)),
+            "dispatch_ms": time_ms(torch, lambda: moe.dispatch(xg, idx, E,
+                                                               C)),
+            "experts_ms": time_ms(torch, lambda: moe.experts(p["experts"],
+                                                             ei)),
+            "combine_ms": time_ms(torch, lambda: moe.combine(eo, slot, gates,
+                                                             keep)),
+            "forward_ms": time_ms(torch, lambda: moe.moe_ffn(p, x, mcfg))}
+    # copies of the layer's weights that take gradients
+    grads = payloads.tree_map(
+        lambda v: v.detach().clone().requires_grad_(True), p)
+
+    def fwd_bwd():
+        y, aux = moe.moe_ffn(grads, x, mcfg)
+        (y.square().mean() + aux).backward()
+    fwd_bwd()
+    ms, launches, _ = profile_device(torch, fwd_bwd)
+    parts.update({"fwd_bwd_device_ms": ms, "fwd_bwd_launches": launches,
+                  "tokens": int(x.shape[0]), "groups": ng, "capacity": C,
+                  "dropped_choices": int((~keep).sum())})
+    return parts
+
+
+def moe_layer_check(torch, p, mcfg, x) -> dict:
+    """Phase 15(b): the MoE layer at full width on the card and on the CPU
+    from the same tokens ``x`` (15(a)'s hidden state) and weights.  ``idx``
+    must be equal wherever the CPU's margin exceeds :data:`MOE_MARGIN`
+    (the count under it printed); on the tokens whose routing (choices and
+    kept slots) agrees, y within rtol 1e-4 and atol 1e-4 x rms(y), and
+    with no flip aux + 1 within rtol 1e-4; the card's draw-free core on the
+    CPU's routing gives y (every token) and aux + 1 within the same."""
+    from repro_torch.models import moe
+    E, k, T = mcfg.n_experts, mcfg.top_k, x.shape[0]
+    res = {}
+    with torch.no_grad():
+        for device in ("cuda", "cpu"):
+            pp = p if device == "cuda" else to_device(p, "cpu")
+            xg = moe.groups(x.to(device), mcfg)
+            probs, gates, idx = moe.route(pp["router"], xg, k)
+            keep = moe.dispatch(xg, idx, E, moe.capacity(xg.shape[1],
+                                                         mcfg))[2]
+            y, aux = moe.moe_core(pp, xg, probs, gates, idx, mcfg, T)
+            res[device] = {"probs": probs.cpu(), "gates": gates.cpu(),
+                           "idx": idx.cpu(), "keep": keep.cpu(),
+                           "y": y.cpu(), "aux": float(aux)}
+        cpu, card = res["cpu"], res["cuda"]
+        core_y, core_aux = moe.moe_core(
+            p, moe.groups(x, mcfg), cpu["probs"].cuda(), cpu["gates"].cuda(),
+            cpu["idx"].cuda(), mcfg, T)
+    srt = cpu["probs"].sort(-1, descending=True).values
+    margin = (srt[..., k - 1] - srt[..., k]).reshape(-1)[:T]
+    same_idx = (card["idx"] == cpu["idx"]).all(-1).reshape(-1)[:T]
+    same_keep = (card["keep"] == cpu["keep"]).reshape(
+        -1, k).all(-1)[:T]
+    agree = same_idx & same_keep
+
+    def close(a, b):
+        tol = MOE_RTOL * b.abs() + MOE_RTOL * b.square().mean().sqrt()
+        return bool(((a - b).abs() <= tol).all()), float(
+            ((a - b).abs() / b.abs().max()).max())
+
+    y_ok, y_err = close(card["y"][agree], cpu["y"][agree])
+    core_ok, core_err = close(core_y.cpu(), cpu["y"])
+    flips = int((~same_idx).sum())
+    aux_ok = flips > 0 or math.isclose(card["aux"] + 1, cpu["aux"] + 1,
+                                       rel_tol=MOE_RTOL)
+    core_aux_ok = math.isclose(float(core_aux) + 1, cpu["aux"] + 1,
+                               rel_tol=MOE_RTOL)
+    rec = {"tokens": T, "experts": E, "top_k": k,
+           "under_margin": int((margin <= MOE_MARGIN).sum()),
+           "margin": MOE_MARGIN, "flipped": flips,
+           "flipped_over_margin": int((~same_idx & (margin > MOE_MARGIN))
+                                      .sum()),
+           "tokens_compared": int(agree.sum()),
+           "y_max_err_of_max": y_err, "core_y_max_err_of_max": core_err,
+           "aux": [card["aux"], cpu["aux"]], "core_aux": float(core_aux),
+           "rtol": MOE_RTOL}
+    rec["ok"] = (rec["flipped_over_margin"] == 0 and y_ok and core_ok
+                 and aux_ok and core_aux_ok)
+    print(json.dumps({"moe_layer_check": "15(b) card vs CPU", **rec}),
+          flush=True)
+    if not rec["ok"]:
+        raise AssertionError(f"15(b): the MoE layer differs between the "
+                             f"card and the CPU: {rec}")
+    return rec
+
+
+def moe_cell_record(state, hist, batches, pair, fed, dev) -> dict:
+    """15(a)'s checks after the counted rounds: one more round whose every
+    wire-kernel launch is held against its plain version; the memory
+    left; the MoE layer's costs (:func:`moe_layer_parts`) and 15(b)
+    (:func:`moe_layer_check`) on the hidden state that enters the MoE
+    layer in a forward of client 0's batch."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.models import build
+    rec = plain_check_record(state, hist, batches, pair, fed, dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    rec["memory"] = {"peak_gb": peak, "total_gb": total,
+                     "free_gb": total - peak,
+                     "copies_of_d": peak / (4 * state.spec.d / 1e9)}
+    print(json.dumps({"moe_memory": rec["memory"]}), flush=True)
+    if total - peak < MOE_FREE_GB:
+        raise AssertionError(f"15(a) leaves {total - peak:.1f} GB free, "
+                             f"under {MOE_FREE_GB}")
+    cfg = moe_cut(configs.get_config(MOE_ARCH))
+    params = flat.unflatten(state.spec, state.w)
+    toks = batches(0, torch.Generator().manual_seed(7)).tokens[0]
+    with torch.no_grad(), MoEInputRecorder() as seen:
+        build(cfg).forward(params, cfg, toks)
+    lp = params["moe_layers"]["moe"]
+    layer = {"router": lp["router"][0],
+             "experts": {kk: v[0] for kk, v in lp["experts"].items()}}
+    if "shared" in lp:
+        layer["shared"] = {kk: v[0] for kk, v in lp["shared"].items()}
+    x = seen.inputs[0]
+    rec["moe_layer"] = moe_layer_parts(torch, layer, cfg.moe, x)
+    print(json.dumps({"moe_layer_parts": rec["moe_layer"]}), flush=True)
+    rec["layer_check"] = moe_layer_check(torch, layer, cfg.moe, x)
+    return rec
+
+
+def moe_phase(torch, dev, T: int) -> tuple:
+    """Phase 15: (a) deepseek-v2-236b at its published widths with
+    :data:`MOE_CUTS`, T rounds through the launcher's setup and
+    ``run_rounds`` (2 clients, pallas top-k 0.1 up, the router-imbalance
+    constraint), then :func:`moe_cell_record` (with 15(b)); (c) the
+    reduced deepseek-v2 and v3 (MTP, low-rank queries), 2 rounds card
+    against CPU on 14(d)'s two wires.  Returns ``(record, launch
+    records)``."""
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import CompressorConfig
+    t0 = time.time()
+    full = configs.get_config(MOE_ARCH)
+    cfg = moe_cut(full)
+    spec = meta_spec(torch, cfg)
+    layout = flat.wire_layout(spec, CompressorConfig(kind="topk", ratio=0.1))
+    cuts = {"n_layers": [full.n_layers, cfg.n_layers],
+            "n_experts": [full.moe.n_experts, cfg.moe.n_experts],
+            "vocab": [full.vocab, cfg.vocab]}
+    print(json.dumps({"moe_cell": "15a " + MOE_ARCH, "cuts": cuts,
+                      "d": spec.d, "blocks": [r.block for r in layout.runs],
+                      "k": [r.k for r in layout.runs]}), flush=True)
+    name = f"15a {MOE_ARCH}"
+    cell = train_phase(torch, name, ["--arch", MOE_ARCH] + MOE_ARGV, T,
+                       after=moe_cell_record, cfg=cfg, d_want=spec.d)
+    cell.update({"arch": MOE_ARCH, "cuts": cuts,
+                 "seconds": time.time() - t0})
+    t0 = time.time()
+    checks = family_card_check(torch, MOE_CHECK_ARCHS, "15(c)")
+    seconds = {"15a": cell["seconds"], "15c": time.time() - t0}
+    print(json.dumps({"moe_seconds": seconds}), flush=True)
+    return ({"cell": cell, "checks": checks, "seconds": seconds},
+            [{"phase": name, "launches": cell["launches"]}])
+
+
+def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
+    """One more round (after the counted ones) under ``torch.profiler``:
+    the device time by operator and the device's busy share of an
+    unprofiled round's wall time ``s_round``."""
+    from repro_torch.engine import rounds
+    batches = batch_fn(0, torch.Generator().manual_seed(7))
+    total_ms, launches, kernels = profile_device(
+        torch, lambda: rounds.round_step(state, batches, loss_pair, fed,
+                                         device=dev))
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    return {"device_ms": total_ms, "kernel_launches":
-            sum(e.count for e in kernels),
+    return {"device_ms": total_ms, "kernel_launches": launches,
             "busy_share": (total_ms / 1e3 / s_round if s_round else None),
             "top_ms": {e.key[:120]: dev_us(e) / 1e3 for e in top},
             "top_calls": {e.key[:120]: e.count for e in top}}
@@ -2838,10 +3089,11 @@ def main(argv=None) -> int:
     async_rec, async_launches = async_phase(torch, dev)
     scale_rec, scale_launches = scale_phase(torch, dev, args.rounds)
     family_rec, family_launches = family_phase(torch, dev, args.rounds)
+    moe_rec, moe_launches = moe_phase(torch, dev, args.rounds)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
-        + async_launches + scale_launches + family_launches
+        + async_launches + scale_launches + family_launches + moe_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -2858,6 +3110,7 @@ def main(argv=None) -> int:
                                     "async": async_rec,
                                     "scale": scale_rec,
                                     "families": family_rec,
+                                    "moe": moe_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

@@ -1,16 +1,19 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)`` (port of
-``repro.configs``; the token-only architectures are registered, the others
-raise ``NotImplementedError`` naming what they still need)."""
+``repro.configs``; the token-only and moe architectures are registered,
+the others raise ``NotImplementedError`` naming what they still need)."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (CompressorConfig,  # noqa: F401
-                                      FedConfig, FleetConfig, ModelConfig,
-                                      RGLRUConfig, ScaleConfig, SSMConfig,
-                                      SwitchConfig, reduce_model)
+                                      FedConfig, FleetConfig, MLAConfig,
+                                      ModelConfig, MoEConfig, RGLRUConfig,
+                                      ScaleConfig, SSMConfig, SwitchConfig,
+                                      reduce_model)
 
 ALIASES = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "qwen3-4b": "qwen3_4b",
     "mamba2-130m": "mamba2_130m",
     "minitron-4b": "minitron_4b",
@@ -21,9 +24,6 @@ ALIASES = {
 
 # the reference's other architectures -> what the port still lacks for them
 MISSING = {
-    "deepseek-v3-671b": "the moe family (MoE routing, MLA, MTP, "
-                        "aux_constraint)",
-    "deepseek-v2-236b": "the moe family (MoE routing, MLA, aux_constraint)",
     "llama-3.2-vision-90b": "the vlm family (cross-attention, "
                             "LMBatch.media)",
     "whisper-small": "the audio family (the whisper encoder-decoder, "

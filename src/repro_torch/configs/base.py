@@ -1,7 +1,7 @@
 """Configuration dataclasses (port of ``repro.configs.base``, the part the
-LM trainer's token-only families (dense, patterned dense, Mamba-2,
-Griffin) on every wire, the async engine, obs and the population scale-out
-need).
+LM trainer's families (dense, patterned dense, Mamba-2, Griffin, the
+DeepSeek MoE with MLA and MTP) on every wire, the async engine, obs and
+the population scale-out need).
 
 Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
 full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
@@ -16,6 +16,27 @@ from typing import Optional, Tuple
 # ---------------------------------------------------------------------------
 # Model configuration
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0              # routed experts
+    n_shared: int = 0               # shared (always-on) experts
+    top_k: int = 1
+    d_expert: int = 0               # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    router_group: int = 1024        # GShard-style routing group size (tokens)
+    balance_budget: float = 0.02    # constraint budget for g(w) = imbalance - budget
+    first_dense: int = 1            # leading layers with dense FFN (deepseek)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0            # 0 => full-rank q projection
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
 
 @dataclass(frozen=True)
 class SSMConfig:
@@ -38,7 +59,7 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | ssm | hybrid (ported so far)
+    family: str                     # dense | moe | ssm | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -52,9 +73,12 @@ class ModelConfig:
     norm_eps: float = 1e-6
     window: int = 0                 # 0 => full attention
     local_global_ratio: int = 0     # e.g. 5 => 5 local : 1 global
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     cross_attn_every: int = 0
+    mtp_depth: int = 0              # deepseek-v3 multi-token prediction depth
 
     @property
     def resolved_head_dim(self) -> int:
@@ -62,7 +86,8 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count, the reference's (approximate for the
-        ssm family, norms and biases left out; embeddings included)."""
+        ssm and moe families, norms and biases left out, every moe layer
+        counted with experts; embeddings included)."""
         d, L, V = self.d_model, self.n_layers, self.vocab
         hd = self.resolved_head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
@@ -70,10 +95,32 @@ class ModelConfig:
             di = self.ssm.expand * d
             per_layer = d * (2 * di) + di * self.ssm.d_conv + di * d \
                 + 2 * di * self.ssm.d_state // max(self.ssm.n_groups, 1)
+        elif self.mla is not None:
+            m = self.mla
+            qdim = self.n_heads * (m.nope_head_dim + m.rope_head_dim)
+            q = d * m.q_lora_rank + m.q_lora_rank * qdim if m.q_lora_rank \
+                else d * qdim
+            kv = d * (m.kv_lora_rank + m.rope_head_dim) + m.kv_lora_rank \
+                * self.n_heads * (m.nope_head_dim + m.v_head_dim)
+            per_layer = q + kv + self.n_heads * m.v_head_dim * d
         else:
             per_layer = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
-                + self.n_heads * hd * d + 3 * d * self.d_ff
+                + self.n_heads * hd * d
+        if self.moe is not None:
+            e = self.moe
+            per_layer += 3 * d * e.d_expert * (e.n_shared + e.n_experts) \
+                + d * e.n_experts
+        elif self.ssm is None:
+            per_layer += 3 * d * self.d_ff
         return emb + L * per_layer
+
+    def n_active_params(self) -> int:
+        """Per-token active params (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.n_params()
+        e = self.moe
+        inactive = 3 * self.d_model * e.d_expert * (e.n_experts - e.top_k)
+        return self.n_params() - self.n_layers * inactive
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +267,14 @@ def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab=min(cfg.vocab, 512),
         head_dim=32 if cfg.head_dim else 0,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, n_shared=min(cfg.moe.n_shared, 1),
+            top_k=2, d_expert=64, router_group=64, first_dense=1)
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(
+            kv_lora_rank=32, q_lora_rank=(32 if cfg.mla.q_lora_rank else 0),
+            rope_head_dim=16, nope_head_dim=16, v_head_dim=16)
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16,
                                         chunk=32)

@@ -33,6 +33,10 @@
     # recurrentgemma-2b (hybrid); --reduced for the smoke variants
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --clients 8 --participating 4 --participation gather --comm pallas
+    # the moe family (MLA, routed experts; deepseek-v3 with MTP), its
+    # constraint g the router's load imbalance minus the budget 6
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-236b --reduced --device cpu --comm pallas
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
@@ -87,7 +91,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
                     help="a config of repro_torch.configs.ALIASES (the "
-                         "reference's moe, vlm and audio archs raise)")
+                         "reference's vlm and audio archs raise)")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced smoke-test config")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -221,7 +225,9 @@ def setup(args, cfg=None):
                            depart=args.depart),
         scale=ScaleConfig(ef_slots=args.ef_slots, cohorts=args.cohorts),
         obs=ObsConfig(enabled=args.obs, window=args.obs_window))
-    loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
+    # MoE models take the router's load imbalance as the constraint g
+    loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0,
+                                  aux_constraint=cfg.moe is not None)
     state = rounds.init_state(params, fed, device=dev)
     del params                  # the state's flat buffer is the model now
     if args.fleet:

@@ -1,6 +1,7 @@
 """Model registry: dispatch on ``ModelConfig.family`` (port of
 ``repro.models``; the training forwards of the token-only families are
-ported: ``dense`` (homogeneous or patterned), ``ssm`` and ``hybrid``)."""
+ported: ``dense`` (homogeneous or patterned), ``moe`` (MLA, routed
+experts, MTP), ``ssm`` and ``hybrid``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -12,7 +13,6 @@ from repro_torch.configs.base import ModelConfig
 
 # the reference's other families -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    "moe": "Queue 1 item 6b (MoE routing, MLA, MTP, aux_constraint)",
     "vlm": "Queue 1 item 6c (cross-attention, LMBatch.media)",
     "audio": "Queue 1 item 6c (the whisper encoder-decoder, LMBatch.media)",
 }
@@ -20,13 +20,16 @@ _NOT_PORTED = {
 
 class ModelFns(NamedTuple):
     init: object             # (gen, cfg, device) -> params
-    forward: object          # (params, cfg, tokens) -> logits
+    forward: object          # (params, cfg, tokens) -> logits, or for
+                             # moe (logits, aux[, mtp_logits])
     param_shapes: object     # cfg -> the params' tree of leaf shapes
 
 
 def build(cfg: ModelConfig) -> ModelFns:
     if cfg.family == "dense":
         from repro_torch.models import transformer as m
+    elif cfg.family == "moe":
+        from repro_torch.models import moe_transformer as m
     elif cfg.family == "ssm":
         from repro_torch.models import mamba2 as m
     elif cfg.family == "hybrid":

@@ -78,8 +78,10 @@ def stack_shapes(shapes, n: int):
 
 # leaves drawn or filled by name (the reference's initializers); every
 # other leaf is a fan-in scaled normal, its fan-in the axis before the last
-_ZEROS = {"ln", "ln1", "ln2", "ln_f", "gnorm", "q_norm", "k_norm", "conv_b",
-          "b_a", "b_i"}
+# (the reference's ``in_axis=1`` for the ``[E, d, de]`` / ``[E, de, d]``
+# experts, stacked or not)
+_ZEROS = {"ln", "ln1", "ln2", "ln_f", "gnorm", "q_norm", "k_norm", "kv_norm",
+          "conv_b", "b_a", "b_i"}
 
 
 def _init_leaf(gen, name: str, shape: tuple, device) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Language-model task for FedSGM (port of ``repro.tasks.lm``, dense path).
+"""Language-model task for FedSGM (port of ``repro.tasks.lm``, the
+token-only path).
 
 The objective f is next-token CE on ordinary tokens; the constraint g is CE
-on the minority slice (rare-token domain) minus a budget.
+on the minority slice (rare-token domain) minus a budget, or for MoE
+models the router's load imbalance minus the budget (``aux_constraint``).
 """
 from __future__ import annotations
 
@@ -34,15 +36,35 @@ def make_fleet(gen: torch.Generator, fed_cfg, pool: int, seq_len: int,
     return provision.from_stacked(LMBatch(tokens=toks, minority_mask=mask))
 
 
-def make_loss_pair(model_forward, cfg: ModelConfig, budget: float = 0.0):
-    """``loss_pair(params, batch) -> (f, g)`` scalars for ``round_step``."""
+def make_loss_pair(model_forward, cfg: ModelConfig, budget: float = 0.0,
+                   aux_constraint: bool = False, mtp_weight: float = 0.3):
+    """``loss_pair(params, batch) -> (f, g)`` scalars for ``round_step``.
+
+    A forward may return ``(logits, aux)`` or ``(logits, aux,
+    mtp_logits)`` (the moe family); the MTP logits at t predict token
+    t+2 and add ``mtp_weight`` times their CE to f.  ``aux_constraint``
+    makes g the model's aux scalar (the MoE load imbalance) minus
+    ``budget``."""
 
     def loss_pair(params, batch: LMBatch):
-        out = model_forward(params, cfg, batch.tokens)[:, :-1]
+        out = model_forward(params, cfg, batch.tokens)
+        aux, mtp_logits = None, None
+        if isinstance(out, tuple):
+            if len(out) == 3:
+                out, aux, mtp_logits = out
+            else:
+                out, aux = out
+        out = out[:, :-1]
         targets = batch.tokens[:, 1:]
         mmask = batch.minority_mask[:, 1:]
         f = common.cross_entropy(out, targets, mask=1.0 - mmask)
-        g = common.cross_entropy(out, targets, mask=mmask) - budget
+        if mtp_logits is not None:
+            f = f + mtp_weight * common.cross_entropy(mtp_logits[:, :-1],
+                                                      targets[:, 1:])
+        if aux_constraint and aux is not None:
+            g = aux - budget
+        else:
+            g = common.cross_entropy(out, targets, mask=mmask) - budget
         return f, g
 
     return loss_pair

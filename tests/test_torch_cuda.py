@@ -1005,10 +1005,74 @@ def test_family_forward_and_grad_on_card_match_cpu(dev, arch):
     torch.testing.assert_close(dc, dh, rtol=1e-3, atol=1e-6)
 
 
+MOE_ARCHS = ["deepseek-v2-236b", "deepseek-v3-671b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_and_grads_on_card_match_cpu(dev, arch):
+    """Each moe arch at its reduced size, seq 40 (routing groups of 64
+    over 80 tokens: pad tokens on uniform probabilities): logits, aux (and
+    v3's MTP logits), f, g = aux - 6 and the gradients of f and g on the
+    card against the CPU from the same weights and tokens, at the
+    tolerances of the token-only families' card test (logits, aux and f, g
+    at rtol 1e-4 / atol 1e-5, the gradients at rtol 1e-3 / atol 1e-6); the
+    top-k choices of every MoE layer equal."""
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.models import build, moe
+    from repro_torch.tasks import lm
+    cfg = configs.get_reduced(arch)
+    fns = build(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg)
+    spec = flat.spec_of(params)
+    w0 = flat.flatten(spec, params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+    mask = torch.zeros((2, 40))
+    mask[:, -4:] = 1.0
+    pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0,
+                             aux_constraint=True)
+    route = moe.route
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        chosen = []
+
+        def recording(router, xg, k):
+            probs, gates, idx = route(router, xg, k)
+            chosen.append(idx.cpu())
+            return probs, gates, idx
+        moe.route = recording
+        try:
+            w = w0.to(d).requires_grad_(True)
+            p = flat.unflatten(spec, w)
+            outs = [o.detach().cpu() for o in fns.forward(p, cfg, toks.to(d))]
+            f, g = pair(p, lm.LMBatch(toks.to(d), mask.to(d)))
+            gf, = torch.autograd.grad(f, w, retain_graph=True)
+            gg, = torch.autograd.grad(g, w)
+        finally:
+            moe.route = route
+        out[d.type] = (outs, [f.item(), g.item()], gf.cpu(), gg.cpu(),
+                       chosen)
+    card, host = out["cuda"], out["cpu"]
+    for a, b in zip(card[4], host[4]):
+        assert torch.equal(a, b)
+    for a, b in zip(card[0], host[0]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card[1], host[1], rtol=1e-4, atol=1e-5)
+    for a, b in zip(card[2:4], host[2:4]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+
+
 # (block, k) of the token-only families' top-k wire runs that the smollm
 # layouts do not have: Mamba-2's per-head leaves (24), in_proj (838),
-# conv (896); gemma3's and Griffin's 640 / 256 / 1024 / 960 blocks
-FAMILY_TOPK_BLOCKS = [(24, 2), (838, 84), (896, 90), (256, 26), (1024, 102)]
+# conv (896); gemma3's and Griffin's 640 / 256 / 1024 / 960 blocks; and
+# chip_smoke.py phase 15's deepseek-v2 at full width: MLA's kv_norm (512)
+# and wkv_a (576), the head at vocab 12,800 (800), the experts' gate and
+# up projections (768) and the 16-wide router (16)
+FAMILY_TOPK_BLOCKS = [(24, 2), (838, 84), (896, 90), (256, 26), (1024, 102),
+                      (512, 51), (576, 58), (800, 80), (768, 77), (16, 2)]
 # the quant wire's blocks of Griffin's layout
 FAMILY_QUANT_BLOCKS = [640, 960, 256]
 

@@ -114,8 +114,7 @@ def test_config_matches_reference(arch, reduced):
     assert cfg.n_params() == jcfg.n_params()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "deepseek-v2-236b",
-                                  "llama-3.2-vision-90b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small"])
 def test_unported_archs_raise(arch):
     assert arch in jax_configs.ALIASES
     with pytest.raises(NotImplementedError, match="needs the"):
@@ -125,7 +124,7 @@ def test_unported_archs_raise(arch):
                                                "--device", "cpu"]))
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_build_raises_for_unported_families(family):
     cfg = ModelConfig(name="x", family=family, n_layers=2, d_model=8,
                       n_heads=2, n_kv_heads=1, d_ff=8, vocab=16)
