@@ -65,7 +65,7 @@ Phases, each fatal on failure (nonzero exit):
 10. the NP task of the paper's Figure 1 (n = 20, m = 10, E = 5, top-k 0.1
    up and down, the dense wire): two rounds on the card against the same
    rounds on the CPU from the same shards and recorded cohorts, hard and
-   soft, then the port's quickstart on the card (60, 20 and 20 rounds
+   soft, then the port's quickstart on the card (40, 20 and 20 rounds
    for its three parts, cut from its own 500, 200 and 50 because the
    phase is bound by the host) and one more Figure-1 round under the
    profiler;
@@ -150,9 +150,27 @@ Phases, each fatal on failure (nonzero exit):
    the CPU's margin exceeds 1e-5 (the count under it printed), y and aux +
    1 within rtol 1e-4 on the tokens whose routing agrees, and the card's
    draw-free core on the CPU's routing within the same; (c) the reduced
-   deepseek-v2 and deepseek-v3 (MTP, low-rank queries) as in 14(d).
+   deepseek-v2 and deepseek-v3 (MTP, low-rank queries) as in 14(d);
+16. the vlm and audio families, T rounds each through the launcher's setup
+   and ``run_rounds``, batch 2, seq 64, each round's media drawn on the
+   CPU with its tokens: (a) llama-3.2-vision-90b at its published widths
+   (d_model 8192, GQA 64/8, head_dim 128, d_ff 28,672, 1,601 media tokens
+   of width 8192, rope theta 500,000), cut to its one cross layer (1 of
+   100 layers, ``cross_attn_every`` 1) and 16,032 of 128,256 vocab rows
+   (d = 1,118,330,881), 2 clients, pallas 8-bit quant up (block 1 for the
+   gate); (b) whisper-small whole (12 + 12 layers, 1,500 frames; d =
+   239,649,036), gather 4 of 8, pallas top-k 0.1 up and down, separate
+   eval; in each one more round whose every wire-kernel launch is held
+   against its plain version, tolerance 0, the CPU draw of a round's batch
+   timed, one more round profiled with the forward's cross-attention and
+   encoder device ms, and f of client 0 under a second media draw, which
+   must differ (in (a) with the gate set to 1: the trained one is about
+   1e-6); in (a) ``tanh(gate)`` 0 in round 1's forwards and nonzero in
+   round 2's, and the peak leaving at least 5 GB of the card free; (c)
+   the reduced llama-3.2-vision-90b (``media_proj`` 8192 -> 128) and
+   whisper-small, with media, as in 14(d).
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14 and 15 the launch counts are zeroed
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15 and 16 the launch counts are zeroed
 just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
@@ -1031,9 +1049,11 @@ def zipf_token_fleet(torch, cfg):
 # gather == mask check.  The phase is bound by the host (thousands of tiny
 # launches a round): the quickstart's own 500 / 200 / 50 rounds took 358 s
 # on an H100, so they are cut to keep the phase near a minute (and the
-# whole script, with phase 11, near half its time limit)
+# whole script, with phase 11, near half its time limit); Figure 1 from 60
+# to 40 when phase 16 came (a Figure-1 round took 0.16-0.31 s, the whole
+# script 652-1080 s, on H100 hosts of different speeds)
 NP_CHECK_ROUNDS = 2
-NP_FIGURE1_ROUNDS = 60
+NP_FIGURE1_ROUNDS = 40
 NP_SWEEP_ROUNDS = 20
 NP_ENGINE_ROUNDS = 20
 
@@ -1129,16 +1149,17 @@ def np_phase(torch, dev) -> dict:
 # rounds and horizon; the CMDP example's rounds, in chunks of CMDP_CHUNK
 # with an eval after each, and the fair example's rounds, both cut from
 # their own 300 because they are bound by the host (a CMDP round is about
-# 242,000 launches, 2.4-4.8 s on an H100 depending on its host; a fair
-# round 0.05-0.12 s) to keep the CMDP part near 40 s (20 rounds until
-# phase 12 came) and the whole script near half its time limit; the
-# weakly-convex measure's training rounds (the reference test's 150); the
-# 100m LM example's rounds
+# 242,000 launches, 2.4-5.4 s on an H100 depending on its host; a fair
+# round 0.05-0.12 s) to keep the CMDP part near 30 s (20 rounds until
+# phase 12 came, 10 until phase 16 came; the fair example 60 until then)
+# and the whole script near half its time limit; the weakly-convex
+# measure's training rounds (the reference test's 150); the 100m LM
+# example's rounds
 CMDP_CHECK_ROUNDS = 2
 CMDP_CHECK_HORIZON = 50
-CMDP_ROUNDS = 10
-CMDP_CHUNK = 10
-FAIR_ROUNDS = 60
+CMDP_ROUNDS = 5
+CMDP_CHUNK = 5
+FAIR_ROUNDS = 30
 WC_ROUNDS = 150
 LM100M_ROUNDS = 3
 
@@ -1598,11 +1619,12 @@ def is_kernel(e) -> bool:
             and not name.startswith(STAGE_PREFIXES))
 
 
-def stage_split(prof, path) -> dict:
+def stage_split(prof, path, prefixes=STAGE_PREFIXES) -> dict:
     """The device side of one profiled round, from the trace exported to
     ``path``: the round's device ms and launches (kernels, copies, sets),
-    and per span name (``round.*``, ``comm.*``, ``kernel.*``; nested spans
-    each count in full) ``device_ms``, the device time of the work launched
+    and per span name (``prefixes``: ``round.*``, ``comm.*``, ``kernel.*``
+    by default; nested spans each count in full) ``device_ms``, the device
+    time of the work launched
     while the span was open -- from any thread (the autograd engine
     launches the backward from its own), each launch matched to its device
     work by the trace's correlation ids -- and ``host_ms_profiled``, the
@@ -1626,7 +1648,7 @@ def stage_split(prof, path) -> dict:
     spans = {}
     for e in evs:
         if e.get("cat") != "user_annotation" or \
-                not e.get("name", "").startswith(STAGE_PREFIXES):
+                not e.get("name", "").startswith(prefixes):
             continue
         lo, hi = e["ts"], e["ts"] + e.get("dur", 0.0)
         o = spans.setdefault(e["name"], {"calls": 0, "device_ms": 0.0,
@@ -2637,8 +2659,10 @@ def plain_check_record(state, hist, batches, pair, fed, dev) -> dict:
 
 def family_card_check(torch, archs=FAMILY_CHECK_ARCHS,
                       label: str = "14(d)") -> list:
-    """Phase 14(d) (and 15(c) for the moe archs): each arch's reduced
-    config, 2 rounds on the card against the same rounds on the CPU, dense
+    """Phase 14(d) (15(c) for the moe archs, 16(c) for the media archs,
+    whose batches carry media ``* 0.02`` from the same numpy draws): each
+    arch's reduced config, 2 rounds on the card against the same rounds on
+    the CPU, dense
     top-k up and down then pallas 8-bit quant up: f and g_hat within
     phase 4's tolerances (rtol 1e-4), all but 0.1% of w within rtol 1e-4 /
     atol 1e-6."""
@@ -2660,7 +2684,13 @@ def family_card_check(torch, archs=FAMILY_CHECK_ARCHS,
                                                      (nc, 2, S)))
                 mask = torch.zeros((nc, 2, S))
                 mask[..., -4:] = 1.0
-                batches.append((toks, mask))
+                media = None        # the stub frontends' embeddings
+                if cfg.family in ("vlm", "audio"):
+                    media = torch.from_numpy(rng.standard_normal(
+                        (nc, 2, cfg.n_media_tokens or cfg.n_audio_frames,
+                         cfg.d_media or cfg.d_model)).astype(np.float32)
+                        * 0.02)
+                batches.append((toks, mask, media))
             res = {}
             for device in ("cuda", "cpu"):
                 # copies: a round updates its state's buffers and
@@ -2673,9 +2703,11 @@ def family_card_check(torch, archs=FAMILY_CHECK_ARCHS,
                 if on.x is not None:
                     on = on._replace(x=on.w)
                 fs, gs = [], []
-                for toks, mask in batches:
+                for toks, mask, media in batches:
                     on, met = rounds.round_step(
-                        on, lm.LMBatch(toks.to(device), mask.to(device)),
+                        on, lm.LMBatch(toks.to(device), mask.to(device),
+                                       None if media is None
+                                       else media.to(device)),
                         loss_pair, fed, device=device)
                     fs.append(float(met.f))
                     gs.append(float(met.g_hat))
@@ -2979,6 +3011,227 @@ def moe_phase(torch, dev, T: int) -> tuple:
             [{"phase": name, "launches": cell["launches"]}])
 
 
+# phase 16: the vlm and audio families.  16(a) trains llama-3.2-vision-90b
+# at its published widths (d_model 8192, GQA 64/8, head_dim 128, d_ff
+# 28,672, d_media 8192, 1,601 media tokens, rope theta 500,000) through the
+# launcher's setup, cut where one card forces it: layers 100 -> 1 and
+# cross_attn_every 5 -> 1, so the one layer is the cross layer this family
+# adds (its self layer is the dense layer the smollm phases run), and
+# vocab 128,256 -> 16,032 (an eighth): d = 1,118,330,881, about 64 GB at
+# the 14.3 fp32 copies of a fused 2-client round (a self and a cross layer
+# are 1.97B, about 113 GB).  8-bit quant up, so that every coordinate (the
+# scalar gate included) reaches the server in round 1; identity down; 2 of
+# 2, mask, fused.  16(b) trains whisper-small whole (12 + 12 layers,
+# d_model 768, 12 heads, d_ff 3072, vocab 51,865 tied, 1,500 frames): d =
+# 239,649,036; top-k 0.1 up and down, gather 4 of 8, separate eval.  Each:
+# (name, arch, cuts, launcher arguments, compressed downlink)
+MEDIA_CELLS = [
+    ("16a llama-3.2-vision-90b", "llama-3.2-vision-90b",
+     {"n_layers": 1, "cross_attn_every": 1, "vocab": 16_032},
+     ["--clients", "2", "--comm", "pallas", "--uplink", "quant"], False),
+    ("16b whisper-small", "whisper-small", {},
+     ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
+      "--participation", "gather", "--comm", "pallas", "--uplink", "topk"],
+     True),
+]
+MEDIA_FREE_GB = 5.0            # 16(a)'s peak must leave this much free
+MEDIA_GATE_CALLS = 4           # 16(a): gated calls recorded, the forwards
+                               # of its first two rounds (2 a fused round)
+MEDIA_CHECK_ARCHS = ["llama-3.2-vision-90b", "whisper-small"]   # 16(c)
+MEDIA_SPANS = ("media.",)
+
+
+class MediaSpans:
+    """While active, the forward's cross attention (``cross_kv`` and
+    ``cross_attention``) and whisper's encoder run inside profiler spans
+    ``media.cross_kv``, ``media.cross_attention`` and ``media.encode``."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import attention, whisper
+        self._orig = [(attention, "cross_kv"), (attention, "cross_attention"),
+                      (whisper, "encode")]
+        self._orig = [(m, a, getattr(m, a)) for m, a in self._orig]
+        for mod, attr, fn in self._orig:
+            def wrapped(*args, _fn=fn, _name="media." + attr, **kw):
+                with record_function(_name):
+                    return _fn(*args, **kw)
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._orig:
+            setattr(mod, attr, fn)
+
+
+class GateRecorder:
+    """While active, records ``tanh(gate)`` of the first ``limit`` gated
+    ``cross_attention`` calls (a detached copy each, read after the
+    rounds: no device sync inside them)."""
+
+    def __init__(self, torch, limit: int):
+        self.torch, self.limit, self.tanh = torch, limit, []
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self._orig = attention.cross_attention
+
+        def wrapped(p, x, kv, *, gated=True, **kw):
+            if gated and len(self.tanh) < self.limit:
+                self.tanh.append(self.torch.tanh(p["gate"].detach()))
+            return self._orig(p, x, kv, gated=gated, **kw)
+        attention.cross_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.cross_attention = self._orig
+
+
+def media_cell_record(state, hist, batches, pair, fed, dev,
+                      gates=None) -> dict:
+    """16(a) and 16(b)'s checks after the counted rounds: one more round
+    whose every wire-kernel launch is held against its plain version; the
+    memory left (16(a): at least :data:`MEDIA_FREE_GB`); the CPU draw of
+    one round's batch, timed alone; one more round under the profiler with
+    the :class:`MediaSpans` (the forward's device ms in cross attention
+    and in the encoder); f of client 0's rows under the round's media and
+    under a second draw, which must differ (for the vlm with its gates
+    set to 1, beside the pair at the trained gates); for the vlm,
+    ``tanh(gate)`` 0 in round 1's forwards and nonzero in round 2's
+    (``gates``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.comm import flat
+    from repro_torch.engine import rounds
+    rec = plain_check_record(state, hist, batches, pair, fed, dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    rec["memory"] = {"peak_gb": peak, "total_gb": total,
+                     "free_gb": total - peak,
+                     "copies_of_d": peak / (4 * state.spec.d / 1e9)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = batches(0, torch.Generator().manual_seed(7))
+    torch.cuda.synchronize()
+    rec["batch_draw_s"] = time.perf_counter() - t0
+    rec["media_shape"] = list(b.media.shape)
+    with MediaSpans(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        rounds.round_step(state, b, pair, fed, device=dev)
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "trace_media_round.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    split = stage_split(prof, trace, MEDIA_SPANS)
+    rec["media_spans"] = {"device_ms": split["device_ms"],
+                          "launches": split["launches"],
+                          "spans": split["spans"]}
+    params = flat.unflatten(state.spec, state.w)
+    one = rounds.client_batch(b, 0)
+    other = one._replace(media=(torch.randn(
+        tuple(one.media.shape), generator=torch.Generator().manual_seed(8))
+        * 0.02).to(dev))
+
+    def f_pair(p):
+        with torch.no_grad():
+            return [float(pair(p, one)[0]), float(pair(p, other)[0])]
+    rec["f_two_media_draws"] = f_pair(params)
+    if gates is not None:
+        # the trained tanh(gate) is about 1e-6 after T rounds: the stub
+        # media (0.02 normals) averaged over 1,601 positions give the cross
+        # layer an output of about 5e-4, so the gate's gradient is small,
+        # and f at float32 does not resolve the media through the trained
+        # gate; the forward's reading of the media is shown at gate 1
+        opened = dict(params, blocks=[
+            dict(blk, attn=dict(blk["attn"],
+                                gate=torch.ones_like(blk["attn"]["gate"])))
+            if "gate" in blk["attn"] else blk for blk in params["blocks"]])
+        rec["f_two_media_draws_gate_1"] = f_pair(opened)
+        f1, f2 = rec["f_two_media_draws_gate_1"]
+    else:
+        f1, f2 = rec["f_two_media_draws"]
+    ok = math.isfinite(f1) and math.isfinite(f2) and f1 != f2
+    if gates is not None:
+        tanh = [float(g) for g in gates.tanh]
+        rec["tanh_gate_per_forward"] = tanh
+        rec["tanh_gate_last"] = float(torch.tanh(
+            params["blocks"][0]["attn"]["gate"]).reshape(-1)[0])
+        half = MEDIA_GATE_CALLS // 2
+        ok = ok and len(tanh) == MEDIA_GATE_CALLS \
+            and all(v == 0.0 for v in tanh[:half]) \
+            and all(v != 0.0 for v in tanh[half:])
+        ok = ok and total - peak >= MEDIA_FREE_GB
+    rec["media_ok"] = ok
+    print(json.dumps({"media_check": {k: rec[k] for k in (
+        "memory", "batch_draw_s", "media_shape", "f_two_media_draws",
+        "media_ok") + (("f_two_media_draws_gate_1", "tanh_gate_per_forward",
+                        "tanh_gate_last") if gates is not None else ())},
+        "media_spans": rec["media_spans"]}), flush=True)
+    if not ok:
+        raise AssertionError(f"phase 16: the media do not reach the loss, "
+                             f"the gate did not move, or the memory left "
+                             f"is under {MEDIA_FREE_GB} GB: {rec}")
+    return rec
+
+
+def media_phase(torch, dev, T: int) -> tuple:
+    """Phase 16: (a), (b) the :data:`MEDIA_CELLS`, T rounds each through
+    the launcher's setup and ``run_rounds``, then
+    :func:`media_cell_record`; (c) the reduced llama-3.2-vision-90b and
+    whisper-small, 2 rounds card against CPU on 14(d)'s two wires.
+    Returns ``(record, launch records)``."""
+    import functools
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import CompressorConfig
+    cells = []
+    for name, arch, cuts, argv, downlink in MEDIA_CELLS:
+        t0 = time.time()
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, **cuts)
+        spec = meta_spec(torch, cfg)
+        kind = argv[argv.index("--uplink") + 1]
+        layout = flat.wire_layout(spec, CompressorConfig(kind=kind,
+                                                         ratio=0.1))
+        print(json.dumps({"media_cell": name, "d": spec.d,
+                          "cuts": {k: [getattr(full, k), v]
+                                   for k, v in cuts.items()},
+                          "blocks": [r.block for r in layout.runs],
+                          "k": [r.k for r in layout.runs]}), flush=True)
+        with (GateRecorder(torch, MEDIA_GATE_CALLS) if cfg.family == "vlm"
+              else contextlib.nullcontext()) as gates:
+            rec = train_phase(
+                torch, name, ["--arch", arch] + argv, T, downlink=downlink,
+                after=functools.partial(media_cell_record, gates=gates),
+                cfg=cfg, d_want=spec.d)
+        spans = rec["media_spans"]["spans"]
+        summary = {
+            "media_cell": name, "d": rec["d"],
+            "s_per_round_after_first": rec["s_per_round_after_first"],
+            "batch_draw_s": rec["batch_draw_s"],
+            "device_ms": rec["profile"]["device_ms"],
+            "launches": rec["profile"]["kernel_launches"],
+            "busy_share": rec["profile"]["busy_share"],
+            "peak_gb": rec["peak_mem_gb"],
+            "cross_attention_fwd_device_ms": sum(
+                spans.get(k, {}).get("device_ms", 0.0)
+                for k in ("media.cross_kv", "media.cross_attention")),
+            "encoder_fwd_device_ms": spans.get("media.encode", {}).get(
+                "device_ms")}
+        print(json.dumps(summary), flush=True)
+        rec.update({"arch": arch, "cuts": cuts, "summary": summary,
+                    "seconds": time.time() - t0})
+        cells.append(rec)
+    t0 = time.time()
+    checks = family_card_check(torch, MEDIA_CHECK_ARCHS, "16(c)")
+    seconds = {c["phase"]: c["seconds"] for c in cells}
+    seconds["16c"] = time.time() - t0
+    print(json.dumps({"media_seconds": seconds}), flush=True)
+    return ({"cells": cells, "checks": checks, "seconds": seconds},
+            [{"phase": c["phase"], "launches": c["launches"]}
+             for c in cells])
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -3090,10 +3343,12 @@ def main(argv=None) -> int:
     scale_rec, scale_launches = scale_phase(torch, dev, args.rounds)
     family_rec, family_launches = family_phase(torch, dev, args.rounds)
     moe_rec, moe_launches = moe_phase(torch, dev, args.rounds)
+    media_rec, media_launches = media_phase(torch, dev, args.rounds)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
-        + async_launches + scale_launches + family_launches + moe_launches
+        + async_launches + scale_launches + family_launches + moe_launches \
+        + media_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -3111,6 +3366,7 @@ def main(argv=None) -> int:
                                     "scale": scale_rec,
                                     "families": family_rec,
                                     "moe": moe_rec,
+                                    "media": media_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

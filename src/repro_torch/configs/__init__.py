@@ -1,6 +1,5 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)`` (port of
-``repro.configs``; the token-only and moe architectures are registered,
-the others raise ``NotImplementedError`` naming what they still need)."""
+``repro.configs``; every architecture of the reference is registered)."""
 from __future__ import annotations
 
 import importlib
@@ -19,26 +18,17 @@ ALIASES = {
     "minitron-4b": "minitron_4b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "smollm-360m": "smollm_360m",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
     "gemma3-4b": "gemma3_4b",
-}
-
-# the reference's other architectures -> what the port still lacks for them
-MISSING = {
-    "llama-3.2-vision-90b": "the vlm family (cross-attention, "
-                            "LMBatch.media)",
-    "whisper-small": "the audio family (the whisper encoder-decoder, "
-                     "LMBatch.media)",
+    "whisper-small": "whisper_small",
 }
 
 
 def _module(name: str):
     mod = ALIASES.get(name)
     if mod is None:
-        lacks = MISSING.get(name)
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet"
-            + (f": it needs {lacks}" if lacks else "")
-            + f"; ported: {sorted(ALIASES)}")
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{sorted(ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -1,7 +1,8 @@
 """Configuration dataclasses (port of ``repro.configs.base``, the part the
 LM trainer's families (dense, patterned dense, Mamba-2, Griffin, the
-DeepSeek MoE with MLA and MTP) on every wire, the async engine, obs and
-the population scale-out need).
+DeepSeek MoE with MLA and MTP, the cross-attention VLM, the whisper
+encoder-decoder) on every wire, the async engine, obs and the population
+scale-out need).
 
 Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
 full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
@@ -59,7 +60,7 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid (ported so far)
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -77,7 +78,14 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    # cross-attention (VLM): every `cross_attn_every` layers insert a cross block
     cross_attn_every: int = 0
+    n_media_tokens: int = 0         # stub frontend: patches/frames per example
+    d_media: int = 0                # stub embedding dim (0 => d_model)
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    n_audio_frames: int = 0
+    max_target_len: int = 448
     mtp_depth: int = 0              # deepseek-v3 multi-token prediction depth
 
     @property
@@ -87,7 +95,8 @@ class ModelConfig:
     def n_params(self) -> int:
         """Analytic parameter count, the reference's (approximate for the
         ssm and moe families, norms and biases left out, every moe layer
-        counted with experts; embeddings included)."""
+        counted with experts; a cross layer counted on top of the self
+        layers it replaces; embeddings included)."""
         d, L, V = self.d_model, self.n_layers, self.vocab
         hd = self.resolved_head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
@@ -112,7 +121,13 @@ class ModelConfig:
                 + d * e.n_experts
         elif self.ssm is None:
             per_layer += 3 * d * self.d_ff
-        return emb + L * per_layer
+        total = emb + L * per_layer
+        if self.cross_attn_every:
+            n_cross = L // self.cross_attn_every
+            total += n_cross * (4 * d * d + 3 * d * self.d_ff)
+        if self.encoder_layers:
+            total += self.encoder_layers * (4 * d * d + 2 * d * self.d_ff)
+        return total
 
     def n_active_params(self) -> int:
         """Per-token active params (MoE: top_k + shared experts only)."""
@@ -282,5 +297,13 @@ def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=0, window=32)
     if cfg.window:
         kw["window"] = 32
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
+        kw["n_audio_frames"] = 16
+    if cfg.cross_attn_every:
+        kw["cross_attn_every"] = 2
+        kw["n_media_tokens"] = 8
+    if cfg.n_media_tokens and not cfg.cross_attn_every:
+        kw["n_media_tokens"] = 8
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)

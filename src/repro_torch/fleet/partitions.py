@@ -296,17 +296,22 @@ def shift_core(shards, normals, shift: float):
 
 
 def leaves_of(batch) -> list:
-    """The tensors of a batch tuple (or of a single tensor)."""
-    return list(batch) if isinstance(batch, tuple) else [batch]
+    """The tensors of a batch tuple (or of a single tensor).  A ``None``
+    field (``LMBatch.media`` of a token-only batch) is no leaf, as in
+    ``jax.tree_util``."""
+    if isinstance(batch, tuple):
+        return [x for x in batch if x is not None]
+    return [batch]
 
 
 def rebuild(batch, leaves):
-    """``batch``'s tuple type (a NamedTuple too) over new ``leaves``."""
-    if hasattr(batch, "_fields"):
-        return type(batch)(*leaves)
-    if isinstance(batch, tuple):
-        return tuple(leaves)
-    return leaves[0]
+    """``batch``'s tuple type (a NamedTuple too) over new ``leaves``, one
+    for each tensor field in order; ``None`` fields stay ``None``."""
+    if not isinstance(batch, tuple):
+        return leaves[0]
+    it = iter(leaves)
+    vals = [None if x is None else next(it) for x in batch]
+    return type(batch)(*vals) if hasattr(batch, "_fields") else tuple(vals)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,13 @@
     # constraint g the router's load imbalance minus the budget 6
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-236b --reduced --device cpu --comm pallas
+    # the vlm and audio families (cross-attention layers over media tokens,
+    # the whisper encoder-decoder over audio frames): each round's batch
+    # carries stub media embeddings drawn with its tokens
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama-3.2-vision-90b --reduced --device cpu --comm pallas
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch whisper-small --reduced --device cpu --comm pallas
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
@@ -44,8 +51,12 @@ Rounds run in chunks of 10, as the reference's launcher does, so ``--rounds``
 below 10 still runs one chunk of 10.  Without ``--fleet`` each round gets
 fresh host batches; with it, each client holds a pool of ``--fleet-pool``
 sequences and the rounds provision ``--batch`` of them per client, drawn
-afresh every round (``lm.make_fleet``).  ``--async-buffer`` runs the rounds
-through ``engine.async_rounds`` (the buffer carried across chunks); every
+afresh every round (``lm.make_fleet``); the vlm and audio archs refuse
+``--fleet``, as the reference's launcher does (a fleet pools tokens only),
+and draw their media (``normal * 0.02``, ``[n, B, n_media_tokens or
+n_audio_frames, d_media or d]``) with each round's tokens.
+``--async-buffer`` runs the rounds through ``engine.async_rounds`` (the
+buffer carried across chunks); every
 round is reported through the ``--sink`` (``repro_torch.obs.sinks``), with
 the ``buffered=... merged=...`` counters on async rounds.  ``--ef-slots``
 keeps the uplink residuals in a slot store of that capacity
@@ -90,8 +101,8 @@ _NOT_PORTED = (("wire", "--wire"),)
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
-                    help="a config of repro_torch.configs.ALIASES (the "
-                         "reference's vlm and audio archs raise)")
+                    help="a config of repro_torch.configs.ALIASES (the vlm "
+                         "and audio archs refuse --fleet)")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced smoke-test config")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -203,6 +214,13 @@ def setup(args, cfg=None):
     if cfg is None:
         cfg = configs.get_reduced(args.arch) if args.reduced \
             else configs.get_config(args.arch)
+    media = cfg.family in ("vlm", "audio")
+    if args.fleet and media:
+        raise SystemExit(
+            f"--fleet does not support --arch {args.arch}: lm.make_fleet "
+            f"pools tokens only, and the {cfg.family} family needs media "
+            "embeddings per client.  Drop --fleet (each round then draws "
+            "its media with its tokens) or pick a token-only arch.")
     fns = build(cfg)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -239,7 +257,13 @@ def setup(args, cfg=None):
     def batch_fn(t, g):
         toks, mask = synthetic.client_token_batches(
             g, n, args.batch, args.seq, cfg.vocab, hetero=0.5, device=dev)
-        return lm.LMBatch(tokens=toks, minority_mask=mask)
+        frames = None
+        if media:               # the stub frontends' embeddings
+            M = cfg.n_media_tokens or cfg.n_audio_frames
+            frames = (torch.randn((n, args.batch, M,
+                                   cfg.d_media or cfg.d_model),
+                                  generator=g) * 0.02).to(dev)
+        return lm.LMBatch(tokens=toks, minority_mask=mask, media=frames)
 
     return state, batch_fn, loss_pair, fed, cfg, dev
 

@@ -1,7 +1,8 @@
 """Model registry: dispatch on ``ModelConfig.family`` (port of
-``repro.models``; the training forwards of the token-only families are
-ported: ``dense`` (homogeneous or patterned), ``moe`` (MLA, routed
-experts, MTP), ``ssm`` and ``hybrid``)."""
+``repro.models``; the training forwards of every family are ported:
+``dense`` and ``vlm`` (the transformer, homogeneous or patterned, with
+interleaved cross-attention layers), ``moe`` (MLA, routed experts, MTP),
+``ssm``, ``hybrid`` and ``audio`` (the whisper encoder-decoder))."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -11,22 +12,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-# the reference's other families -> the ROADMAP item that brings them
-_NOT_PORTED = {
-    "vlm": "Queue 1 item 6c (cross-attention, LMBatch.media)",
-    "audio": "Queue 1 item 6c (the whisper encoder-decoder, LMBatch.media)",
-}
-
 
 class ModelFns(NamedTuple):
     init: object             # (gen, cfg, device) -> params
-    forward: object          # (params, cfg, tokens) -> logits, or for
-                             # moe (logits, aux[, mtp_logits])
+    forward: object          # (params, cfg, tokens[, media=]) -> logits,
+                             # or for moe (logits, aux[, mtp_logits]);
+                             # media [B, M, d_media or d] for vlm / audio
     param_shapes: object     # cfg -> the params' tree of leaf shapes
 
 
 def build(cfg: ModelConfig) -> ModelFns:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         from repro_torch.models import transformer as m
     elif cfg.family == "moe":
         from repro_torch.models import moe_transformer as m
@@ -34,10 +30,8 @@ def build(cfg: ModelConfig) -> ModelFns:
         from repro_torch.models import mamba2 as m
     elif cfg.family == "hybrid":
         from repro_torch.models import griffin as m
-    elif cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: ROADMAP "
-            f"{_NOT_PORTED[cfg.family]}")
+    elif cfg.family == "audio":
+        from repro_torch.models import whisper as m
     else:
         raise ValueError(f"unknown family {cfg.family}")
     return ModelFns(init=m.init, forward=m.forward,

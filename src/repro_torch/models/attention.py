@@ -1,10 +1,14 @@
-"""Causal GQA self-attention with RoPE, training mode (port of the train
-path of ``repro.models.attention``, qk-norm and sliding windows included).
-Written plainly, as the reference is: grouped scores, a ``-1e30`` causal
-bias and an f32 softmax."""
+"""Attention, training mode (port of the train path of
+``repro.models.attention``): causal GQA self-attention with RoPE, qk-norm
+and sliding windows; cross attention over media tokens or encoder states
+(gated by ``tanh(gate)`` in the VLM); bidirectional MHA (the whisper
+encoder).  Written plainly, as the reference is: grouped scores, a
+``-1e30`` causal bias (a zero bias where nothing is masked) and an f32
+softmax."""
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -73,3 +77,60 @@ def self_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,
                            qk_norm, norm_eps)
     out = attend(q, k, v, causal_bias(positions, positions, window))
     return out @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (VLM media tokens / whisper encoder states)
+# ---------------------------------------------------------------------------
+
+class CrossKV(NamedTuple):
+    k: torch.Tensor          # [B, M, KV, hd]
+    v: torch.Tensor          # [B, M, KV, hd]
+
+
+def cross_attn_shapes(d: int, d_kv_in: int, n_heads: int, n_kv: int,
+                      head_dim: int) -> dict:
+    """q from the d-wide stream, k and v from the ``d_kv_in``-wide media;
+    ``gate`` is a scalar (0 at init)."""
+    return {"wq": (d, n_heads * head_dim), "wk": (d_kv_in, n_kv * head_dim),
+            "wv": (d_kv_in, n_kv * head_dim), "wo": (n_heads * head_dim, d),
+            "gate": ()}
+
+
+def init_cross_attn(gen, d: int, d_kv_in: int, n_heads: int, n_kv: int,
+                    head_dim: int, device=None) -> dict:
+    return common.init_tree(
+        gen, cross_attn_shapes(d, d_kv_in, n_heads, n_kv, head_dim), device)
+
+
+def cross_kv(p, media, n_kv, head_dim) -> CrossKV:
+    B, M, _ = media.shape
+    k = (media @ p["wk"]).reshape(B, M, n_kv, head_dim)
+    v = (media @ p["wv"]).reshape(B, M, n_kv, head_dim)
+    return CrossKV(k, v)
+
+
+def _no_mask(q, kv_len: int):
+    return torch.zeros((1, 1, 1, 1, kv_len), dtype=torch.float32,
+                       device=q.device)
+
+
+def cross_attention(p, x, kv: CrossKV, *, n_heads, head_dim,
+                    gated: bool = True):
+    """Every query attends to every media position; ``gated`` scales the
+    output by ``tanh(gate)``."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    out = attend(q, kv.k, kv.v, _no_mask(q, kv.k.shape[1])) @ p["wo"]
+    if gated:
+        out = torch.tanh(p["gate"]) * out
+    return out
+
+
+def bidir_attention(p, x, *, n_heads, n_kv, head_dim):
+    """Bidirectional MHA without positions (the whisper encoder's)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, S, n_kv, head_dim)
+    v = (x @ p["wv"]).reshape(B, S, n_kv, head_dim)
+    return attend(q, k, v, _no_mask(q, S)) @ p["wo"]

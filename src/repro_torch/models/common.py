@@ -77,11 +77,15 @@ def stack_shapes(shapes, n: int):
 
 
 # leaves drawn or filled by name (the reference's initializers); every
-# other leaf is a fan-in scaled normal, its fan-in the axis before the last
-# (the reference's ``in_axis=1`` for the ``[E, d, de]`` / ``[E, de, d]``
-# experts, stacked or not)
+# other leaf (``media_proj``, whisper's ``w_in`` / ``w_out`` among them) is
+# a fan-in scaled normal, its fan-in the axis before the last (the
+# reference's ``in_axis=1`` for the ``[E, d, de]`` / ``[E, de, d]``
+# experts, stacked or not).  ``gate``, the cross-attention gate, is 0-d or
+# stacked ``[n]``: named here, or it would be drawn (``[n]``) or raise (0-d)
 _ZEROS = {"ln", "ln1", "ln2", "ln_f", "gnorm", "q_norm", "k_norm", "kv_norm",
-          "conv_b", "b_a", "b_i"}
+          "conv_b", "b_a", "b_i", "gate", "ln_x", "ln_mlp", "ln_enc", "b_in",
+          "b_out"}
+_EMBEDS = {"embed", "pos_emb_dec", "pos_emb_enc"}
 
 
 def _init_leaf(gen, name: str, shape: tuple, device) -> torch.Tensor:
@@ -89,7 +93,7 @@ def _init_leaf(gen, name: str, shape: tuple, device) -> torch.Tensor:
         return row.to(device).expand(shape).contiguous()
     if name in _ZEROS:
         return torch.zeros(shape, dtype=torch.float32, device=device)
-    if name == "embed":
+    if name in _EMBEDS:
         return embed_init(gen, *shape, device=device)
     if name == "conv_w":
         return torch.randn(shape, generator=gen, device=device,
@@ -131,6 +135,10 @@ def meta_tree(shapes):
 def swiglu(x, w_gate, w_up, w_down):
     h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    return gelu(x @ w_in + b_in) @ w_out + b_out
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -1,7 +1,8 @@
 """Dense decoder-only transformer, training forward (port of
 ``repro.models.transformer``: ``init`` and ``forward`` for homogeneous
-stacks and for local:global patterned stacks, with optional qk-norm;
-cross-attention layers, prefill and decode are not ported yet).
+stacks and for patterned stacks -- local:global windows, or the VLM's
+interleaved cross-attention layers -- with optional qk-norm; prefill and
+decode are not ported yet).
 
 Parameters are a nested dict laid out as the reference's pytree.  A
 homogeneous stack keeps its per-layer leaves stacked on a leading
@@ -12,10 +13,14 @@ homogeneous stack keeps its per-layer leaves stacked on a leading
                 "ln1": [L, d], "ln2": [L, d],
                 "mlp": {"w_gate", "w_up", "w_down"}}}
 
-A patterned stack (``local_global_ratio``: one pattern period is that many
-local layers and one global layer) holds ``"blocks"``, a list of P
-per-position stacks over the ``n_full`` whole periods (``[]`` when there is
-none), and ``"rest"``, a list of the remainder's unstacked layers.
+A patterned stack holds ``"blocks"``, a list of P per-position stacks over
+the ``n_full`` whole periods (``[]`` when there is none), and ``"rest"``,
+a list of the remainder's unstacked layers.  One period is
+``local_global_ratio`` local layers and one global layer, or
+``cross_attn_every - 1`` self layers and one cross layer, whose ``attn``
+is ``{"wq", "wk", "wv", "wo", "gate"}`` (``gate`` a scalar per layer, 0 at
+init); the VLM adds ``"media_proj": [d_media, d]`` when the media are
+not ``d``-wide.
 """
 from __future__ import annotations
 
@@ -62,14 +67,14 @@ def _split_blocks(cfg: ModelConfig):
 
 
 def _layer_shapes(cfg: ModelConfig, kind: str = "self") -> dict:
-    if kind == "cross":
-        raise NotImplementedError(
-            "cross-attention layers (the vlm family) are not ported yet: "
-            "ROADMAP Queue 1 item 6c")
-    d = cfg.d_model
-    return {"ln1": (d,), "ln2": (d,),
-            "attn": attention.attn_shapes(d, cfg.n_heads, cfg.n_kv_heads,
-                                          cfg.resolved_head_dim, cfg.qk_norm),
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    if kind == "cross":       # media are projected to d before the layer
+        attn = attention.cross_attn_shapes(d, d, cfg.n_heads, cfg.n_kv_heads,
+                                           hd)
+    else:
+        attn = attention.attn_shapes(d, cfg.n_heads, cfg.n_kv_heads, hd,
+                                     cfg.qk_norm)
+    return {"ln1": (d,), "ln2": (d,), "attn": attn,
             "mlp": {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
                     "w_down": (cfg.d_ff, d)}}
 
@@ -79,6 +84,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
     shapes = {"embed": (cfg.vocab, cfg.d_model), "ln_f": (cfg.d_model,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.d_model, cfg.vocab)
+    if cfg.d_media and cfg.d_media != cfg.d_model:
+        shapes["media_proj"] = (cfg.d_media, cfg.d_model)
     if _is_patterned(cfg):
         P, n_full, rest = _split_blocks(cfg)
         shapes["blocks"] = [common.stack_shapes(_layer_shapes(
@@ -94,25 +101,35 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """Random weights (the reference's distributions, not its bits): fan-in
-    scaled normals per layer, 0.02-scaled embedding, zero norm gains."""
+    scaled normals per layer, 0.02-scaled embedding, zero norm gains and
+    cross-attention gates."""
     return common.init_tree(gen, param_shapes(cfg), device)
 
 
-def _apply_layer(lp, cfg: ModelConfig, h, plan, positions):
-    """One self-attention layer in train mode (window from ``plan``)."""
-    a = attention.self_attention(
-        lp["attn"], common.rms_norm(h, lp["ln1"], cfg.norm_eps),
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, positions=positions,
-        theta=cfg.rope_theta, window=plan["window"], qk_norm=cfg.qk_norm,
-        norm_eps=cfg.norm_eps)
+def _apply_layer(lp, cfg: ModelConfig, h, plan, positions, media=None):
+    """One layer in train mode: self attention (window from ``plan``), or
+    for a cross layer gated attention over ``media`` (``[B, M, d]``);
+    then the SwiGLU MLP."""
+    hd = cfg.resolved_head_dim
+    hn = common.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if plan["kind"] == "cross":
+        a = attention.cross_attention(
+            lp["attn"], hn, attention.cross_kv(lp["attn"], media,
+                                               cfg.n_kv_heads, hd),
+            n_heads=cfg.n_heads, head_dim=hd)
+    else:
+        a = attention.self_attention(
+            lp["attn"], hn, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=hd, positions=positions, theta=cfg.rope_theta,
+            window=plan["window"], qk_norm=cfg.qk_norm,
+            norm_eps=cfg.norm_eps)
     h = h + a
     mlp = lp["mlp"]
     return h + common.swiglu(common.rms_norm(h, lp["ln2"], cfg.norm_eps),
                              mlp["w_gate"], mlp["w_up"], mlp["w_down"])
 
 
-def _run_patterned(params, cfg: ModelConfig, h, positions):
+def _run_patterned(params, cfg: ModelConfig, h, positions, media=None):
     """The whole periods in order (each position's layer from its stack),
     then the remainder's layers."""
     P, n_full, _ = _split_blocks(cfg)
@@ -120,10 +137,17 @@ def _run_patterned(params, cfg: ModelConfig, h, positions):
     blocks = [common.unstack(b, n_full) for b in params["blocks"]]
     for i in range(n_full):
         for p in range(P):
-            h = _apply_layer(blocks[p][i], cfg, h, plans[p], positions)
+            h = _apply_layer(blocks[p][i], cfg, h, plans[p], positions,
+                             media)
     for i, lp in enumerate(params["rest"]):
-        h = _apply_layer(lp, cfg, h, plans[i % P], positions)
+        h = _apply_layer(lp, cfg, h, plans[i % P], positions, media)
     return h
+
+
+def _media_embed(params, media):
+    if "media_proj" in params:
+        media = media @ params["media_proj"]
+    return media
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -132,13 +156,17 @@ def _logits(params, cfg: ModelConfig, h):
     return h @ w
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens ``[B, S]`` -> logits ``[B, S, V]``."""
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            media: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens ``[B, S]`` (and for the cross layers media ``[B, M,
+    d_media or d]``, the stub frontend's embeddings) -> logits ``[B, S,
+    V]``."""
     S = tokens.shape[1]
     h = params["embed"][tokens] * math.sqrt(float(cfg.d_model))
     positions = torch.arange(S, device=tokens.device)
     if _is_patterned(cfg):
-        h = _run_patterned(params, cfg, h, positions)
+        m = _media_embed(params, media) if media is not None else None
+        h = _run_patterned(params, cfg, h, positions, m)
     else:
         plan = {"kind": "self", "window": cfg.window}
         for lp in common.unstack(params["layers"], cfg.n_layers):

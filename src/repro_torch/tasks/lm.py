@@ -1,5 +1,4 @@
-"""Language-model task for FedSGM (port of ``repro.tasks.lm``, the
-token-only path).
+"""Language-model task for FedSGM (port of ``repro.tasks.lm``).
 
 The objective f is next-token CE on ordinary tokens; the constraint g is CE
 on the minority slice (rare-token domain) minus a budget, or for MoE
@@ -7,7 +6,7 @@ models the router's load imbalance minus the budget (``aux_constraint``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,6 +18,9 @@ from repro_torch.models import common
 class LMBatch(NamedTuple):
     tokens: torch.Tensor          # [B, S] (or [n, B, S] stacked) integer
     minority_mask: torch.Tensor   # same shape, float32 (1 = constraint slice)
+    media: Optional[torch.Tensor] = None  # [B, M, d_media or d] (or
+                                  # [n, B, M, ...]) stub embeddings of the
+                                  # vlm / audio frontends; None: tokens only
 
 
 def make_fleet(gen: torch.Generator, fed_cfg, pool: int, seq_len: int,
@@ -44,10 +46,13 @@ def make_loss_pair(model_forward, cfg: ModelConfig, budget: float = 0.0,
     mtp_logits)`` (the moe family); the MTP logits at t predict token
     t+2 and add ``mtp_weight`` times their CE to f.  ``aux_constraint``
     makes g the model's aux scalar (the MoE load imbalance) minus
-    ``budget``."""
+    ``budget``.  A batch with ``media`` passes it to the forward."""
 
     def loss_pair(params, batch: LMBatch):
-        out = model_forward(params, cfg, batch.tokens)
+        kwargs = {}
+        if batch.media is not None:
+            kwargs["media"] = batch.media
+        out = model_forward(params, cfg, batch.tokens, **kwargs)
         aux, mtp_logits = None, None
         if isinstance(out, tuple):
             if len(out) == 3:

@@ -814,7 +814,9 @@ def rounds_init(state0, fed, d):
 
 
 def _batch_to(batch, d):
-    return type(batch)(*(x.to(d) for x in batch))
+    from repro_torch.fleet import partitions
+    return partitions.rebuild(batch, [x.to(d) for x in
+                                      partitions.leaves_of(batch)])
 
 
 def test_async_obs_launcher_on_card(dev, tmp_path, monkeypatch):
@@ -1065,16 +1067,66 @@ def test_moe_forward_and_grads_on_card_match_cpu(dev, arch):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
 
 
+MEDIA_ARCHS = ["llama-3.2-vision-90b", "whisper-small"]
+
+
+@pytest.mark.parametrize("arch", MEDIA_ARCHS)
+def test_media_forward_and_grad_on_card_match_cpu(dev, arch):
+    """Each media arch at its reduced size (the vlm's cross layers over 8
+    media tokens projected from 8192 wide, gated at 0.5; whisper's encoder
+    over 16 frames), seq 64: logits, f, g and the gradient of f on the card
+    against the CPU from the same weights, tokens and media, at the
+    token-only families' tolerances (logits and f, g at rtol 1e-4 / atol
+    1e-5, the gradient at rtol 1e-3 / atol 1e-6)."""
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.models import build
+    from repro_torch.tasks import lm
+    cfg = configs.get_reduced(arch)
+    fns = build(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg)
+    if cfg.family == "vlm":
+        params["blocks"][1]["attn"]["gate"].fill_(0.5)
+    spec = flat.spec_of(params)
+    w0 = flat.flatten(spec, params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+    mask = torch.zeros((2, 64))
+    mask[:, -4:] = 1.0
+    media = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_media_tokens or cfg.n_audio_frames,
+         cfg.d_media or cfg.d_model)).astype(np.float32) * 0.02)
+    pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        w = w0.to(d).requires_grad_(True)
+        p = flat.unflatten(spec, w)
+        logits = fns.forward(p, cfg, toks.to(d), media=media.to(d))
+        f, g = pair(p, lm.LMBatch(toks.to(d), mask.to(d), media.to(d)))
+        f.backward()
+        out[d.type] = (logits.detach().cpu(), f.item(), g.item(),
+                       w.grad.cpu())
+    (lc, fc, gc, dc), (lh, fh, gh, dh) = out["cuda"], out["cpu"]
+    assert torch.isfinite(lc).all() and torch.isfinite(dc).all()
+    torch.testing.assert_close(lc, lh, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose([fc, gc], [fh, gh], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dc, dh, rtol=1e-3, atol=1e-6)
+
+
 # (block, k) of the token-only families' top-k wire runs that the smollm
 # layouts do not have: Mamba-2's per-head leaves (24), in_proj (838),
-# conv (896); gemma3's and Griffin's 640 / 256 / 1024 / 960 blocks; and
+# conv (896); gemma3's and Griffin's 640 / 256 / 1024 / 960 blocks;
 # chip_smoke.py phase 15's deepseek-v2 at full width: MLA's kv_norm (512)
 # and wkv_a (576), the head at vocab 12,800 (800), the experts' gate and
-# up projections (768) and the 16-wide router (16)
+# up projections (768) and the 16-wide router (16); and whisper-small's
+# 12 stacked cross-attention gates
 FAMILY_TOPK_BLOCKS = [(24, 2), (838, 84), (896, 90), (256, 26), (1024, 102),
-                      (512, 51), (576, 58), (800, 80), (768, 77), (16, 2)]
-# the quant wire's blocks of Griffin's layout
-FAMILY_QUANT_BLOCKS = [640, 960, 256]
+                      (512, 51), (576, 58), (800, 80), (768, 77), (16, 2),
+                      (12, 1)]
+# the quant wire's blocks of Griffin's layout, of phase 16(a)'s vlm (its
+# one cross layer's gate, 1; the head at vocab 16,032, 1002) and of the
+# reduced media configs' 2 stacked gates
+FAMILY_QUANT_BLOCKS = [640, 960, 256, 1, 1002, 2]
 
 
 @pytest.mark.parametrize("block,k", FAMILY_TOPK_BLOCKS)

@@ -39,7 +39,6 @@ from repro.models import build as jax_build
 from repro.tasks import lm as jax_lm
 from repro_torch import configs
 from repro_torch.comm import flat, payloads
-from repro_torch.configs.base import ModelConfig
 from repro_torch.engine import rounds
 from repro_torch.kernels import ops
 from repro_torch.launch import train
@@ -98,7 +97,8 @@ def _jax_paths(tree):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("arch", NEW_ARCHS + ["smollm-360m"])
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["smollm-360m",
+                                  "llama-3.2-vision-90b", "whisper-small"])
 def test_config_matches_reference(arch, reduced):
     """Every field the port has equals the reference's, and so does the
     analytic parameter count."""
@@ -114,22 +114,29 @@ def test_config_matches_reference(arch, reduced):
     assert cfg.n_params() == jcfg.n_params()
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small"])
-def test_unported_archs_raise(arch):
-    assert arch in jax_configs.ALIASES
-    with pytest.raises(NotImplementedError, match="needs the"):
-        configs.get_config(arch)
-    with pytest.raises(NotImplementedError):
-        train.setup(train.parser().parse_args(["--arch", arch, "--reduced",
-                                               "--device", "cpu"]))
+def _shape_tree(tree):
+    """Dicts and lists inner; a leaf's shape (a port shape tuple is its
+    own)."""
+    if isinstance(tree, dict):
+        return {k: _shape_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shape_tree(v) for v in tree]
+    return tuple(getattr(tree, "shape", tree))
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_build_raises_for_unported_families(family):
-    cfg = ModelConfig(name="x", family=family, n_layers=2, d_model=8,
-                      n_heads=2, n_kv_heads=1, d_ff=8, vocab=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build(cfg)
+@pytest.mark.parametrize("arch", jax_configs.all_arch_names())
+def test_every_reference_arch_is_ported(arch):
+    """Each of the reference's architectures resolves in the port (full
+    and reduced), ``build`` returns its family, and ``param_shapes`` of the
+    reduced config is the tree of the reference's ``init`` shapes under
+    ``jax.eval_shape``."""
+    assert configs.get_config(arch).family == \
+        jax_configs.get_config(arch).family
+    cfg, jcfg = configs.get_reduced(arch), jax_configs.get_reduced(arch)
+    fns = build(cfg)
+    want = jax.eval_shape(lambda k: jax_build(jcfg).init(k, jcfg),
+                          jax.random.PRNGKey(0))
+    assert _shape_tree(fns.param_shapes(cfg)) == _shape_tree(want)
 
 
 @pytest.mark.parametrize("n_layers", [2, 7, 34, 26])
