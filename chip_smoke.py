@@ -168,9 +168,30 @@ Phases, each fatal on failure (nonzero exit):
    1e-6); in (a) ``tanh(gate)`` 0 in round 1's forwards and nonzero in
    round 2's, and the peak leaving at least 5 GB of the card free; (c)
    the reduced llama-3.2-vision-90b (``media_proj`` 8192 -> 128) and
-   whisper-small, with media, as in 14(d).
+   whisper-small, with media, as in 14(d);
+17. cross-process federation (``repro_torch.wire``): (a) the launcher's
+   ``--wire 2 --reduced --clients 4 --participating 2 --comm pallas
+   --uplink topk --rounds 3`` as a subprocess (its two workers processes
+   too), each round's f, g_hat and sigma bit-equal to ``rounds.drive`` on
+   ``build_problem("lm")``; (b) mamba2-130m whole (d = 128,983,488), a
+   full-width problem this script registers with ``bootstrap.problem``,
+   ``wire_drive(spawn="thread")`` over 4 workers, 8 clients, gather 4,
+   the full eval, lean metrics, pallas top-k 0.1 up, identity down, batch
+   2, seq 64, 3 rounds (round 1 profiled on the card's side, round 2
+   checked): state and every metric bit-equal to ``rounds.drive`` on the
+   same problem, every ``block_topk`` and ``scatter_agg`` launch of round
+   2 (every thread) bit-equal to its plain version, each kernel launched
+   once per wire run and encoding worker or reduce; printed: s/round of
+   the wire and of ``drive``, round 1's frames and bytes by kind, its
+   host seconds in CRC-32 and socket I/O and its device busy share, the
+   EF_DUMP frames, the largest frame against ``MAX_FRAME``, peak GB;
+   (c) as (b) with pallas 8-bit quant up
+   (``quantize_ef_pack``, ``unpack_mma``); (d) ``wire_drive(spawn=
+   "process")`` on the reduced LM problem with a ``WireFaultConfig`` and a
+   seeded ``ChaosProcess`` SIGKILL at round 1's eval: respawned, and
+   bit-equal to the clean oracle.
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14, 15 and 16 the launch counts are zeroed
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16 and 17 the launch counts are zeroed
 just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
@@ -180,7 +201,7 @@ the flush; ``segment_rows`` twice in a gather round, once with
 ``lean_metrics``; no kernel on the dense wire), and ``loss_pair`` as often as the round's
 forwards (n*E fused, n + m*E unfused); f and g_hat must be finite and
 ``up_bytes`` / ``down_bytes`` the wires' bytes.  One more round per phase
-then runs under ``torch.profiler`` for the device time by operator and
+then runs under ``torch.profiler`` for the device time by kernel and
 the device's busy share.
 
 The last three lines are the kernels' JSON record, the card's name and
@@ -2593,14 +2614,18 @@ def _plain_pieces():
 class PlainCheck:
     """While active, every kernel launch through the ``ops`` dispatchers
     (``block_topk``, ``quantize_ef_pack``, ``scatter_agg``, ``quant_agg``
-    -> ``unpack_mma``, ``segment_rows``) made on this thread is held
+    -> ``unpack_mma``, ``segment_rows``) made on this thread (on every
+    thread with ``any_thread``: the wire's worker threads) is held
     against the kernel's plain version on the same inputs, on the spot and
     in slices of ``PLAIN_ROWS`` block rows, tolerance 0.  The plain
     versions launch no kernel, so the launch counts stay the path's."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, any_thread: bool = False):
+        import threading
         self.torch = torch
+        self.any_thread = any_thread
         self.calls, self.err, self.layouts = {}, {}, {}
+        self._lock = threading.Lock()
 
     def __enter__(self):
         import threading
@@ -2614,19 +2639,20 @@ class PlainCheck:
                         _piece=piece):
                 out = _orig(*args)
                 rows = _rows(*args)
-                if threading.get_ident() != thread or not rows or \
-                        not args[0].is_cuda:
+                if (not self.any_thread and threading.get_ident() != thread
+                        or not rows or not args[0].is_cuda):
                     return out
                 err = 0.0
                 for i in range(0, rows, PLAIN_ROWS):
                     got, want = _piece(out, slice(i, i + PLAIN_ROWS), *args)
                     err = max(err, max_err(self.torch, got, want))
-                self.calls[_k] = self.calls.get(_k, 0) + 1
-                self.err[_k] = max(self.err.get(_k, 0.0), err)
                 shape = [int(x) for x in args[0].shape]
-                self.layouts.setdefault(_k, [])
-                if shape not in self.layouts[_k]:
-                    self.layouts[_k].append(shape)
+                with self._lock:
+                    self.calls[_k] = self.calls.get(_k, 0) + 1
+                    self.err[_k] = max(self.err.get(_k, 0.0), err)
+                    self.layouts.setdefault(_k, [])
+                    if shape not in self.layouts[_k]:
+                        self.layouts[_k].append(shape)
                 return out
             setattr(ops, disp, wrapped)
         return self
@@ -2813,16 +2839,18 @@ class MoEInputRecorder:
 
 
 def profile_device(torch, fn) -> tuple:
-    """``fn()`` once under ``torch.profiler``: ``(device ms, kernel
-    launches, the profile's key averages of device work)``."""
+    """``fn()`` once under ``torch.profiler``, the card's activity only:
+    ``(device ms, kernel launches, the profile's key averages of device
+    work)``.  Recording the host's operators too cost 20-130 s a round on
+    the host-bound rounds (a CMDP round makes 242,000 launches) and adds
+    nothing these numbers read."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # device-side entries only: an operator's entry repeats the time of
-    # the kernels it launched, a span's device-side annotation their extent
+    # device-side entries only: a span's device-side annotation repeats
+    # the extent of the kernels inside it
     kernels = [e for e in prof.key_averages()
                if is_kernel(e) and dev_us(e) > 0]
     return (sum(dev_us(e) for e in kernels) / 1e3,
@@ -3232,6 +3260,395 @@ def media_phase(torch, dev, T: int) -> tuple:
              for c in cells])
 
 
+# phase 17: the wire (repro_torch.wire), cross-process federation.  17(a)
+# runs the launcher's --wire over worker processes on the reduced LM
+# problem; 17(b), (c) train mamba2-130m whole (d = 128,983,488) over 4 worker
+# threads, 8 clients, gather 4: the largest of the port's models whose
+# flat buffer crosses the reference's frame bound (MAX_FRAME = 2^30 bytes:
+# one ACTIVATE frame holds 4d bytes, a worker's EF_DUMP 4d per residual row,
+# so 4 workers of 2 clients; smollm-360m's 4d is 1.45 GB); 17(d) SIGKILLs a
+# worker process and recovers.  Worker threads share the card's default
+# stream and this process's launch counters; worker processes count their
+# own, so 17(a) counts none here and 17(d) the coordinator's reduces only.
+WIRE_ARCH = "mamba2-130m"
+WIRE_PROBLEM = "chip-smoke-mamba2-130m"
+WIRE_WORKERS = 4
+WIRE_ROUNDS = 3                # round 1 timed, profiled (the card's
+                               # kernels only) and its host seconds split;
+                               # round 2 checked
+WIRE_CELLS = [("17b mamba2-130m wire topk", "topk"),
+              ("17c mamba2-130m wire quant", "quant")]
+WIRE_LAUNCH = ["--wire", "2", "--reduced", "--clients", "4",
+               "--participating", "2", "--comm", "pallas", "--uplink",
+               "topk", "--rounds", "3"]
+WIRE_KILL_SEED = 10            # 17(d): ChaosProcess draws spare round 0's
+                               # eval and kill at round 1's (p = 0.5)
+
+
+def wire_fed(kind: str, n: int, m: int):
+    """The launcher's ``--wire`` FedConfig: gather m of n, the full eval,
+    lean metrics, pallas ``kind`` 0.1 / 8-bit up, identity down, E = 1."""
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          SwitchConfig)
+    return FedConfig(n_clients=n, m=m, local_steps=1, lr=0.03,
+                     switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
+                     uplink=CompressorConfig(kind=kind, ratio=0.1),
+                     downlink=CompressorConfig(kind="none"), comm="pallas",
+                     participation="gather", full_eval=True,
+                     lean_metrics=True)
+
+
+def register_wire_problem() -> None:
+    """17(b), (c)'s full-width problem in the wire's registry (threads
+    share it): mamba2-130m at its published widths, all 24 layers, weights
+    from a CPU generator seeded ``seed``, one token batch per client from
+    one seeded ``seed + 1``, g the minority CE minus 6."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.models import build
+    from repro_torch.tasks import lm
+    from repro_torch.wire import bootstrap
+
+    @bootstrap.problem(WIRE_PROBLEM)
+    def full_width(args, device):
+        import torch
+        cfg = configs.get_config(WIRE_ARCH)
+        fns = build(cfg)
+        seed = int(args.get("seed", 0))
+        params = bootstrap.tree_to(fns.init(
+            torch.Generator().manual_seed(seed), cfg, device="cpu"), device)
+        toks, mask = synthetic.client_token_batches(
+            torch.Generator().manual_seed(seed + 1), int(args["n_clients"]),
+            int(args["batch"]), int(args["seq"]), cfg.vocab, hetero=0.5,
+            device=device)
+        return (params, lm.LMBatch(tokens=toks, minority_mask=mask),
+                lm.make_loss_pair(fns.forward, cfg, budget=6.0))
+
+
+class HostTimers:
+    """While active, the host seconds (summed over threads) in the wire
+    codec's CRC-32 (``frames._crc``), its socket sends
+    (``frames.write_frame``, coordinator and workers; a send waits while
+    its receiver does not read) and the workers' reads of frame bodies
+    (``frames._recv_exact`` past the length prefix: the wait for the next
+    frame is not counted), and the largest frame written.  The
+    coordinator's own socket reads are ``stats.recv_s``."""
+
+    NAMES = ("_crc", "write_frame", "_recv_exact")
+
+    def __init__(self):
+        import threading
+        self.s = dict.fromkeys(self.NAMES, 0.0)
+        self.max_frame = 0
+        self._lock = threading.Lock()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.s)
+
+    def __enter__(self):
+        from repro_torch.wire import frames
+        self._orig = {n: getattr(frames, n) for n in self.NAMES}
+        for name, fn in self._orig.items():
+            def timed(*args, _fn=fn, _name=name):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args)
+                finally:
+                    dt = time.perf_counter() - t0
+                    with self._lock:
+                        if _name != "_recv_exact" or args[1] > 4:
+                            self.s[_name] += dt
+                        if _name == "write_frame":
+                            self.max_frame = max(self.max_frame,
+                                                 len(args[1]))
+            setattr(frames, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.wire import frames
+        for name, fn in self._orig.items():
+            setattr(frames, name, fn)
+
+
+def wire_cohort_workers(torch, fed, T: int, workers: int) -> list:
+    """Per round, the workers with a sampled client: the uniform law's
+    draws replayed on a generator seeded as ``init_state`` seeds the
+    state's (each such worker encodes once per wire run)."""
+    from repro_torch.fleet import samplers
+    from repro_torch.wire.worker import client_range
+    gen = torch.Generator().manual_seed(fed.seed)
+    out = []
+    for _ in range(T):
+        mask, _, _ = samplers.get_sampler(fed.fleet.sampler).sample(gen, fed)
+        out.append(sum(int(mask[lo:hi].sum() > 0) for lo, hi in (
+            client_range(fed.n_clients, workers, i)
+            for i in range(workers))))
+    return out
+
+
+def wire_oracle(torch, problem: str, args: dict, fed, T: int, dev):
+    """``rounds.drive`` on the wire's problem and config on the card, one
+    metrics segment a round (so each round's wall time is read): ``(state,
+    metrics, s per round)``."""
+    from repro_torch.engine import rounds
+    from repro_torch.wire import bootstrap
+    params, batches, pair = bootstrap.build_problem(
+        problem, dict(args, n_clients=fed.n_clients), dev)
+    state = rounds.init_state(params, fed, device=dev)
+    del params
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+
+    def stamp(*_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    state, mets = rounds.drive(state, batches, pair, fed, T, device=dev,
+                               block=1, progress=stamp)
+    return state, mets, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def wire_equal(torch, name: str, st_o, mets_o, st_w, mets_w,
+               fields=("w", "x", "e_up", "wbar_sum", "wbar_weight")):
+    """The wire's state and every metric bit-equal to the oracle's."""
+    import numpy as np
+    from repro_torch.engine import rounds
+    bad = [f for f in fields
+           if not bits_equal(torch, np, getattr(st_o, f), getattr(st_w, f))]
+    bad += [f"metrics.{f}" for f in rounds.RoundMetrics._fields
+            if not bits_equal(torch, np, getattr(mets_o, f),
+                              getattr(mets_w, f))]
+    if bad:
+        raise AssertionError(f"{name}: the wire differs from rounds.drive "
+                             f"in {bad}")
+
+
+def wire_cell(torch, dev, name: str, kind: str) -> dict:
+    """17(b) / (c): the oracle (``rounds.drive``, WIRE_ROUNDS rounds) then
+    ``wire_drive(spawn="thread", workers=4)`` on the same problem: every
+    round timed; round 1's frames and host seconds recorded, its device
+    work under ``torch.profiler`` (the card's activity only, which leaves
+    the host's time alone); round 2 under ``PlainCheck`` (every launch,
+    every thread); state and every metric bit-equal, each kernel launched
+    as the cohorts demand."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.comm import flat
+    from repro_torch.obs import sinks as obs_sinks
+    from repro_torch.wire import frames, wire_drive
+    from torch.profiler import ProfilerActivity, profile
+    T, fed = WIRE_ROUNDS, wire_fed(kind, N_GATHER, M_GATHER)
+    args = {"batch": 2, "seq": 64}
+    t0 = time.time()
+    st_o, mets_o, oracle_s = wire_oracle(torch, WIRE_PROBLEM, args, fed, T,
+                                         dev)
+    oracle_seconds = time.time() - t0
+    spec = st_o.spec
+    runs = len(flat.wire_layout(spec, fed.uplink).runs)
+    active = wire_cohort_workers(torch, fed, T, WIRE_WORKERS)
+    enc, red = PHASE_KERNELS[kind]
+    want = {enc: runs * sum(active), red: runs * T}
+    timers, chk = HostTimers(), PlainCheck(torch, any_thread=True)
+    sink = obs_sinks.get_sink("memory")
+    marks, snaps = [], {}
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def progress(t, f, g, s):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        snaps[t] = timers.snapshot()
+        if t == 1:
+            prof.__enter__()
+        elif t == 2:
+            prof.__exit__(None, None, None)
+            chk.__enter__()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with timers:
+            st_w, mets_w, stats = wire_drive(
+                fed, T, workers=WIRE_WORKERS, spawn="thread",
+                problem=WIRE_PROBLEM, problem_args=args, deadline=900.0,
+                sink=sink, device=dev, progress=progress)
+    finally:
+        if 2 in snaps:
+            chk.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wire_equal(torch, name, st_o, mets_o, st_w, mets_w)
+    del st_o, st_w
+    kernels_dev = [e for e in prof.key_averages()
+                   if is_kernel(e) and dev_us(e) > 0]
+    device_ms = sum(dev_us(e) for e in kernels_dev) / 1e3
+    wire_s = [marks[0] - t0] + [b - a for a, b in zip(marks, marks[1:])]
+    r1 = [r for r in sink.records if r["round"] == 1][0]
+    host = {k: snaps[2][k] - snaps[1][k] for k in snaps[1]}
+    ef = stats.by_kind.get("ef_dump", [0, 0])
+    rec = {
+        "wire_cell": name, "arch": WIRE_ARCH, "d": spec.d,
+        "workers": WIRE_WORKERS, "clients": fed.n_clients,
+        "participating": fed.m, "uplink": kind, "comm": fed.comm,
+        "rounds": T, "wire_s_per_round": wire_s,
+        "drive_s_per_round": oracle_s,
+        "wire_s_round1": wire_s[1], "drive_s_round1": oracle_s[1],
+        "oracle_seconds": oracle_seconds,
+        "frames_round1": r1["wire_kinds"],
+        "bytes_round1": sum(v[1] for v in r1["wire_kinds"].values()),
+        "ef_dump": {"frames": ef[0], "bytes": ef[1]},
+        "max_frame_bytes": timers.max_frame,
+        "max_frame_limit": frames.MAX_FRAME,
+        "host_s_round1": {"crc32": host["_crc"],
+                          "send": host["write_frame"],
+                          "worker_recv": host["_recv_exact"],
+                          "coordinator_recv": r1["wire_recv_ms"] / 1e3},
+        "profiled_round": {"device_ms": device_ms,
+                           "kernel_launches": sum(e.count
+                                                  for e in kernels_dev),
+                           "busy_share": device_ms / 1e3 / wire_s[1]},
+        "peak_gb": peak_gb, "cohort_workers": active,
+        "launches": counts, "launches_expected": want,
+        "plain_check": {"kernel_calls": chk.calls, "max_abs_err": chk.err,
+                        "input_shapes": chk.layouts, "tolerance": 0.0},
+        "f": mets_w.f.tolist(), "g_hat": mets_w.g_hat.tolist(),
+        "sigma": mets_w.sigma.tolist(),
+        "totals": stats.totals}
+    print(json.dumps(rec), flush=True)
+    for kname, cnt in counts.items():
+        if cnt != want.get(kname, 0):
+            raise AssertionError(f"{name}: {kname} launched {cnt} times, "
+                                 f"expected {want.get(kname, 0)}")
+    checked = {PHASE_KERNELS[kind][0],
+               "quant_agg" if kind == "quant" else "scatter_agg"}
+    chk_names = {"unpack_mma" if k == "quant_agg" else k for k in checked}
+    if any(chk.err.values()) or not chk_names <= set(chk.calls):
+        raise AssertionError(f"{name}: a kernel launch of the checked "
+                             f"round differs from its plain version, or "
+                             f"none ran: {rec['plain_check']}")
+    if timers.max_frame >= frames.MAX_FRAME or stats.totals["missing"]:
+        raise AssertionError(f"{name}: frame bound or missing frames: "
+                             f"{timers.max_frame}, {stats.totals}")
+    if not np.isfinite(mets_w.f).all():
+        raise AssertionError(f"{name}: non-finite f")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def wire_launcher_check(torch, dev) -> dict:
+    """17(a): ``python -m repro_torch.launch.train --wire 2 --reduced ...``
+    as a subprocess on the card (its 2 workers are processes too); each
+    round's f, g_hat and sigma (its JSONL sink) equal ``rounds.drive`` on
+    ``build_problem("lm")`` with the launcher's FedConfig, bit for bit."""
+    path = ROOT / "build" / "wire_17a.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *WIRE_LAUNCH,
+         "--sink", "jsonl", "--sink-path", str(path), "--quiet"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.time() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"17(a): the launcher exited {out.returncode}:"
+                             f"\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    recs = [json.loads(x) for x in path.read_text().splitlines()]
+    meta, recs = recs[0]["meta"], [r for r in recs[1:] if r["round"] >= 0]
+    path.unlink()
+    fed = wire_fed("topk", 4, 2)
+    _, mets, _ = wire_oracle(torch, "lm", {"batch": 2, "seq": 64}, fed, 3,
+                             dev)
+    rec = {"wire_launcher": " ".join(WIRE_LAUNCH), "seconds": seconds,
+           "device": meta.get("device"),
+           "rounds": [{k: r[k] for k in ("round", "f", "g_hat", "sigma",
+                                         "wire_frames", "wire_bytes")}
+                      for r in recs]}
+    print(json.dumps(rec), flush=True)
+    for key in ("f", "g_hat", "sigma"):
+        if [r[key] for r in recs] != [float(v) for v in getattr(mets, key)]:
+            raise AssertionError(f"17(a): {key} over the wire "
+                                 f"{[r[key] for r in recs]} differs from "
+                                 f"drive's {getattr(mets, key).tolist()}")
+    if not meta.get("device", "").startswith("cuda"):
+        raise AssertionError(f"17(a): the launcher ran on {meta}")
+    return rec
+
+
+def wire_fault_check(torch, dev) -> dict:
+    """17(d): ``wire_drive(spawn="process")`` on the reduced LM problem
+    with a ``WireFaultConfig`` and a seeded ``ChaosProcess`` that SIGKILLs
+    a worker at round 1's eval: respawned, EF re-seeded from the pre-round
+    snapshot (``ckpt_every=1``), the round replayed -- bit-equal to the
+    clean oracle, ``respawns`` >= 1.  The launches are the coordinator's
+    reduce."""
+    import shutil
+    from repro_torch import kernels
+    from repro_torch.comm import flat
+    from repro_torch.wire import wire_drive
+    from repro_torch.wire.supervisor import WireFaultConfig
+    fed, T = wire_fed("topk", 4, 2), 3
+    args = {"batch": 2, "seq": 64}
+    st_o, mets_o, _ = wire_oracle(torch, "lm", args, fed, T, dev)
+    ckpt = ROOT / "build" / "wire_17d_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    faults = WireFaultConfig(max_respawns=1, eval_grace=300.0,
+                             respawn_window=300.0)
+    kernels.reset_launches()
+    t0 = time.time()
+    try:
+        st_w, mets_w, stats = wire_drive(
+            fed, T, workers=2, spawn="process", problem="lm",
+            problem_args=args, deadline=300.0, faults=faults,
+            proc_chaos={"kill": 0.5, "phase": "eval", "max_kills": 1},
+            chaos_seed=WIRE_KILL_SEED, ckpt_dir=str(ckpt), ckpt_every=1,
+            device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    counts = kernels.launch_counts()
+    runs = len(flat.wire_layout(st_o.spec, fed.uplink).runs)
+    rec = {"wire_fault": "SIGKILL at round 1's eval, process spawn",
+           "seconds": time.time() - t0, "totals": stats.totals,
+           "recovery_s": stats.recovery_s, "launches": counts,
+           "launches_expected": {"scatter_agg": runs * T}}
+    print(json.dumps(rec), flush=True)
+    wire_equal(torch, "17(d)", st_o, mets_o, st_w, mets_w)
+    if stats.totals["respawns"] < 1 or stats.totals["recovered"] < 1:
+        raise AssertionError(f"17(d): no respawn: {stats.totals}")
+    if counts != {**dict.fromkeys(counts, 0), "scatter_agg": runs * T}:
+        raise AssertionError(f"17(d): launches {counts}")
+    return rec
+
+
+def wire_phase(torch, dev) -> tuple:
+    """Phase 17: (a) :func:`wire_launcher_check`; (b), (c)
+    :func:`wire_cell` for :data:`WIRE_CELLS`; (d) :func:`wire_fault_check`.
+    Returns ``(record, launch records)``."""
+    register_wire_problem()
+    seconds, t0 = {}, time.time()
+    launcher = wire_launcher_check(torch, dev)
+    seconds["17a"] = time.time() - t0
+    cells = []
+    for name, kind in WIRE_CELLS:
+        t0 = time.time()
+        cells.append(wire_cell(torch, dev, name, kind))
+        seconds[name.split()[0]] = time.time() - t0
+    t0 = time.time()
+    fault = wire_fault_check(torch, dev)
+    seconds["17d"] = time.time() - t0
+    print(json.dumps({"wire_seconds": seconds}), flush=True)
+    return ({"launcher": launcher, "cells": cells, "fault": fault,
+             "seconds": seconds},
+            [{"phase": c["wire_cell"], "launches": c["launches"]}
+             for c in cells]
+            + [{"phase": "17d wire SIGKILL recovered",
+                "launches": fault["launches"]}])
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -3344,11 +3761,12 @@ def main(argv=None) -> int:
     family_rec, family_launches = family_phase(torch, dev, args.rounds)
     moe_rec, moe_launches = moe_phase(torch, dev, args.rounds)
     media_rec, media_launches = media_phase(torch, dev, args.rounds)
+    wire_rec, wire_launches = wire_phase(torch, dev)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
         + async_launches + scale_launches + family_launches + moe_launches \
-        + media_launches
+        + media_launches + wire_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -3367,6 +3785,7 @@ def main(argv=None) -> int:
                                     "families": family_rec,
                                     "moe": moe_rec,
                                     "media": media_rec,
+                                    "wire": wire_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

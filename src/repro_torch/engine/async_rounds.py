@@ -217,13 +217,28 @@ def buffer_wire(buf: Optional[StaleBuffer], state: FedState,
 def buffer_from_wire(wire: Optional[StaleBuffer], state: FedState, cfg,
                      sig: Optional[str] = None) -> Optional[StaleBuffer]:
     """A :func:`buffer_wire` sidecar back as the engine's buffer (the same
-    object).  ``sig``, the payload signature of the reference's wire frames,
-    is checked against this process's transport there; the port has no
-    ``wire.frames`` yet, so a signature raises ``NotImplementedError``."""
+    object).
+
+    ``sig`` is the payload kind/shape signature the sidecar (or a wire
+    frame header, :mod:`repro_torch.wire.frames`) recorded at save or
+    encode time.  When given, it is checked against THIS process's
+    transport config (``wire.frames.row_signature`` of ``state.spec``)
+    before the payloads reach any ``reduce``: a buffer encoded by a
+    differently configured process (another compressor kind, bit width,
+    block size or comm backend) would decode as silent garbage, since the
+    packed uint32 words carry no self-description.  A mismatch raises
+    ``ValueError`` naming both signatures and the config knobs to check."""
     if sig is not None:
-        raise NotImplementedError(
-            "buffer_from_wire(sig=...) is not ported yet: the payload "
-            "signature check needs wire.frames.row_signature")
+        from repro_torch.wire import frames as wire_frames
+        expect = wire_frames.row_signature(state.spec, cfg)
+        if sig != expect:
+            raise ValueError(
+                "staleness-buffer payload signature mismatch: the sidecar "
+                f"(or frame) was encoded as {sig!r}, but this process's "
+                f"uplink transport produces {expect!r}.  The encoding and "
+                "decoding processes must agree on cfg.uplink (kind / bits "
+                "/ ratio / block) and cfg.comm -- refusing to merge "
+                "foreign payload words as if they were ours.")
     return wire
 
 

@@ -1,5 +1,5 @@
 """Training launcher: FedSGM rounds of the LM task on one device (port of
-``repro.launch.train``, the path without the wire runtime).
+``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --uplink topk --rounds 20                 # the dense wire (default)
@@ -44,6 +44,11 @@
         --arch llama-3.2-vision-90b --reduced --device cpu --comm pallas
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch whisper-small --reduced --device cpu --comm pallas
+    # cross-process federation (repro_torch.wire): 2 worker processes over
+    # loopback TCP, each owning 2 of the 4 clients, on the reduced LM task
+    PYTHONPATH=src python -m repro_torch.launch.train --wire 2 \\
+        --clients 4 --participating 2 --comm pallas --uplink topk \\
+        --rounds 3 --device cpu
 
 Runs the FULL config on ``cuda`` by default (``--reduced`` for the smoke
 variant, ``--device cpu`` for the CPU with the kernels' plain versions).
@@ -73,8 +78,19 @@ checkpoint``), with the fleet sidecar under ``--fleet`` and the staleness
 buffer's under ``--async-buffer``.  Like the
 reference's launcher it keeps the identity downlink; the compressed
 downlink is reached through the engine API (``rounds.init_state`` /
-``run_rounds`` with a ``FedConfig``).  Flags of the reference that the port
-does not run yet raise.
+``run_rounds`` with a ``FedConfig``).
+
+``--wire K`` runs the rounds over K worker processes instead
+(``repro_torch.wire.coordinator.wire_drive``), as the reference's
+launcher does: on the reduced LM problem (``wire.bootstrap``'s ``lm``,
+whatever ``--reduced`` says), ``--rounds`` rounds (no chunks of 10), on
+the pinned config surface (gather participation, the full eval, lean
+metrics), so the single-process engine on the same problem and config is
+its bit-exact oracle.  ``--fleet``, ``--async-buffer``, ``--obs`` and
+``--ef-slots`` are not drivable over the wire and end the run with
+``SystemExit``.  ``--wire-heartbeat`` arms the fault-tolerant runtime
+(``--min-quorum``, ``--max-respawns``); each round's wire counters reach
+the ``--sink``.
 """
 from __future__ import annotations
 
@@ -95,7 +111,9 @@ from repro_torch.obs import sinks as obs_sinks
 from repro_torch.obs import trace as obs_trace
 from repro_torch.tasks import lm
 
-_NOT_PORTED = (("wire", "--wire"),)
+# (attribute, flag) of the reference's flags whose paths the port does not
+# run: none left
+_NOT_PORTED = ()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -195,8 +213,34 @@ def parser() -> argparse.ArgumentParser:
                     help="capture a torch.profiler trace while START <= "
                          "round < STOP (a Chrome/Perfetto JSON under "
                          "profiles/)")
-    # reference flags whose paths are not ported yet: they raise
-    ap.add_argument("--wire", type=int, default=0)
+    ap.add_argument("--wire", type=int, default=0, metavar="K",
+                    help="cross-process federation (repro_torch.wire): "
+                         "spawn K worker processes over loopback TCP, each "
+                         "owning a contiguous client range, on the reduced "
+                         "LM problem; the coordinator drives the pinned "
+                         "parity surface (gather participation, full eval, "
+                         "lean metrics).  Per-round wire counters (frames, "
+                         "bytes, frame latency, faults) reach --sink")
+    ap.add_argument("--wire-deadline", type=float, default=120.0,
+                    help="per-collection deadline (seconds) before a "
+                         "missing worker frame is treated as dead or "
+                         "droppable")
+    ap.add_argument("--wire-heartbeat", type=float, default=0.0,
+                    metavar="S",
+                    help="arm the fault-tolerant wire runtime "
+                         "(repro_torch.wire.supervisor): workers heartbeat "
+                         "every S seconds, silence past 3*S declares a "
+                         "worker dead; dead workers respawn with EF re-seed "
+                         "and round replay, unrecoverable ones degrade the "
+                         "round (sampled clients demoted, HT weights "
+                         "rescaled mass-conservingly)")
+    ap.add_argument("--min-quorum", type=float, default=0.5,
+                    help="abort a degraded round when fewer than this "
+                         "fraction of the m sampled clients are realized "
+                         "(with --wire-heartbeat)")
+    ap.add_argument("--max-respawns", type=int, default=2,
+                    help="per-worker respawn budget of the wire supervisor "
+                         "(with --wire-heartbeat)")
     return ap
 
 
@@ -207,7 +251,7 @@ def setup(args, cfg=None):
     ``cfg``, when given, takes the place of the config ``--arch`` names
     (the engine API's way to cut a model's depth: the launcher, like the
     reference's, has no depth flag).  Raises for the reference's paths
-    that are not ported yet."""
+    that the port does not run (:data:`_NOT_PORTED`)."""
     for attr, flag in _NOT_PORTED:
         if getattr(args, attr):
             raise NotImplementedError(f"{flag} is not ported yet")
@@ -288,9 +332,77 @@ def restore(args, state, fed, dev):
     return restored, buf, t0
 
 
+def run_wire(args):
+    """``--wire K``: the rounds over K worker processes
+    (``repro_torch.wire.coordinator.wire_drive``) on the reduced LM
+    problem, as the reference's launcher runs them; returns the final
+    state.  The flags the wire cannot drive end the run with
+    ``SystemExit``."""
+    for on, name in ((args.fleet, "--fleet"),
+                     (args.async_buffer, "--async-buffer"),
+                     (args.obs, "--obs"), (args.ef_slots, "--ef-slots")):
+        if on:
+            raise SystemExit(
+                f"--wire drives the pinned parity surface of "
+                f"repro_torch.wire (coordinator.validate_wire_cfg): {name} "
+                "is not drivable over the wire -- drop one of the two flags")
+    from repro_torch.wire import coordinator as wire_coordinator
+    from repro_torch.wire.supervisor import WireFaultConfig
+    dev = resolve_device(args.device)
+    cfg = configs.get_reduced(args.arch)
+    n = args.clients
+    fed = FedConfig(
+        n_clients=n, m=args.participating or n,
+        local_steps=args.local_steps, lr=args.lr,
+        switch=SwitchConfig(mode=args.switch, eps=0.0, beta=2.0),
+        uplink=CompressorConfig(kind=args.uplink, ratio=args.ratio),
+        downlink=CompressorConfig(kind="none"), comm=args.comm,
+        strategy=args.strategy, participation="gather", full_eval=True,
+        lean_metrics=True, client_chunk=args.client_chunk,
+        fleet=FleetConfig(sampler=args.sampler))
+    sink = obs_sinks.get_sink(
+        args.sink, **({"path": args.sink_path} if args.sink == "jsonl"
+                      else {}))
+    sink.open(meta={"arch": cfg.name, "rounds": args.rounds,
+                    "comm": args.comm, "strategy": args.strategy,
+                    "wire_workers": args.wire, "device": str(dev)})
+    resume = bool(args.ckpt_dir
+                  and checkpoint.latest_round(args.ckpt_dir) is not None)
+    faults = None
+    if args.wire_heartbeat > 0:
+        faults = WireFaultConfig(heartbeat_s=args.wire_heartbeat,
+                                 min_quorum=args.min_quorum,
+                                 max_respawns=args.max_respawns)
+    t0 = time.time()
+    try:
+        state, _mets, stats = wire_coordinator.wire_drive(
+            fed, args.rounds, workers=args.wire, problem="lm",
+            problem_args={"arch": args.arch, "n_clients": n,
+                          "batch": args.batch, "seq": args.seq},
+            sink=sink, deadline=args.wire_deadline, faults=faults,
+            ckpt_dir=args.ckpt_dir, ckpt_every=10 if args.ckpt_dir else 0,
+            resume=resume, device=dev,
+            progress=lambda t, f, g, s: obs_log.log(
+                f"wire round {t}: f={float(f):.4f} g_hat={float(g):.4f} "
+                f"sigma={float(s):.2f}"))
+    finally:
+        sink.close()
+    obs_log.log(
+        f"wire run done: {args.rounds} rounds of {cfg.name} over "
+        f"{args.wire} workers on {dev} in {time.time() - t0:.1f}s "
+        f"({stats.totals['frames']} frames, {stats.totals['bytes']} bytes, "
+        f"missing={stats.totals['missing']}, "
+        f"rejected={stats.totals['rejected']}, "
+        f"respawns={stats.totals['respawns']}, "
+        f"degraded={stats.totals['degraded']})")
+    return state
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     obs_log.set_level("warning" if args.quiet else args.log_level)
+    if args.wire:
+        return run_wire(args)
     profile = obs_trace.ProfileWindow(args.profile)
     state, batches, loss_pair, fed, cfg, dev = setup(args)
     state, buf, start = restore(args, state, fed, dev)

@@ -457,8 +457,14 @@ def test_buffer_sidecar_boundaries(tmp_path):
     buf = async_rounds.init_buffer(state, cfg)
     assert async_rounds.buffer_wire(buf, state, cfg) is buf
     assert async_rounds.buffer_from_wire(buf, state, cfg) is buf
-    with pytest.raises(NotImplementedError, match="row_signature"):
+    # a signature is checked against this process's transport: its own
+    # row signature passes, another raises naming both
+    from repro_torch.wire import frames
+    ours = frames.row_signature(state.spec, cfg)
+    assert async_rounds.buffer_from_wire(buf, state, cfg, sig=ours) is buf
+    with pytest.raises(ValueError, match="signature mismatch") as err:
         async_rounds.buffer_from_wire(buf, state, cfg, sig="quant/8")
+    assert ours in str(err.value) and "'quant/8'" in str(err.value)
     struct = async_rounds.buffer_wire_struct(state, cfg)
     for s, b in zip(_leaves(struct), _leaves(buf)):
         assert s.device.type == "meta"

@@ -1163,3 +1163,68 @@ def test_quant_kernels_at_family_blocks(dev, block):
     w = torch.tensor([0.25, 1.5], device=dev)
     _same(unpack_mma(words, scale, w, 8, block),
           unpack_mma_plain(words, scale, w, 8, block))
+
+
+# ---------------------------------------------------------------------------
+# The wire (repro_torch.wire) on the card
+# ---------------------------------------------------------------------------
+
+def test_unpack_payload_on_card_round_trips_unsigned(dev):
+    """``unpack_payload`` gives tensors on the card; uint32 words and
+    uint16 offsets come back bit for bit (through their signed views)."""
+    from repro_torch.comm.payloads import FlatPacked, FlatQuant
+    from repro_torch.wire import frames
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, 2**32, 37, dtype=np.uint32)
+    words[:2] = [0, 2**32 - 1]
+    offs = rng.integers(0, 2**16, 23).astype(np.uint16)
+    offs[:2] = [0, 2**16 - 1]
+    scale = rng.random(5).astype(np.float32)
+    for payload in (FlatQuant(frames.to_tensor(words, dev),
+                              frames.to_tensor(scale, dev)),
+                    FlatPacked(frames.to_tensor(scale, dev),
+                               frames.to_tensor(offs, dev))):
+        sig, body = frames.pack_payload(payload)
+        back = frames.unpack_payload(sig, body, dev)
+        assert type(back) is type(payload)
+        for a, b in zip(back, payload):
+            assert a.is_cuda and a.dtype == b.dtype
+            _same(a, b)
+        assert frames.pack_payload(back) == (sig, body)
+    assert frames.to_numpy(frames.to_tensor(words, dev)).tolist() == \
+        words.tolist()
+
+
+@pytest.mark.parametrize("kind", ["topk", "quant"])
+def test_wire_threads_equal_drive_on_card(dev, kind):
+    """A 2-thread ``wire_drive`` on the reduced smollm, pallas top-k or
+    8-bit quant up, gather 2 of 4: state and every metric bit-equal to
+    ``rounds.drive`` on the card, the wire kernels launched."""
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          SwitchConfig)
+    from repro_torch.engine import rounds
+    from repro_torch.wire import bootstrap, wire_drive
+    fed = FedConfig(n_clients=4, m=2, local_steps=1, lr=0.03,
+                    switch=SwitchConfig(mode="soft", eps=0.0, beta=2.0),
+                    uplink=CompressorConfig(kind=kind, ratio=0.1),
+                    comm="pallas", participation="gather", full_eval=True,
+                    lean_metrics=True)
+    args = {"n_clients": 4, "batch": 2, "seq": 16}
+    params, batches, pair = bootstrap.build_problem("lm", args, dev)
+    st_o, mets_o = rounds.drive(rounds.init_state(params, fed, device=dev),
+                                batches, pair, fed, 3, device=dev)
+    kernels.reset_launches()
+    st_w, mets_w, stats = wire_drive(fed, 3, workers=2, spawn="thread",
+                                     problem="lm", problem_args=args,
+                                     deadline=120.0, device=dev)
+    counts = kernels.launch_counts()
+    enc, red = (("block_topk", "scatter_agg") if kind == "topk"
+                else ("quantize_ef_pack", "unpack_mma"))
+    assert counts[enc] > 0 and counts[red] > 0
+    assert st_w.w.is_cuda and stats.totals["missing"] == 0
+    for name in ("w", "e_up", "wbar_sum", "wbar_weight"):
+        _same(getattr(st_o, name), getattr(st_w, name))
+    for name in rounds.RoundMetrics._fields:
+        a, b = getattr(mets_o, name), getattr(mets_w, name)
+        assert (a is None and b is None) or np.array_equal(
+            np.asarray(a).view(np.uint32), np.asarray(b).view(np.uint32))

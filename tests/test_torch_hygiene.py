@@ -89,15 +89,22 @@ def test_round_step_needs_a_card_unless_asked_for_cpu(no_card):
 
 
 def test_not_ported_paths_raise():
-    """The wire runtime raises; the slot store, two-tier cohorts,
+    """No reference flag is refused as not ported any more: ``--wire`` runs
+    (``repro_torch.wire``), and ends the run with ``SystemExit`` beside a
+    flag the wire cannot drive; the slot store, two-tier cohorts,
     ``--client-chunk``, checkpoints, async rounds and obs are ported (they
     set up), and so are the samplers' mid-round events.  The launcher has
-    no flag for the tuner, which is not ported either."""
-    for flag in (["--wire", "2"],
-                 ["--fleet", "--async-buffer", "--wire", "2"]):
-        args = train.parser().parse_args(["--device", "cpu"] + flag)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train.setup(args)
+    no flag for the tuner, which is not ported."""
+    assert train._NOT_PORTED == ()
+    args = train.parser().parse_args(
+        ["--device", "cpu", "--wire", "2", "--wire-deadline", "9",
+         "--wire-heartbeat", "0.5", "--min-quorum", "0.75",
+         "--max-respawns", "3"])
+    assert (args.wire, args.wire_deadline, args.wire_heartbeat,
+            args.min_quorum, args.max_respawns) == (2, 9.0, 0.5, 0.75, 3)
+    with pytest.raises(SystemExit, match="--fleet is not drivable"):
+        train.main(["--device", "cpu", "--fleet", "--async-buffer",
+                    "--wire", "2"])
     assert train.parser().parse_args(["--ckpt-dir", "x"]).ckpt_dir == "x"
     for flag in (["--async-buffer"], ["--obs"],
                  ["--fleet", "--async-buffer", "--obs"],
@@ -132,8 +139,44 @@ def test_new_modules_are_scanned():
                 "core/error_feedback.py", "models/mamba2.py",
                 "models/griffin.py", "configs/qwen3_4b.py",
                 "configs/minitron_4b.py", "configs/gemma3_4b.py",
-                "configs/mamba2_130m.py", "configs/recurrentgemma_2b.py"):
+                "configs/mamba2_130m.py", "configs/recurrentgemma_2b.py",
+                "wire/__init__.py", "wire/frames.py", "wire/testing.py",
+                "wire/bootstrap.py", "wire/supervisor.py", "wire/worker.py",
+                "wire/coordinator.py"):
         assert f"src/repro_torch/{mod}" in scanned
+
+
+def test_wire_needs_a_card_unless_asked_for_cpu(no_card):
+    """``wire_drive``, ``Coordinator``, ``Worker``, ``run_worker``, the
+    worker CLI and the problem builders raise without a card unless asked
+    for the CPU; on the CPU one 2-worker thread round runs."""
+    from repro_torch.configs.base import SwitchConfig
+    from repro_torch.wire import bootstrap, coordinator, worker
+    fed = FedConfig(n_clients=4, m=2, lr=0.1, participation="gather",
+                    lean_metrics=True, comm="packed",
+                    switch=SwitchConfig(eps=0.35),
+                    uplink=CompressorConfig(kind="topk", ratio=0.25,
+                                            block=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coordinator.wire_drive(fed, 1, spawn="thread")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bootstrap.build_problem("np", {"n_clients": 4})
+    params, batches, pair = bootstrap.build_problem(
+        "np", {"n_clients": 4}, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coordinator.Coordinator(params, fed)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.Worker(params, fed, batches, pair, range(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.run_worker("127.0.0.1", 9, "np", {}, fed, 1, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--connect", "127.0.0.1:9", "--fed",
+                     bootstrap.fed_to_json(fed), "--workers", "1",
+                     "--worker-id", "0"])
+    state, mets, stats = coordinator.wire_drive(fed, 1, spawn="thread",
+                                                device="cpu")
+    assert state.w.device.type == "cpu" and state.t == 1
+    assert np.isfinite(mets.f).all() and stats.totals["missing"] == 0
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "minitron-4b", "gemma3-4b",
