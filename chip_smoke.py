@@ -189,9 +189,27 @@ Phases, each fatal on failure (nonzero exit):
    (``quantize_ef_pack``, ``unpack_mma``); (d) ``wire_drive(spawn=
    "process")`` on the reduced LM problem with a ``WireFaultConfig`` and a
    seeded ``ChaosProcess`` SIGKILL at round 1's eval: respawned, and
-   bit-equal to the clean oracle.
+   bit-equal to the clean oracle;
+18. serving (``prefill``, then greedy ``decode_step`` over the KV caches)
+   at full published width, each cell under ``torch.inference_mode`` with
+   weights drawn on CPU generators (seed 0) and the launcher's prompts and
+   media: (a) qwen3-4b whole (36 layers), batch 4, prompt 512, 32 steps;
+   (b) gemma3-4b whole (34 layers, window 1024, 5:1), batch 4, prompt
+   1,100, 16 steps (every local ring holds the whole prompt; decode past
+   position 1,024); (c) llama-3.2-vision-90b at its published widths and
+   vocab cut to one period (4 self layers, 1 cross layer), its gate at
+   0.5, media ``[4, 1601, 8192]``, batch 4, prompt 32, 16 steps; in each
+   the prefill ms, the decode ms per step and tokens/s, one profiled
+   decode step (device ms, launches, busy share), the peak, the step's
+   byte bound, and every decode step's logits against the card's own
+   forward over the prompt and the decoded tokens (within 1e-4 of the
+   largest logit); (d) ``python -m repro_torch.launch.serve`` (reduced
+   qwen3-4b), ``... --arch smollm-360m --no-reduced`` and ``python -m
+   repro_torch.examples.serve_batched --arch gemma3-4b`` as subprocesses
+   started together, each exiting 0 with its line; no wire kernel
+   launches in the phase.
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16 and 17 the launch counts are zeroed
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17 and 18 the launch counts are zeroed
 just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
@@ -3649,6 +3667,281 @@ def wire_phase(torch, dev) -> tuple:
                 "launches": fault["launches"]}])
 
 
+# phase 18: serving (prefill, then greedy one-token decode over the KV
+# caches) of the dense and vlm families at full published width, each cell
+# under torch.inference_mode with weights from CPU generators (seed 0) and
+# the launcher's prompts and media (``serve.draw_inputs``: a CPU generator
+# seeded 0; media normal * 0.1).  (name, arch, config changes, batch,
+# prompt, decode steps): 18(a) qwen3-4b whole (36 layers, 4,411,424,256
+# parameters): the homogeneous stacked cache with qk-norm; 18(b) gemma3-4b
+# whole (34 layers, window 1024, 5:1): a prompt of 1,100 > window + 1, so
+# every local layer's ring holds the whole prompt and decodes past
+# position 1,024 (where the port departs from the reference's ring mask);
+# 18(c) llama-3.2-vision-90b at its published widths and vocab, cut to one
+# period (4 self layers and 1 cross layer, about 6.38B parameters), its
+# gate set to 0.5 (at 0 a cross layer adds nothing): the cross caches
+# filled at prefill and read at decode.  cache_len = prompt + steps
+SERVE_CELLS = [
+    ("18a qwen3-4b", "qwen3-4b", {}, 4, 512, 32),
+    ("18b gemma3-4b", "gemma3-4b", {}, 4, 1100, 16),
+    ("18c llama-3.2-vision-90b 5 layers", "llama-3.2-vision-90b",
+     {"n_layers": 5}, 4, 32, 16),
+]
+# 18(a)-(c): each decode step's logits against the card's own forward over
+# the prompt and the decoded tokens, |decode - forward| <= SERVE_RTOL *
+# max|forward logits of the cell|: float32 throughout, TF32 off, so the two
+# differ only by the order of the GEMMs' sums (a [4, d] row block against a
+# [4 * S, d] one, cuBLAS picking other tilings); float32's 2^-24 grows
+# about with the square root of the sum lengths (d_ff 9,728-28,672) and
+# the depth, which puts the expected difference near 1e-6 of the largest
+# logit (2e-6 to 5e-6 measured on an H100): 1e-4 leaves a margin of 20 or
+# more, and a wrong mask or cache slot moves logits by 1e-2 to 1 of it
+# (the reference's ring on reduced gemma3: 0.08-0.45)
+SERVE_RTOL = 1e-4
+SERVE_CHUNK = 1 << 24          # entries one CPU generator draws
+SERVE_THREADS = 8
+# 18(d): the entry points as subprocesses on the card, each must exit 0 and
+# print its line
+SERVE_COMMANDS = [
+    (["-m", "repro_torch.launch.serve"], r"\[qwen3-4b\] batch=4 decode "),
+    (["-m", "repro_torch.launch.serve", "--arch", "smollm-360m",
+      "--no-reduced"], r"\[smollm-360m\] batch=4 decode "),
+    (["-m", "repro_torch.examples.serve_batched", "--arch", "gemma3-4b"],
+     r"decoded 16 steps x batch 4: .* ms/step \(cuda, reduced config\)"),
+]
+
+
+def cpu_drawn_params(torch, fns, cfg, dev, seed: int = 0) -> dict:
+    """The transformer's weights on the card with ``init``'s distributions
+    (``common.init_tree``'s rules: zeros for the norms and gates, 0.02 *
+    normal for the embedding, fan-in scaled normals for the rest), drawn on
+    CPU generators: one per chunk of SERVE_CHUNK entries, seeded ``seed``,
+    ``seed + 1``, ... in the tree's order, SERVE_THREADS at a time, each
+    chunk copied to the card as soon as it is drawn (one generator draws
+    about 0.1 G entries a second: 4.4B would take a minute)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.models import common
+    jobs = []
+
+    def leaf(name, shape):
+        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+        if name in common._ZEROS:
+            return out
+        scale = 0.02 if name in common._EMBEDS else \
+            1.0 / math.sqrt(max(shape[-2], 1))
+        flat_out = out.view(-1)
+        for a in range(0, flat_out.numel(), SERVE_CHUNK):
+            jobs.append((flat_out[a:a + SERVE_CHUNK], seed + len(jobs),
+                         scale))
+        return out
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        return leaf(name, tuple(tree))
+
+    params = walk(fns.param_shapes(cfg))
+
+    def draw(job):
+        dst, chunk_seed, scale = job
+        gen = torch.Generator().manual_seed(chunk_seed)
+        dst.copy_(torch.randn(dst.numel(), generator=gen).mul_(scale))
+
+    with ThreadPoolExecutor(SERVE_THREADS) as ex:
+        list(ex.map(draw, jobs))
+    torch.cuda.synchronize()
+    return params
+
+
+def serve_bound(torch, cfg, params, cache, batch: int) -> dict:
+    """The byte bound of one decode step: every weight read once (an untied
+    embedding table only at the ``batch`` rows the step looks up), every
+    cache slot read once and one slot a self layer written, over the
+    card's memory rate; the operations bound, 2 * batch operations a weight
+    read and 2 * (n_heads / n_kv_heads) a cache entry, over the float32
+    rate."""
+    from repro_torch.models import transformer
+    weights = sum(x.numel() for x in torch_leaves(params))
+    if not cfg.tie_embeddings:
+        weights -= params["embed"].numel() - batch * cfg.d_model
+    slots = sum(x.numel() for x in torch_leaves(cache.layers))
+    n_self = sum(p["kind"] == "self" for p in transformer.layer_plan(cfg))
+    written = 2 * n_self * batch * cfg.n_kv_heads * cfg.resolved_head_dim
+    nbytes = 4 * (weights + slots + written)
+    ops = 2 * batch * weights + \
+        2 * (cfg.n_heads // cfg.n_kv_heads) * slots
+    ms, by = bound_ms(nbytes, ops)
+    return {"bound_ms": ms, "bound_by": by, "bytes": nbytes,
+            "weight_bytes": 4 * weights, "cache_bytes": 4 * slots,
+            "operations": ops}
+
+
+def serve_cell(torch, dev, name: str, arch: str, over: dict, batch: int,
+               prompt: int, steps: int) -> dict:
+    """18(a)-(c): ``prefill`` of ``batch`` prompts (``cache_len = prompt +
+    steps``; timed twice, the first call and a warm one, whose cache is
+    kept), then ``steps`` greedy ``decode_step`` calls: step 0 warms up,
+    steps 1 .. steps - 2 are timed between two synchronisations (ms per
+    step, tokens/s), the last runs under ``torch.profiler`` (device ms,
+    launches, busy share against the timed steps' wall).  Then the card's
+    ``forward`` over the prompt and the decoded tokens (one call: its
+    logits at a position depend only on the tokens up to it, so position
+    ``prompt + k`` is the forward over the prompt and the first k + 1
+    decoded tokens) against the prefill's last logits and every decode
+    step's, within SERVE_RTOL of the forward's largest logit."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config(arch), **over)
+    fns = build(cfg)
+    t0 = time.time()
+    params = cpu_drawn_params(torch, fns, cfg, dev)
+    draw_s = time.time() - t0
+    if cfg.family == "vlm":
+        for blk in params["blocks"]:
+            if "gate" in blk["attn"]:
+                blk["attn"]["gate"].fill_(0.5)
+    toks, kw = serve.draw_inputs(cfg, batch, prompt, dev)
+    cap = prompt + steps
+    with torch.inference_mode():
+        prefill_ms = []
+        for _ in range(2):          # the first call, then a warm one
+            logits = cache = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fns.prefill(params, cfg, toks, cap, **kw)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        outs, fed = [logits], []
+        timed = (None, None)
+
+        def step(i):
+            nonlocal logits, cache
+            tok = serve.greedy(logits)
+            fed.append(tok)
+            logits, cache = fns.decode_step(params, cfg, tok, cache,
+                                            prompt + i)
+            outs.append(logits)
+        for i in range(steps - 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                timed = (time.perf_counter(), None)
+            step(i)
+        torch.cuda.synchronize()
+        timed = (timed[0], time.perf_counter())
+        step_ms = (timed[1] - timed[0]) * 1e3 / (steps - 2)
+        bound = serve_bound(torch, cfg, params, cache, batch)
+        device_ms, launches, kernels = profile_device(
+            torch, lambda: step(steps - 1))
+        top = sorted(kernels, key=dev_us, reverse=True)[:6]
+        seq = torch.cat([toks] + fed, dim=1)
+        want = fns.forward(params, cfg, seq, **kw)[:, prompt - 1:]
+        got = torch.cat(outs, dim=1)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        err_by_step = (got - want).abs().amax(dim=(0, 2)).tolist()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"serve_cell": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": sum(x.numel() for x in torch_leaves(params)),
+           "batch": batch, "prompt": prompt, "steps": steps,
+           "cache_len": cap, "cpu_draw_s": draw_s,
+           "prefill_ms_first": prefill_ms[0], "prefill_ms": prefill_ms[1],
+           "decode_ms_per_step": step_ms,
+           "tokens_per_s": batch / step_ms * 1e3,
+           "profiled_step": {"device_ms": device_ms,
+                             "kernel_launches": launches,
+                             "busy_share": device_ms / step_ms,
+                             "top_ms": {e.key[:100]: dev_us(e) / 1e3
+                                        for e in top},
+                             "top_calls": {e.key[:100]: e.count
+                                           for e in top}},
+           "peak_gb": peak_gb, **bound,
+           "bound_share": bound["bound_ms"] / step_ms,
+           "check": {"max_abs_err": err, "max_abs_logit": scale,
+                     "tolerance": SERVE_RTOL * scale,
+                     "positions": [prompt - 1, prompt + steps - 1],
+                     "err_by_position": err_by_step},
+           "card": card_line()}
+    print(json.dumps(rec), flush=True)
+    del params, cache, logits, outs, want, got, kw
+    torch.cuda.empty_cache()
+    if not math.isfinite(err) or err > SERVE_RTOL * scale:
+        raise AssertionError(f"{name}: decode differs from the forward by "
+                             f"{err} (limit {SERVE_RTOL * scale})")
+    return rec
+
+
+def torch_leaves(tree):
+    """The tensors of a tree of dicts, lists and tuples (None dropped)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from torch_leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def serve_commands(dev) -> list:
+    """18(d): :data:`SERVE_COMMANDS` as subprocesses started together on
+    the card (``PYTHONPATH=src``), each must exit 0 and print its line."""
+    import re
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    t0 = time.time()
+    procs = [(argv, pat, subprocess.Popen(
+        [sys.executable, *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for argv, pat in SERVE_COMMANDS]
+    recs = []
+    try:
+        for argv, pat, proc in procs:
+            out, errs = proc.communicate(timeout=300)
+            line = next((x for x in out.splitlines() if re.search(pat, x)),
+                        None)
+            recs.append({"command": " ".join(argv), "rc": proc.returncode,
+                         "line": line, "seconds": time.time() - t0})
+            if proc.returncode != 0 or line is None:
+                raise AssertionError(
+                    f"18(d): {' '.join(argv)} exited {proc.returncode}:"
+                    f"\n{out[-3000:]}\n{errs[-3000:]}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(json.dumps({"serve_commands": recs}), flush=True)
+    return recs
+
+
+def serve_phase(torch, dev) -> tuple:
+    """Phase 18: :func:`serve_cell` for :data:`SERVE_CELLS`, then
+    :func:`serve_commands`; no wire kernel may launch.  Returns ``(record,
+    launch records)``."""
+    from repro_torch import kernels
+    t_phase = time.time()
+    kernels.reset_launches()
+    cells, seconds = [], {}
+    for cell in SERVE_CELLS:
+        t0 = time.time()
+        cells.append(serve_cell(torch, dev, *cell))
+        seconds[cell[0].split()[0]] = time.time() - t0
+    t0 = time.time()
+    commands = serve_commands(dev)
+    seconds["18d"] = time.time() - t0
+    counts = kernels.launch_counts()
+    seconds["phase"] = time.time() - t_phase
+    print(json.dumps({"serve_seconds": seconds}), flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"phase 18 launched wire kernels: {counts}")
+    return ({"cells": cells, "commands": commands, "seconds": seconds},
+            [{"phase": "18 serving", "launches": counts}])
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -3762,11 +4055,12 @@ def main(argv=None) -> int:
     moe_rec, moe_launches = moe_phase(torch, dev, args.rounds)
     media_rec, media_launches = media_phase(torch, dev, args.rounds)
     wire_rec, wire_launches = wire_phase(torch, dev)
+    serve_rec, serve_launches = serve_phase(torch, dev)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
         + async_launches + scale_launches + family_launches + moe_launches \
-        + media_launches + wire_launches
+        + media_launches + wire_launches + serve_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -3786,6 +4080,7 @@ def main(argv=None) -> int:
                                     "moe": moe_rec,
                                     "media": media_rec,
                                     "wire": wire_rec,
+                                    "serve": serve_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

@@ -2,7 +2,8 @@
 ``repro.models``; the training forwards of every family are ported:
 ``dense`` and ``vlm`` (the transformer, homogeneous or patterned, with
 interleaved cross-attention layers), ``moe`` (MLA, routed experts, MTP),
-``ssm``, ``hybrid`` and ``audio`` (the whisper encoder-decoder))."""
+``ssm``, ``hybrid`` and ``audio`` (the whisper encoder-decoder); serving
+-- prefill, decode and their caches -- for ``dense`` and ``vlm``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -19,6 +20,20 @@ class ModelFns(NamedTuple):
                              # or for moe (logits, aux[, mtp_logits]);
                              # media [B, M, d_media or d] for vlm / audio
     param_shapes: object     # cfg -> the params' tree of leaf shapes
+    prefill: object          # (params, cfg, tokens, cache_len[, media=])
+                             # -> (logits [B, 1, V], cache)
+    decode_step: object      # (params, cfg, token, cache, pos) ->
+                             # (logits [B, 1, V], cache)
+    init_decode_cache: object  # (cfg, batch, cache_len[, media, params,
+                               # device]) -> cache
+
+
+def _serving_not_ported(family: str):
+    def not_ported(*args, **kwargs):
+        raise NotImplementedError(
+            f"prefill and decode of the {family} family are not ported yet "
+            f"(ROADMAP Queue 1 item 4b)")
+    return not_ported
 
 
 def build(cfg: ModelConfig) -> ModelFns:
@@ -34,8 +49,11 @@ def build(cfg: ModelConfig) -> ModelFns:
         from repro_torch.models import whisper as m
     else:
         raise ValueError(f"unknown family {cfg.family}")
-    return ModelFns(init=m.init, forward=m.forward,
-                    param_shapes=m.param_shapes)
+    if cfg.family in ("dense", "vlm"):
+        serving = (m.prefill, m.decode_step, m.init_decode_cache)
+    else:
+        serving = (_serving_not_ported(cfg.family),) * 3
+    return ModelFns(m.init, m.forward, m.param_shapes, *serving)
 
 
 def params_from_numpy(tree, device=None):

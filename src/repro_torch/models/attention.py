@@ -1,10 +1,10 @@
-"""Attention, training mode (port of the train path of
-``repro.models.attention``): causal GQA self-attention with RoPE, qk-norm
-and sliding windows; cross attention over media tokens or encoder states
-(gated by ``tanh(gate)`` in the VLM); bidirectional MHA (the whisper
-encoder).  Written plainly, as the reference is: grouped scores, a
-``-1e30`` causal bias (a zero bias where nothing is masked) and an f32
-softmax."""
+"""Attention (port of ``repro.models.attention``): causal GQA
+self-attention with RoPE, qk-norm and sliding windows; a preallocated KV
+cache for serving (prefill, then one-token decode); cross attention over
+media tokens or encoder states (gated by ``tanh(gate)`` in the VLM);
+bidirectional MHA (the whisper encoder).  Written plainly, as the
+reference is: grouped scores, a ``-1e30`` causal bias (a zero bias where
+nothing is masked) and an f32 softmax."""
 from __future__ import annotations
 
 import math
@@ -13,6 +13,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import common
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # [B, S_cap, KV, hd]
+    v: torch.Tensor          # [B, S_cap, KV, hd]
 
 
 def attn_shapes(d: int, n_heads: int, n_kv: int, head_dim: int,
@@ -59,13 +64,20 @@ def attend(q, k, v, bias):
     return out.reshape(B, Sq, H * hd)
 
 
-def causal_bias(q_pos, kv_pos, window: int = 0):
-    """Additive bias ``[1,1,1,Sq,Skv]``: 0 allowed, -1e30 blocked."""
+def _bias(allowed):
+    zero = torch.zeros((), dtype=torch.float32, device=allowed.device)
+    return torch.where(allowed, zero, -1e30)
+
+
+def causal_bias(q_pos, kv_pos, window: int = 0, kv_valid=None):
+    """Additive bias ``[1,1,1,Sq,Skv]``: 0 allowed, -1e30 blocked;
+    ``kv_valid`` (``[Skv]`` bool) blocks the slots it marks False."""
     allowed = kv_pos[None, :] <= q_pos[:, None]
     if window:
         allowed &= kv_pos[None, :] > (q_pos[:, None] - window)
-    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
-    return torch.where(allowed, zero, -1e30)[None, None, None]
+    if kv_valid is not None:
+        allowed &= kv_valid[None, :]
+    return _bias(allowed)[None, None, None]
 
 
 def self_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,
@@ -79,14 +91,54 @@ def self_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,
     return out @ p["wo"]
 
 
+def prefill_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,
+                      cache_len: int, window: int = 0, qk_norm: bool = False,
+                      norm_eps: float = 1e-6):
+    """Causal attention over the prompt, and its KV cache zero-padded to
+    ``cache_len >= S`` slots (slot i holds position i)."""
+    S = x.shape[1]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
+                           qk_norm, norm_eps)
+    out = attend(q, k, v, causal_bias(positions, positions, window)) \
+        @ p["wo"]
+    pad = (0, 0, 0, 0, 0, cache_len - S)
+    return out, KVCache(torch.nn.functional.pad(k, pad),
+                        torch.nn.functional.pad(v, pad))
+
+
+def decode_attention(p, x, cache: KVCache, pos: int, *, n_heads, n_kv,
+                     head_dim, theta, window: int = 0, qk_norm: bool = False,
+                     norm_eps: float = 1e-6, write_pos=None, kv_valid=None,
+                     rope_pos=None):
+    """One-token decode: write k, v at slot ``write_pos`` (default
+    ``pos``), then attend over the cache.  ``kv_valid`` (``[S_cap]`` bool)
+    replaces the default slot mask ``slot <= pos`` (ring buffers of
+    sliding-window layers pass theirs); RoPE uses the true position
+    ``rope_pos`` (default ``pos``); ``window`` also blocks slots at or
+    below ``pos - window``.
+
+    The write is in place: the returned cache holds the caller's tensors,
+    which this call consumes (the reference's functional update, whose
+    input XLA donates).  ``pos``, ``write_pos`` and ``rope_pos`` are
+    Python ints."""
+    rp = pos if rope_pos is None else rope_pos
+    positions = torch.full((1,), rp, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
+                           qk_norm, norm_eps)
+    wp = pos if write_pos is None else write_pos
+    cache.k[:, wp] = k[:, 0]
+    cache.v[:, wp] = v[:, 0]
+    kv_pos = torch.arange(cache.k.shape[1], device=x.device)
+    allowed = kv_pos <= pos if kv_valid is None else kv_valid
+    if window:
+        allowed = allowed & (kv_pos > pos - window)
+    out = attend(q, cache.k, cache.v, _bias(allowed)[None, None, None, None])
+    return out @ p["wo"], cache
+
+
 # ---------------------------------------------------------------------------
 # Cross attention (VLM media tokens / whisper encoder states)
 # ---------------------------------------------------------------------------
-
-class CrossKV(NamedTuple):
-    k: torch.Tensor          # [B, M, KV, hd]
-    v: torch.Tensor          # [B, M, KV, hd]
-
 
 def cross_attn_shapes(d: int, d_kv_in: int, n_heads: int, n_kv: int,
                       head_dim: int) -> dict:
@@ -103,11 +155,13 @@ def init_cross_attn(gen, d: int, d_kv_in: int, n_heads: int, n_kv: int,
         gen, cross_attn_shapes(d, d_kv_in, n_heads, n_kv, head_dim), device)
 
 
-def cross_kv(p, media, n_kv, head_dim) -> CrossKV:
+def cross_kv(p, media, n_kv, head_dim) -> KVCache:
+    """The cross layer's keys and values of ``media`` ``[B, M, d]``: its
+    serving cache, filled once (``[B, M, KV, hd]``)."""
     B, M, _ = media.shape
     k = (media @ p["wk"]).reshape(B, M, n_kv, head_dim)
     v = (media @ p["wv"]).reshape(B, M, n_kv, head_dim)
-    return CrossKV(k, v)
+    return KVCache(k, v)
 
 
 def _no_mask(q, kv_len: int):
@@ -115,7 +169,7 @@ def _no_mask(q, kv_len: int):
                        device=q.device)
 
 
-def cross_attention(p, x, kv: CrossKV, *, n_heads, head_dim,
+def cross_attention(p, x, kv: KVCache, *, n_heads, head_dim,
                     gated: bool = True):
     """Every query attends to every media position; ``gated`` scales the
     output by ``tanh(gate)``."""

@@ -8,7 +8,7 @@ expanded from the latent.  The queries are a full-rank projection
 (v3).  Written as the reference is: expanded scores, a ``1/sqrt(nope +
 rope)`` scale, an additive ``-1e30`` causal bias and an f32 softmax.  The
 latent cache, prefill and the absorbed decode are not ported yet (ROADMAP
-Queue 1 item 6d).
+Queue 1 item 4b).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 ``first_dense`` layers with a dense SwiGLU FFN (width ``d_expert *
 (n_shared + top_k)``), the rest with the MoE FFN, and the optional MTP
 head (v3).  Prefill and decode are not ported yet (ROADMAP Queue 1 item
-6d).
+4b).
 
 Parameters are a nested dict laid out as the reference's pytree::
 

@@ -1,8 +1,8 @@
-"""Dense decoder-only transformer, training forward (port of
-``repro.models.transformer``: ``init`` and ``forward`` for homogeneous
-stacks and for patterned stacks -- local:global windows, or the VLM's
-interleaved cross-attention layers -- with optional qk-norm; prefill and
-decode are not ported yet).
+"""Dense decoder-only transformer (port of ``repro.models.transformer``:
+``init``, ``forward``, and serving -- ``prefill``, ``init_decode_cache``,
+``decode_step`` -- for homogeneous stacks and for patterned stacks --
+local:global windows, or the VLM's interleaved cross-attention layers --
+with optional qk-norm).
 
 Parameters are a nested dict laid out as the reference's pytree.  A
 homogeneous stack keeps its per-layer leaves stacked on a leading
@@ -21,10 +21,20 @@ a list of the remainder's unstacked layers.  One period is
 is ``{"wq", "wk", "wv", "wo", "gate"}`` (``gate`` a scalar per layer, 0 at
 init); the VLM adds ``"media_proj": [d_media, d]`` when the media are
 not ``d``-wide.
+
+Serving caches mirror the parameters: a homogeneous stack's
+:class:`attention.KVCache` is stacked ``[L, B, cap, KV, hd]``; a patterned
+stack's is ``{"blocks": [per-position caches stacked over the whole
+periods], "rest": [...]}`` (``"blocks"`` is ``[None] * P`` after a prefill
+or a decode step when there is no whole period, ``[]`` from
+:func:`init_decode_cache`, as in the reference).  A cross layer's cache is
+its media's keys and values ``[B, M, KV, hd]``.  A sliding-window layer
+keeps a ring of ``cap = max(min(cache_len, window + 1), S)`` slots.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -106,48 +116,125 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     return common.init_tree(gen, param_shapes(cfg), device)
 
 
-def _apply_layer(lp, cfg: ModelConfig, h, plan, positions, media=None):
-    """One layer in train mode: self attention (window from ``plan``), or
-    for a cross layer gated attention over ``media`` (``[B, M, d]``);
-    then the SwiGLU MLP."""
-    hd = cfg.resolved_head_dim
-    hn = common.rms_norm(h, lp["ln1"], cfg.norm_eps)
-    if plan["kind"] == "cross":
-        a = attention.cross_attention(
-            lp["attn"], hn, attention.cross_kv(lp["attn"], media,
-                                               cfg.n_kv_heads, hd),
-            n_heads=cfg.n_heads, head_dim=hd)
-    else:
-        a = attention.self_attention(
-            lp["attn"], hn, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=hd, positions=positions, theta=cfg.rope_theta,
-            window=plan["window"], qk_norm=cfg.qk_norm,
-            norm_eps=cfg.norm_eps)
-    h = h + a
+def _attn_kw(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, theta=cfg.rope_theta,
+                qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+
+
+def _mlp_block(lp, cfg: ModelConfig, h):
     mlp = lp["mlp"]
     return h + common.swiglu(common.rms_norm(h, lp["ln2"], cfg.norm_eps),
                              mlp["w_gate"], mlp["w_up"], mlp["w_down"])
 
 
-def _run_patterned(params, cfg: ModelConfig, h, positions, media=None):
+def _apply_layer(lp, cfg: ModelConfig, h, plan, *, positions=None,
+                 media=None, mode="train", cache=None, pos=None,
+                 cache_len=0):
+    """One layer, ``mode`` train, prefill or decode: self attention
+    (window from ``plan``), or for a cross layer gated attention over
+    ``media`` ``[B, M, d]`` (in decode, over its cache); then the SwiGLU
+    MLP.  Returns ``(h, the layer's cache)`` (None in train mode).
+
+    A windowed layer decodes over its ring: slot ``s`` holds position
+    ``pos - ((pos - s) mod cap)`` (negative: not written yet), and the
+    layer attends the positions in ``(pos - window, pos]``, those the
+    forward's :func:`attention.causal_bias` allows.  Here the port departs
+    from the reference, whose ring attends every written slot (``window +
+    1`` positions, or the whole prompt when it is longer than ``window +
+    1``); before ``pos = window``, with a prompt of at most ``window + 1``,
+    the two masks are the same."""
+    hd = cfg.resolved_head_dim
+    hn = common.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    new_cache = cache
+    if plan["kind"] == "cross":
+        media_kv = cache if mode == "decode" else \
+            attention.cross_kv(lp["attn"], media, cfg.n_kv_heads, hd)
+        a = attention.cross_attention(lp["attn"], hn, media_kv,
+                                      n_heads=cfg.n_heads, head_dim=hd)
+        new_cache = media_kv
+    else:
+        kw = _attn_kw(cfg)
+        w = plan["window"]
+        if mode == "train":
+            a = attention.self_attention(lp["attn"], hn, positions=positions,
+                                         window=w, **kw)
+        elif mode == "prefill":
+            clen = min(cache_len, w + 1) if w else cache_len
+            a, new_cache = attention.prefill_attention(
+                lp["attn"], hn, positions=positions,
+                cache_len=max(clen, hn.shape[1]), window=w, **kw)
+        elif w:                 # decode over the ring
+            cap = cache.k.shape[1]
+            slot = torch.arange(cap, device=h.device)
+            held = pos - torch.remainder(pos - slot, cap)
+            a, new_cache = attention.decode_attention(
+                lp["attn"], hn, cache, pos, write_pos=pos % cap,
+                kv_valid=(held >= 0) & (held > pos - w), rope_pos=pos, **kw)
+        else:
+            a, new_cache = attention.decode_attention(lp["attn"], hn, cache,
+                                                      pos, **kw)
+    h = _mlp_block(lp, cfg, h + a)
+    return h, (None if mode == "train" else new_cache)
+
+
+def _cache_at(cache: attention.KVCache, i: int) -> attention.KVCache:
+    """Block ``i``'s cache: views into a stacked cache (a decode writes
+    through them)."""
+    return attention.KVCache(cache.k[i], cache.v[i])
+
+
+def _stack(caches) -> attention.KVCache:
+    caches = list(caches)
+    return attention.KVCache(torch.stack([c.k for c in caches]),
+                             torch.stack([c.v for c in caches]))
+
+
+def _run_patterned(params, cfg: ModelConfig, h, *, positions=None,
+                   media=None, mode="train", caches=None, pos=None,
+                   cache_len=0):
     """The whole periods in order (each position's layer from its stack),
-    then the remainder's layers."""
+    then the remainder's layers.  ``caches``: ``{"blocks", "rest"}`` in
+    decode mode.  Returns ``(h, caches)``: None in train mode, prefill's
+    new caches, or decode's (written in place)."""
     P, n_full, _ = _split_blocks(cfg)
     plans = [_pos_plan(cfg, p) for p in range(P)]
     blocks = [common.unstack(b, n_full) for b in params["blocks"]]
+    made = [[] for _ in range(P)]
     for i in range(n_full):
         for p in range(P):
-            h = _apply_layer(blocks[p][i], cfg, h, plans[p], positions,
-                             media)
+            c = _cache_at(caches["blocks"][p], i) if caches else None
+            h, nc = _apply_layer(blocks[p][i], cfg, h, plans[p],
+                                 positions=positions, media=media,
+                                 mode=mode, cache=c, pos=pos,
+                                 cache_len=cache_len)
+            made[p].append(nc)
+    rest = []
     for i, lp in enumerate(params["rest"]):
-        h = _apply_layer(lp, cfg, h, plans[i % P], positions, media)
-    return h
+        h, nc = _apply_layer(lp, cfg, h, plans[i % P], positions=positions,
+                             media=media, mode=mode,
+                             cache=caches["rest"][i] if caches else None,
+                             pos=pos, cache_len=cache_len)
+        rest.append(nc)
+    if mode == "train":
+        return h, None
+    if not n_full:
+        blk = [None] * P
+    elif mode == "decode":
+        blk = list(caches["blocks"])
+    else:
+        blk = [_stack(cs) for cs in made]
+    return h, {"blocks": blk, "rest": rest}
 
 
 def _media_embed(params, media):
     if "media_proj" in params:
         media = media @ params["media_proj"]
     return media
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    return params["embed"][tokens] * math.sqrt(float(cfg.d_model))
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -162,13 +249,120 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     d_media or d]``, the stub frontend's embeddings) -> logits ``[B, S,
     V]``."""
     S = tokens.shape[1]
-    h = params["embed"][tokens] * math.sqrt(float(cfg.d_model))
+    h = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)
     if _is_patterned(cfg):
         m = _media_embed(params, media) if media is not None else None
-        h = _run_patterned(params, cfg, h, positions, m)
+        h, _ = _run_patterned(params, cfg, h, positions=positions, media=m)
     else:
         plan = {"kind": "self", "window": cfg.window}
         for lp in common.unstack(params["layers"], cfg.n_layers):
-            h = _apply_layer(lp, cfg, h, plan, positions)
+            h, _ = _apply_layer(lp, cfg, h, plan, positions=positions)
     return _logits(params, cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + one-token decode
+# ---------------------------------------------------------------------------
+
+class ServeCache(NamedTuple):
+    layers: object          # stacked KVCache, or the patterned dict
+    media_kv: object        # unused (a cross layer's cache is in layers)
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
+            media: Optional[torch.Tensor] = None):
+    """The prompt ``tokens`` ``[B, S]`` (and the vlm's ``media``) through
+    the stack: the last position's logits ``[B, 1, V]`` and a
+    :class:`ServeCache` of ``cache_len`` slots a layer (at least S; a
+    windowed layer's ring and a cross layer's media as the module
+    docstring says)."""
+    S = tokens.shape[1]
+    h = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    if _is_patterned(cfg):
+        m = _media_embed(params, media) if media is not None else None
+        h, caches = _run_patterned(params, cfg, h, positions=positions,
+                                   media=m, mode="prefill",
+                                   cache_len=cache_len)
+        return _logits(params, cfg, h[:, -1:]), ServeCache(caches, None)
+    kw = _attn_kw(cfg)
+    kvs = []
+    for lp in common.unstack(params["layers"], cfg.n_layers):
+        a, kv = attention.prefill_attention(
+            lp["attn"], common.rms_norm(h, lp["ln1"], cfg.norm_eps),
+            positions=positions, cache_len=max(cache_len, S),
+            window=cfg.window, **kw)
+        h = _mlp_block(lp, cfg, h + a)
+        kvs.append(kv)
+    return _logits(params, cfg, h[:, -1:]), ServeCache(_stack(kvs), None)
+
+
+def _empty_kv(cfg: ModelConfig, batch: int, clen: int, lead=(),
+              device=None) -> attention.KVCache:
+    """Zero caches ``[*lead, batch, clen, KV, hd]`` in float32 (the
+    reference's ``param_dtype`` default; the port's config has no such
+    field)."""
+    shape = tuple(lead) + (batch, clen, cfg.n_kv_heads,
+                           cfg.resolved_head_dim)
+    return attention.KVCache(
+        torch.zeros(shape, dtype=torch.float32, device=device),
+        torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      media: Optional[torch.Tensor] = None, params=None,
+                      device=None) -> ServeCache:
+    """Empty caches for pure decode, on ``device``: ``cache_len`` slots a
+    layer (a windowed layer's ring ``min(cache_len, window + 1)``); a cross
+    layer's ``cfg.n_media_tokens or 8`` media slots are zeros, or with
+    ``media`` and ``params`` its keys and values of the media."""
+    if not _is_patterned(cfg):
+        return ServeCache(_empty_kv(cfg, batch, cache_len, (cfg.n_layers,),
+                                    device), None)
+    P, n_full, rest = _split_blocks(cfg)
+    plans = [_pos_plan(cfg, p) for p in range(P)]
+    hd = cfg.resolved_head_dim
+
+    def pos_cache(plan, lead=()):
+        if plan["kind"] == "cross":
+            return _empty_kv(cfg, batch, cfg.n_media_tokens or 8, lead,
+                             device)
+        w = plan["window"]
+        return _empty_kv(cfg, batch, min(cache_len, w + 1) if w
+                         else cache_len, lead, device)
+
+    caches = {"blocks": [pos_cache(plans[p], (n_full,)) for p in range(P)]
+              if n_full else [],
+              "rest": [pos_cache(plans[i % P]) for i in range(rest)]}
+    if media is not None and params is not None:
+        m = _media_embed(params, media)
+        for p in range(P if n_full else 0):
+            if plans[p]["kind"] == "cross":
+                caches["blocks"][p] = _stack(
+                    attention.cross_kv(lp["attn"], m, cfg.n_kv_heads, hd)
+                    for lp in common.unstack(params["blocks"][p], n_full))
+        for i in range(rest):
+            if plans[i % P]["kind"] == "cross":
+                caches["rest"][i] = attention.cross_kv(
+                    params["rest"][i]["attn"], m, cfg.n_kv_heads, hd)
+    return ServeCache(caches, None)
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
+                cache: ServeCache, pos: int):
+    """token ``[B, 1]`` at position ``pos`` (a Python int) -> ``(logits
+    [B, 1, V], cache)``.  The cache is written in place: the returned one
+    holds the caller's tensors."""
+    h = _embed(params, cfg, token)
+    if _is_patterned(cfg):
+        h, caches = _run_patterned(params, cfg, h, mode="decode",
+                                   caches=cache.layers, pos=pos)
+        return _logits(params, cfg, h), ServeCache(caches, None)
+    kw = _attn_kw(cfg)
+    for i, lp in enumerate(common.unstack(params["layers"], cfg.n_layers)):
+        a, _ = attention.decode_attention(
+            lp["attn"], common.rms_norm(h, lp["ln1"], cfg.norm_eps),
+            _cache_at(cache.layers, i), pos, window=cfg.window, **kw)
+        h = _mlp_block(lp, cfg, h + a)
+    return _logits(params, cfg, h), cache

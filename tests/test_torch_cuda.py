@@ -1228,3 +1228,59 @@ def test_wire_threads_equal_drive_on_card(dev, kind):
         a, b = getattr(mets_o, name), getattr(mets_w, name)
         assert (a is None and b is None) or np.array_equal(
             np.asarray(a).view(np.uint32), np.asarray(b).view(np.uint32))
+
+
+SERVE_CARD_ARCHS = ["qwen3-4b", "gemma3-4b", "llama-3.2-vision-90b"]
+
+
+@pytest.mark.parametrize("arch", SERVE_CARD_ARCHS)
+def test_prefill_and_decode_on_card_match_cpu(dev, arch):
+    """Serving at the reduced dense (qk-norm), gemma3 (window 32, a prompt
+    of 30 and 8 decode steps: the ring wraps and the window masks) and vlm
+    (cross caches over 8 media tokens, gated at 0.5) configs: prefill's
+    logits and caches, then 8 decode steps' logits and the final caches on
+    the card against the CPU from the same weights, tokens and media, at
+    the forward's card tolerance (rtol 1e-4 / atol 1e-5: float32 GEMMs in
+    another order, TF32 off)."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.wire.bootstrap import tree_to
+    cfg = configs.get_reduced(arch)
+    fns = build(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg)
+    if cfg.family == "vlm":
+        params["blocks"][1]["attn"]["gate"].fill_(0.5)
+    prompt, steps = 30, 8
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt + steps)))
+    kw = {}
+    if cfg.family == "vlm":
+        kw["media"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_media_tokens, cfg.d_media)).astype(np.float32) * 0.1)
+
+    def leaves(cache):
+        out = []
+        for part in cache.layers["blocks"] + cache.layers["rest"] \
+                if isinstance(cache.layers, dict) else [cache.layers]:
+            if part is not None:
+                out += [part.k.cpu(), part.v.cpu()]
+        return out
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = tree_to(params, d)
+        dkw = {k: v.to(d) for k, v in kw.items()}
+        with torch.inference_mode():
+            logits, cache = fns.prefill(p, cfg, toks[:, :prompt].to(d),
+                                        prompt + steps, **dkw)
+            got = [logits.cpu()]
+            for pos in range(prompt, prompt + steps):
+                logits, cache = fns.decode_step(
+                    p, cfg, toks[:, pos:pos + 1].to(d), cache, pos)
+                got.append(logits.cpu())
+        out[d.type] = (got, leaves(cache))
+    for a, b in zip(out["cuda"][0] + out["cuda"][1],
+                    out["cpu"][0] + out["cpu"][1]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
