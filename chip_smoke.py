@@ -208,9 +208,33 @@ Phases, each fatal on failure (nonzero exit):
    repro_torch.examples.serve_batched --arch gemma3-4b`` as subprocesses
    started together, each exiting 0 with its line; no wire kernel
    launches in the phase.
+19. serving of the state-cache families, as 18(a)-(c) (the checked
+   forward over the prompt and the decoded tokens, within 1e-4 of its
+   largest logit): (a) mamba2-130m whole (24 layers), batch 4, prompt
+   1,000 (a padded last SSD chunk), 32 steps; (b) recurrentgemma-2b whole
+   (26 layers, window 2,048), batch 4, prompt 2,040, 16 steps (a ring of
+   2,049 slots; decode past ``pos = window`` and the wrap to slot 0); (c)
+   deepseek-v2-236b at its published widths, all 160 routed experts and
+   vocab 102,400, cut to 3 layers (1 dense + 2 MoE), ``capacity_factor``
+   27 (no route dropped), batch 4, prompt 256, 16 steps, with the routes
+   the published 1.25 would drop at each decode step counted from the
+   router's choices; (d) whisper-small whole (12 + 12 layers, frames ``[4,
+   1500, 768]``), batch 4, prompt 64, 32 steps; each with a bound of its
+   decode step over any cache tree (whisper's by operations: the cross K/V
+   it recomputes); (e) the reduced mamba2-130m, recurrentgemma-2b,
+   deepseek-v2-236b, deepseek-v3-671b (published capacity, drops
+   included) and whisper-small, prefill and 6 decode steps on the card
+   against the CPU (the moe routes equal where the CPU's router margin
+   exceeds 1e-5, logits within 1e-4 of the largest up to any step where a
+   route under the margin flipped); (f) ``launch.serve --arch mamba2-130m
+   --no-reduced``, ``--arch recurrentgemma-2b``, ``--arch
+   deepseek-v2-236b``, ``--arch whisper-small`` and
+   ``examples.serve_batched --arch deepseek-v3-671b`` as subprocesses
+   started together, each exiting 0 with its line; no wire kernel
+   launches in the phase.
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17 and 18 the launch counts are zeroed
-just before each part and read just after: each kernel must have launched
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18 and 19 the launch
+counts are zeroed just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
 store's eviction flush; the reduce kernel once per run and cohort on the
@@ -232,6 +256,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -293,6 +318,28 @@ def time_ms(torch, fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def interleaved_ms(torch, fns: dict, pairs: int = 20) -> dict:
+    """Each of ``fns`` timed alternately on the same inputs: REPS warm-up
+    calls of each, then ``pairs`` rounds of one call of each between two
+    CUDA events.  Returns ``{name: {"median", "min", "max"}}`` in ms."""
+    for fn in fns.values():
+        for _ in range(REPS):
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(pairs):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: {"median": sorted(t)[len(t) // 2], "min": min(t),
+                   "max": max(t), "pairs": pairs}
+            for name, t in times.items()}
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -346,6 +393,7 @@ def check_kernels(torch, dev, layout):
                               if library is not None else None)}
         print(json.dumps({"kernel_check": rec, "tolerance": tol}), flush=True)
         out[name] = rec
+        return rec
 
     # -- top-k encode and select reduce (one round: 8 runs) ---------------
     x = torch.randn((n, d), generator=g, device=dev)
@@ -555,10 +603,15 @@ def check_gather_kernels(torch, dev, layout, d, g, record):
     gf = torch.randn(d, generator=g, device=dev)
     gg = torch.randn(d, generator=g, device=dev)
     sigma = torch.tensor(0.3, device=dev)
-    record("switch_blend",
-           lambda: [(switch_blend.switch_blend(gf, gg, sigma),)],
-           lambda: [(switch_blend.switch_blend_plain(gf, gg, sigma),)],
-           lambda: torch.lerp(gf, gg, sigma), 12 * d, 3 * d, 0.0)
+    rec = record("switch_blend",
+                 lambda: [(switch_blend.switch_blend(gf, gg, sigma),)],
+                 lambda: [(switch_blend.switch_blend_plain(gf, gg, sigma),)],
+                 lambda: torch.lerp(gf, gg, sigma), 12 * d, 3 * d, 0.0)
+    rec["interleaved"] = interleaved_ms(torch, {
+        "switch_blend": lambda: switch_blend.switch_blend(gf, gg, sigma),
+        "torch.lerp": lambda: torch.lerp(gf, gg, sigma)})
+    print(json.dumps({"switch_blend_vs_lerp": rec["interleaved"]}),
+          flush=True)
     del gf, gg
     torch.cuda.empty_cache()
 
@@ -3711,10 +3764,14 @@ SERVE_COMMANDS = [
 ]
 
 
+FILLED = ("A_log", "D", "dt_bias", "lam")   # init's constant leaves
+
+
 def cpu_drawn_params(torch, fns, cfg, dev, seed: int = 0) -> dict:
-    """The transformer's weights on the card with ``init``'s distributions
-    (``common.init_tree``'s rules: zeros for the norms and gates, 0.02 *
-    normal for the embedding, fan-in scaled normals for the rest), drawn on
+    """A model's weights on the card with ``init``'s distributions
+    (``common.init_tree``'s rules: zeros for the norms and gates, the
+    constants of :data:`FILLED`, 0.02 * normal for the embeddings, 0.1 *
+    normal for a conv, fan-in scaled normals for the rest), drawn on
     CPU generators: one per chunk of SERVE_CHUNK entries, seeded ``seed``,
     ``seed + 1``, ... in the tree's order, SERVE_THREADS at a time, each
     chunk copied to the card as soon as it is drawn (one generator draws
@@ -3724,11 +3781,13 @@ def cpu_drawn_params(torch, fns, cfg, dev, seed: int = 0) -> dict:
     jobs = []
 
     def leaf(name, shape):
+        if name in FILLED:         # constants: no draw
+            return common._init_leaf(None, name, shape, dev)
         out = torch.zeros(shape, dtype=torch.float32, device=dev)
         if name in common._ZEROS:
             return out
-        scale = 0.02 if name in common._EMBEDS else \
-            1.0 / math.sqrt(max(shape[-2], 1))
+        scale = 0.02 if name in common._EMBEDS else 0.1 \
+            if name == "conv_w" else 1.0 / math.sqrt(max(shape[-2], 1))
         flat_out = out.view(-1)
         for a in range(0, flat_out.numel(), SERVE_CHUNK):
             jobs.append((flat_out[a:a + SERVE_CHUNK], seed + len(jobs),
@@ -3755,27 +3814,128 @@ def cpu_drawn_params(torch, fns, cfg, dev, seed: int = 0) -> dict:
     return params
 
 
+def decode_traffic(torch, cfg, cache, batch: int) -> tuple:
+    """One decode step's cache entries ``(read, written, operations)``:
+    every cache leaf read once; written, one slot a layer of a KV cache
+    (self layers only) or an MLA latent cache, a recurrent layer's whole
+    conv window and state (mamba2's SSM state too); operations, 2 *
+    (n_heads / n_kv_heads) a KV entry, 4 * n_heads a latent ``c_kv``
+    entry and 2 * n_heads a ``k_rope`` one (the absorbed scores and
+    context), 4 a recurrent state entry (decay, update, readout)."""
+    from repro_torch.models import attention, mla, transformer
+
+    def numel(tree):
+        return sum(x.numel() for x in torch_leaves(tree))
+    rep = cfg.n_heads // max(cfg.n_kv_heads, 1)
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        read = numel(cache.layers)
+        n_self = sum(p["kind"] == "self" for p in transformer.layer_plan(cfg))
+        written = 2 * n_self * batch * cfg.n_kv_heads * cfg.resolved_head_dim
+        return read, written, 2 * rep * read
+    if fam == "ssm":
+        read = numel(cache)
+        return read, read, 4 * cache.ssm.numel()
+    if fam == "moe":
+        read = written = ops = 0
+        for c in list(cache.dense) + [cache.moe]:
+            read += numel(c)
+            written += numel(c) // c.c_kv.shape[-2]
+            ops += 4 * cfg.n_heads * c.c_kv.numel() + \
+                2 * cfg.n_heads * c.k_rope.numel()
+        return read, written, ops
+    if fam == "hybrid":
+        read = written = ops = 0
+        for c in cache.layers["blocks"] + cache.layers["rest"]:
+            read += numel(c)
+            if isinstance(c, attention.KVCache):
+                written += numel(c) // c.k.shape[-3]
+                ops += 2 * rep * numel(c)
+            else:
+                written += numel(c)
+                ops += 4 * c["state"].numel()
+        return read, written, ops
+    if fam == "audio":
+        kv = cache.self_kv
+        return (numel(kv) + cache.enc.numel(), numel(kv) // kv.k.shape[-3],
+                2 * rep * numel(kv))
+    raise ValueError(fam)
+
+
 def serve_bound(torch, cfg, params, cache, batch: int) -> dict:
-    """The byte bound of one decode step: every weight read once (an untied
-    embedding table only at the ``batch`` rows the step looks up), every
-    cache slot read once and one slot a self layer written, over the
-    card's memory rate; the operations bound, 2 * batch operations a weight
-    read and 2 * (n_heads / n_kv_heads) a cache entry, over the float32
-    rate."""
-    from repro_torch.models import transformer
-    weights = sum(x.numel() for x in torch_leaves(params))
+    """The bound of one decode step, the larger of a byte and an operation
+    time.  Bytes: every weight the step reads, once (an untied embedding
+    table only at the ``batch`` rows it looks up; whisper's decoder alone,
+    its learned positions at one row; no MTP head), and the cache's
+    traffic (:func:`decode_traffic`), over the card's memory rate.
+    Operations: 2 * batch a weight read, the cache's operations, and
+    whisper's cross keys and values recomputed from its encoder states in
+    every layer (``2 * 2 * batch * n_frames * d * n_kv * hd`` a layer) and
+    attended (``2 * 2 * batch * n_frames * n_heads * hd``), over the
+    float32 rate."""
+    def numel(tree):
+        return sum(x.numel() for x in torch_leaves(tree))
+    weights = numel(params)
     if not cfg.tie_embeddings:
         weights -= params["embed"].numel() - batch * cfg.d_model
-    slots = sum(x.numel() for x in torch_leaves(cache.layers))
-    n_self = sum(p["kind"] == "self" for p in transformer.layer_plan(cfg))
-    written = 2 * n_self * batch * cfg.n_kv_heads * cfg.resolved_head_dim
-    nbytes = 4 * (weights + slots + written)
-    ops = 2 * batch * weights + \
-        2 * (cfg.n_heads // cfg.n_kv_heads) * slots
+    for name in ("mtp", "encoder", "pos_emb_enc", "ln_enc"):
+        weights -= numel(params.get(name))
+    if "pos_emb_dec" in params:
+        weights -= params["pos_emb_dec"].numel() - cfg.d_model
+    read, written, cache_ops = decode_traffic(torch, cfg, cache, batch)
+    recompute = 0
+    if cfg.family == "audio":
+        frames = batch * cache.enc.shape[1]
+        kv_w = cfg.n_kv_heads * cfg.resolved_head_dim
+        recompute = cfg.n_layers * (
+            4 * frames * cfg.d_model * kv_w
+            + 4 * frames * cfg.n_heads * cfg.resolved_head_dim)
+    nbytes = 4 * (weights + read + written)
+    ops = 2 * batch * weights + cache_ops + recompute
     ms, by = bound_ms(nbytes, ops)
     return {"bound_ms": ms, "bound_by": by, "bytes": nbytes,
-            "weight_bytes": 4 * weights, "cache_bytes": 4 * slots,
-            "operations": ops}
+            "weight_bytes": 4 * weights, "cache_bytes": 4 * read,
+            "operations": ops, "recompute_operations": recompute}
+
+
+def config_with(cfg, over: dict):
+    """``dataclasses.replace(cfg, **over)``; ``capacity_factor`` goes to
+    the MoE config."""
+    over = dict(over)
+    if "capacity_factor" in over:
+        over["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=over.pop("capacity_factor"))
+    return dataclasses.replace(cfg, **over)
+
+
+class RouteLog:
+    """The router's choices while active (``with``): wraps
+    ``models.moe.route`` and keeps each call's ``(probs, idx)`` on its
+    device (no synchronisation)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe.route, []
+
+        def route(router, xg, k):
+            out = self.real(router, xg, k)
+            self.calls.append((out[0], out[2]))
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def dropped_routes(torch, idx, E: int, C: int) -> int:
+    """The choices ``idx`` ``[ng, G, k]`` that a capacity of ``C`` slots
+    an expert and group drops (token-major priority, as
+    ``moe.dispatch``)."""
+    ng, G, k = idx.shape
+    onehot = torch.nn.functional.one_hot(idx.reshape(ng, G * k), E)
+    pos = (onehot * (onehot.cumsum(1) - onehot)).sum(-1)
+    return int((pos >= C).sum())
 
 
 def serve_cell(torch, dev, name: str, arch: str, over: dict, batch: int,
@@ -3790,13 +3950,18 @@ def serve_cell(torch, dev, name: str, arch: str, over: dict, batch: int,
     logits at a position depend only on the tokens up to it, so position
     ``prompt + k`` is the forward over the prompt and the first k + 1
     decoded tokens) against the prefill's last logits and every decode
-    step's, within SERVE_RTOL of the forward's largest logit."""
+    step's, within SERVE_RTOL of the forward's largest logit.  A moe
+    cell's decode routes are logged: the choices dropped at its capacity
+    and at the published one (:data:`PUBLISHED_CAPACITY`), a decode
+    step."""
     from repro_torch import configs
     from repro_torch.launch import serve
-    from repro_torch.models import build
+    from repro_torch.models import build, moe
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(configs.get_config(arch), **over)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = config_with(configs.get_config(arch), over)
     fns = build(cfg)
     t0 = time.time()
     params = cpu_drawn_params(torch, fns, cfg, dev)
@@ -3818,6 +3983,9 @@ def serve_cell(torch, dev, name: str, arch: str, over: dict, batch: int,
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
         outs, fed = [logits], []
         timed = (None, None)
+        routes = contextlib.ExitStack()
+        log = routes.enter_context(RouteLog()) if cfg.family == "moe" \
+            else None
 
         def step(i):
             nonlocal logits, cache
@@ -3837,9 +4005,13 @@ def serve_cell(torch, dev, name: str, arch: str, over: dict, batch: int,
         bound = serve_bound(torch, cfg, params, cache, batch)
         device_ms, launches, kernels = profile_device(
             torch, lambda: step(steps - 1))
+        routes.close()
         top = sorted(kernels, key=dev_us, reverse=True)[:6]
         seq = torch.cat([toks] + fed, dim=1)
-        want = fns.forward(params, cfg, seq, **kw)[:, prompt - 1:]
+        want = fns.forward(params, cfg, seq, **kw)
+        if isinstance(want, tuple):         # moe: (logits, aux[, mtp])
+            want = want[0]
+        want = want[:, prompt - 1:]
         got = torch.cat(outs, dim=1)
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
@@ -3859,15 +4031,31 @@ def serve_cell(torch, dev, name: str, arch: str, over: dict, batch: int,
                                         for e in top},
                              "top_calls": {e.key[:100]: e.count
                                            for e in top}},
-           "peak_gb": peak_gb, **bound,
+           "peak_gb": peak_gb, "resident_gb_before": resident_gb, **bound,
            "bound_share": bound["bound_ms"] / step_ms,
            "check": {"max_abs_err": err, "max_abs_logit": scale,
                      "tolerance": SERVE_RTOL * scale,
                      "positions": [prompt - 1, prompt + steps - 1],
                      "err_by_position": err_by_step},
            "card": card_line()}
+    if log is not None:
+        n_moe = cfg.n_layers - cfg.moe.first_dense
+        E = cfg.moe.n_experts
+        caps = {"run": cfg.moe.capacity_factor,
+                "published": PUBLISHED_CAPACITY}
+        rec["dropped_routes"] = {
+            key: [sum(dropped_routes(torch, idx, E, moe.capacity(
+                idx.shape[1], dataclasses.replace(cfg.moe,
+                                                  capacity_factor=cf)))
+                for _, idx in log.calls[j * n_moe:(j + 1) * n_moe])
+                for j in range(steps)]
+            for key, cf in caps.items()}
+        rec["dropped_routes"]["capacity_factor"] = caps
+        rec["dropped_routes"]["choices_a_step"] = \
+            batch * cfg.moe.top_k * n_moe
     print(json.dumps(rec), flush=True)
-    del params, cache, logits, outs, want, got, kw
+    del params, cache, logits, outs, want, got, kw, log
+    gc.collect()
     torch.cuda.empty_cache()
     if not math.isfinite(err) or err > SERVE_RTOL * scale:
         raise AssertionError(f"{name}: decode differs from the forward by "
@@ -3886,9 +4074,9 @@ def torch_leaves(tree):
         yield tree
 
 
-def serve_commands(dev) -> list:
-    """18(d): :data:`SERVE_COMMANDS` as subprocesses started together on
-    the card (``PYTHONPATH=src``), each must exit 0 and print its line."""
+def serve_commands(dev, commands=SERVE_COMMANDS, label="18(d)") -> list:
+    """18(d), 19(f): ``commands`` as subprocesses started together on the
+    card (``PYTHONPATH=src``), each must exit 0 and print its line."""
     import re
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + \
@@ -3896,7 +4084,7 @@ def serve_commands(dev) -> list:
     t0 = time.time()
     procs = [(argv, pat, subprocess.Popen(
         [sys.executable, *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)) for argv, pat in SERVE_COMMANDS]
+        stderr=subprocess.PIPE, text=True)) for argv, pat in commands]
     recs = []
     try:
         for argv, pat, proc in procs:
@@ -3907,14 +4095,14 @@ def serve_commands(dev) -> list:
                          "line": line, "seconds": time.time() - t0})
             if proc.returncode != 0 or line is None:
                 raise AssertionError(
-                    f"18(d): {' '.join(argv)} exited {proc.returncode}:"
+                    f"{label}: {' '.join(argv)} exited {proc.returncode}:"
                     f"\n{out[-3000:]}\n{errs[-3000:]}")
     finally:
         for _, _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    print(json.dumps({"serve_commands": recs}), flush=True)
+    print(json.dumps({"serve_commands": recs, "part": label}), flush=True)
     return recs
 
 
@@ -3940,6 +4128,140 @@ def serve_phase(torch, dev) -> tuple:
         raise AssertionError(f"phase 18 launched wire kernels: {counts}")
     return ({"cells": cells, "commands": commands, "seconds": seconds},
             [{"phase": "18 serving", "launches": counts}])
+
+
+# phase 19: serving of the state-cache families, cells as 18(a)-(c): (name,
+# arch, config changes, batch, prompt, steps), cache_len = prompt + steps.
+# 19(c) deepseek-v2-236b at its published widths, all 160 routed experts
+# and vocab 102,400, cut to 3 of 60 layers (1 dense + 2 MoE; 9.57B
+# parameters, 38.3 GB), capacity_factor 1.25 -> 27: C = round(1.0125 G)
+# >= G, so no route is dropped and the decode and the checked forward
+# route the same tokens (with drops they route different token sets and
+# cannot agree, as in the reference's own consistency test)
+STATE_CELLS = [
+    ("19a mamba2-130m", "mamba2-130m", {}, 4, 1000, 32),
+    ("19b recurrentgemma-2b", "recurrentgemma-2b", {}, 4, 2040, 16),
+    ("19c deepseek-v2-236b 3 layers", "deepseek-v2-236b",
+     {"n_layers": 3, "capacity_factor": 27.0}, 4, 256, 16),
+    ("19d whisper-small", "whisper-small", {}, 4, 64, 32),
+]
+PUBLISHED_CAPACITY = 1.25      # deepseek's capacity_factor
+# 19(e): the reduced configs, prefill and STATE_CHECK_STEPS decode steps on
+# the card against the CPU (the moe archs at the published capacity)
+STATE_CHECK_ARCHS = ["mamba2-130m", "recurrentgemma-2b", "deepseek-v2-236b",
+                     "deepseek-v3-671b", "whisper-small"]
+STATE_CHECK_PROMPT, STATE_CHECK_STEPS = 16, 6
+# 19(f): the entry points as subprocesses on the card
+STATE_COMMANDS = [
+    (["-m", "repro_torch.launch.serve", "--arch", "mamba2-130m",
+      "--no-reduced"], r"\[mamba2-130m\] batch=4 decode "),
+    (["-m", "repro_torch.launch.serve", "--arch", "recurrentgemma-2b"],
+     r"\[recurrentgemma-2b\] batch=4 decode "),
+    (["-m", "repro_torch.launch.serve", "--arch", "deepseek-v2-236b"],
+     r"\[deepseek-v2-236b\] batch=4 decode "),
+    (["-m", "repro_torch.launch.serve", "--arch", "whisper-small"],
+     r"\[whisper-small\] batch=4 decode "),
+    (["-m", "repro_torch.examples.serve_batched", "--arch",
+      "deepseek-v3-671b"],
+     r"decoded 16 steps x batch 4: .* ms/step \(cuda, reduced config\)"),
+]
+
+
+def state_card_check(torch, dev, arch: str) -> dict:
+    """19(e): one reduced config's prefill (prompt STATE_CHECK_PROMPT,
+    batch 2) and STATE_CHECK_STEPS decode steps on the card and on the
+    CPU, from the same weights (``init`` on a CPU generator), tokens and
+    frames.  A moe arch's router choices must be equal wherever the CPU's
+    k-th minus (k+1)-th probability exceeds :data:`MOE_MARGIN`; from the
+    step of the first choice that flips under it, the logits are not
+    gated (counted).  Every gated step's logits within SERVE_RTOL of the
+    CPU's largest."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.wire.bootstrap import tree_to
+    cfg = configs.get_reduced(arch)
+    fns = build(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg)
+    P, T = STATE_CHECK_PROMPT, STATE_CHECK_STEPS
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, P + T)))
+    kw = serve.draw_inputs(cfg, 2, 1, torch.device("cpu"))[1]
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        p, dkw = tree_to(params, d), {k: v.to(d) for k, v in kw.items()}
+        with RouteLog() as log, torch.inference_mode():
+            logits, cache = fns.prefill(p, cfg, toks[:, :P].to(d), P + T,
+                                        **dkw)
+            got = [logits.cpu()]
+            for pos in range(P, P + T):
+                logits, cache = fns.decode_step(
+                    p, cfg, toks[:, pos:pos + 1].to(d), cache, pos)
+                got.append(logits.cpu())
+        res[d.type] = (got, [(pr.cpu(), ix.cpu()) for pr, ix in log.calls])
+    n_moe = cfg.n_layers - cfg.moe.first_dense if cfg.family == "moe" \
+        else 0
+    first_flip, over_margin, under = T + 1, 0, 0
+    for j, ((_, ix_card), (pr, ix)) in enumerate(zip(res["cuda"][1],
+                                                     res["cpu"][1])):
+        k = ix.shape[-1]
+        srt = pr.sort(-1, descending=True).values
+        margin = srt[..., k - 1] - srt[..., k]
+        flip = (ix_card != ix).any(-1)
+        under += int((margin <= MOE_MARGIN).sum())
+        over_margin += int((flip & (margin > MOE_MARGIN)).sum())
+        if flip.any():
+            first_flip = min(first_flip, j // n_moe)
+    scale = max(float(x.abs().max()) for x in res["cpu"][0])
+    errs = [float((a - b).abs().max()) for a, b in zip(res["cuda"][0],
+                                                        res["cpu"][0])]
+    gated = errs[:first_flip]
+    rec = {"state_card_check": arch, "prompt": P, "steps": T,
+           "max_abs_err": max(gated, default=0.0), "err_by_step": errs,
+           "tolerance": SERVE_RTOL * scale, "route_calls": len(res["cpu"][1]),
+           "under_margin": under, "flipped_over_margin": over_margin,
+           "steps_not_gated": len(errs) - len(gated)}
+    rec["ok"] = (over_margin == 0 and all(math.isfinite(e) for e in errs)
+                 and max(gated, default=0.0) <= SERVE_RTOL * scale)
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise AssertionError(f"19(e) {arch}: card and CPU disagree: {rec}")
+    return rec
+
+
+def state_serve_phase(torch, dev) -> tuple:
+    """Phase 19: :func:`serve_cell` for :data:`STATE_CELLS` (19(c) must
+    drop no route at its capacity), :func:`state_card_check` for
+    :data:`STATE_CHECK_ARCHS`, then :data:`STATE_COMMANDS`; no wire kernel
+    may launch.  Returns ``(record, launch records)``."""
+    from repro_torch import kernels
+    t_phase = time.time()
+    kernels.reset_launches()
+    cells, seconds = [], {}
+    for cell in STATE_CELLS:
+        t0 = time.time()
+        rec = serve_cell(torch, dev, *cell)
+        if "dropped_routes" in rec and any(rec["dropped_routes"]["run"]):
+            raise AssertionError(f"{cell[0]}: routes dropped at capacity "
+                                 f"{cell[2]}: {rec['dropped_routes']}")
+        cells.append(rec)
+        seconds[cell[0].split()[0]] = time.time() - t0
+    t0 = time.time()
+    checks = [state_card_check(torch, dev, arch)
+              for arch in STATE_CHECK_ARCHS]
+    seconds["19e"] = time.time() - t0
+    t0 = time.time()
+    commands = serve_commands(dev, STATE_COMMANDS, "19(f)")
+    seconds["19f"] = time.time() - t0
+    counts = kernels.launch_counts()
+    seconds["phase"] = time.time() - t_phase
+    print(json.dumps({"state_serve_seconds": seconds}), flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"phase 19 launched wire kernels: {counts}")
+    return ({"cells": cells, "checks": checks, "commands": commands,
+             "seconds": seconds},
+            [{"phase": "19 state serving", "launches": counts}])
 
 
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
@@ -4056,11 +4378,12 @@ def main(argv=None) -> int:
     media_rec, media_launches = media_phase(torch, dev, args.rounds)
     wire_rec, wire_launches = wire_phase(torch, dev)
     serve_rec, serve_launches = serve_phase(torch, dev)
+    state_rec, state_launches = state_serve_phase(torch, dev)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
         + async_launches + scale_launches + family_launches + moe_launches \
-        + media_launches + wire_launches + serve_launches
+        + media_launches + wire_launches + serve_launches + state_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -4081,6 +4404,7 @@ def main(argv=None) -> int:
                                     "media": media_rec,
                                     "wire": wire_rec,
                                     "serve": serve_rec,
+                                    "state_serve": state_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

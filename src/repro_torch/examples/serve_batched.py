@@ -1,5 +1,5 @@
 """Batched serving demo: prefill a batch of prompts, then decode tokens
-greedily with a dense or vlm arch's reduced config (port of
+greedily with any arch's reduced config (port of
 ``examples/serve_batched.py``).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_batched \\

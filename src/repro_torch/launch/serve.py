@@ -1,5 +1,6 @@
-"""Serving launcher: batched prefill, then greedy one-token decode over a
-preallocated KV cache, on one device (port of ``repro.launch.serve``).
+"""Serving launcher: batched prefill, then greedy one-token decode over
+each family's preallocated cache (KV, cross-KV, MLA latents, conv windows
+and recurrent states), on one device (port of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
@@ -8,14 +9,13 @@ preallocated KV cache, on one device (port of ``repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --no-reduced --batch 4 --prompt-len 512 --steps 32
 
-Serves the ``dense`` and ``vlm`` archs (the other families' prefill and
-decode are not ported yet and raise ``NotImplementedError``).  The
-reference serves the reduced config on one device; the port runs on one
-device, so ``--reduced`` is the default and ``--no-reduced`` serves the
-full config.  Runs on ``cuda`` unless given ``--device cpu``; without a
-card it raises.  Weights are drawn on the device's generator (as the
-training launcher's are), prompts and media (``normal * 0.1``) on a CPU
-generator seeded 0 and then moved.  Prints ``[name] batch=B decode X
+Serves every arch of every family.  The reference serves the reduced
+config on one device; the port runs on one device, so ``--reduced`` is
+the default and ``--no-reduced`` serves the full config.  Runs on
+``cuda`` unless given ``--device cpu``; without a card it raises.
+Weights are drawn on the device's generator (as the training launcher's
+are), prompts and media (``normal * 0.1``) on a CPU generator seeded 0
+and then moved.  Prints ``[name] batch=B decode X
 ms/step``: the decode loop's wall time between two synchronisations of
 the device, over ``--steps``.
 """
@@ -32,7 +32,8 @@ from repro_torch.models import build
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    choices=sorted(configs.ALIASES))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="the reduced config (the default on one device, "

@@ -1,9 +1,9 @@
 """Model registry: dispatch on ``ModelConfig.family`` (port of
-``repro.models``; the training forwards of every family are ported:
-``dense`` and ``vlm`` (the transformer, homogeneous or patterned, with
-interleaved cross-attention layers), ``moe`` (MLA, routed experts, MTP),
-``ssm``, ``hybrid`` and ``audio`` (the whisper encoder-decoder); serving
--- prefill, decode and their caches -- for ``dense`` and ``vlm``)."""
+``repro.models``).  Every family trains and serves: ``dense`` and ``vlm``
+(the transformer, homogeneous or patterned, with interleaved
+cross-attention layers), ``moe`` (MLA, routed experts, MTP), ``ssm``,
+``hybrid`` and ``audio`` (the whisper encoder-decoder); serving is
+prefill, one-token decode and their caches."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -28,14 +28,6 @@ class ModelFns(NamedTuple):
                                # device]) -> cache
 
 
-def _serving_not_ported(family: str):
-    def not_ported(*args, **kwargs):
-        raise NotImplementedError(
-            f"prefill and decode of the {family} family are not ported yet "
-            f"(ROADMAP Queue 1 item 4b)")
-    return not_ported
-
-
 def build(cfg: ModelConfig) -> ModelFns:
     if cfg.family in ("dense", "vlm"):
         from repro_torch.models import transformer as m
@@ -49,11 +41,8 @@ def build(cfg: ModelConfig) -> ModelFns:
         from repro_torch.models import whisper as m
     else:
         raise ValueError(f"unknown family {cfg.family}")
-    if cfg.family in ("dense", "vlm"):
-        serving = (m.prefill, m.decode_step, m.init_decode_cache)
-    else:
-        serving = (_serving_not_ported(cfg.family),) * 3
-    return ModelFns(m.init, m.forward, m.param_shapes, *serving)
+    return ModelFns(m.init, m.forward, m.param_shapes, m.prefill,
+                    m.decode_step, m.init_decode_cache)
 
 
 def params_from_numpy(tree, device=None):

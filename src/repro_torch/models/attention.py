@@ -136,6 +136,33 @@ def decode_attention(p, x, cache: KVCache, pos: int, *, n_heads, n_kv,
     return out @ p["wo"], cache
 
 
+def ring_slots(cache_len: int, window: int, S: int = 0) -> int:
+    """The slots of a layer's cache: ``cache_len``, or for a
+    sliding-window layer a ring of ``min(cache_len, window + 1)``; at
+    least the prompt's ``S`` (the reference's two sizes: a prefill's, and
+    :func:`init_decode_cache`'s with ``S = 0``)."""
+    return max(min(cache_len, window + 1) if window else cache_len, S)
+
+
+def ring_decode_attention(p, x, cache: KVCache, pos: int, *, window: int,
+                          **kw):
+    """One-token decode of a sliding-window layer over its ring of ``cap``
+    slots: write slot ``pos % cap``; slot ``s`` holds position ``pos -
+    ((pos - s) mod cap)`` (negative: not written yet), and the layer
+    attends the positions in ``(pos - window, pos]``, those the forward's
+    :func:`causal_bias` allows.  Here the port departs from the reference,
+    whose ring attends every written slot (``window + 1`` positions, or
+    the whole prompt when it is longer than ``window + 1``); before ``pos
+    = window``, with a prompt of at most ``window + 1``, the two masks are
+    the same.  ``kw``: :func:`decode_attention`'s head keywords."""
+    cap = cache.k.shape[1]
+    slot = torch.arange(cap, device=x.device)
+    held = pos - torch.remainder(pos - slot, cap)
+    return decode_attention(p, x, cache, pos, write_pos=pos % cap,
+                            kv_valid=(held >= 0) & (held > pos - window),
+                            rope_pos=pos, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Cross attention (VLM media tokens / whisper encoder states)
 # ---------------------------------------------------------------------------

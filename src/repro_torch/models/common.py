@@ -69,6 +69,60 @@ def unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def tree_stack(trees: list):
+    """Per-layer caches of one structure (tensors in NamedTuples and
+    dicts) stacked on a new leading layer axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return type(first)(*(tree_stack([t[i] for t in trees])
+                             for i in range(len(first))))
+    return torch.stack(trees)
+
+
+def tree_at(tree, i: int):
+    """Layer ``i`` of a stacked cache: views (a decode writes through
+    them)."""
+    if isinstance(tree, dict):
+        return {k: tree_at(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_at(v, i) for v in tree))
+    return tree[i]
+
+
+def run_periods(params, P: int, n_full: int, h, apply, mode: str,
+                caches=None):
+    """A patterned stack: the ``n_full`` whole periods in order (position
+    ``p``'s layer from its stack ``params["blocks"][p]``), then the
+    remainder's layers ``params["rest"]`` (position ``i % P``).
+    ``apply(lp, p, h, cache) -> (h, cache)`` runs one layer; ``caches``
+    (``{"blocks", "rest"}``, decode mode) are passed as per-layer views.
+    Returns ``(h, caches)``: None in train mode, prefill's new caches
+    (``"blocks"`` is ``[None] * P`` when there is no whole period, as in
+    the reference), or decode's (the caller's, written in place)."""
+    blocks = [unstack(b, n_full) for b in params["blocks"]]
+    made = [[] for _ in range(P)]
+    for i in range(n_full):
+        for p in range(P):
+            c = tree_at(caches["blocks"][p], i) if caches else None
+            h, nc = apply(blocks[p][i], p, h, c)
+            made[p].append(nc)
+    rest = []
+    for i, lp in enumerate(params["rest"]):
+        h, nc = apply(lp, i % P, h, caches["rest"][i] if caches else None)
+        rest.append(nc)
+    if mode == "train":
+        return h, None
+    if not n_full:
+        blk = [None] * P
+    elif mode == "decode":
+        blk = list(caches["blocks"])
+    else:
+        blk = [tree_stack(cs) for cs in made]
+    return h, {"blocks": blk, "rest": rest}
+
+
 def stack_shapes(shapes, n: int):
     """A tree of leaf shapes with a leading ``[n]`` axis on every leaf."""
     if isinstance(shapes, dict):

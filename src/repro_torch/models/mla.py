@@ -1,23 +1,32 @@
-"""Multi-head Latent Attention, training path (port of the train path of
-``repro.models.mla``; DeepSeek V2/V3, arXiv:2405.04434 §2.1).
+"""Multi-head Latent Attention (port of ``repro.models.mla``; DeepSeek
+V2/V3, arXiv:2405.04434 §2.1).
 
 KV is compressed into a latent ``c_kv`` (``kv_lora_rank``, RMS-normed)
 plus one RoPE key head shared by every head; per-head keys and values are
 expanded from the latent.  The queries are a full-rank projection
 (``q_lora_rank == 0``, v2) or a low-rank one through an RMS-normed latent
 (v3).  Written as the reference is: expanded scores, a ``1/sqrt(nope +
-rope)`` scale, an additive ``-1e30`` causal bias and an f32 softmax.  The
-latent cache, prefill and the absorbed decode are not ported yet (ROADMAP
-Queue 1 item 4b).
+rope)`` scale, an additive ``-1e30`` causal bias and an f32 softmax.
+
+Serving caches the latents alone, :class:`MLACache` (``kv_lora + rope``
+entries a token, MLA's point); the one-token decode is the *absorbed*
+form: the queries are projected into the latent space through ``wk_b``,
+and the context read out of it through ``wv_b``.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models import common
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor      # [B, S_cap, kv_lora]
+    k_rope: torch.Tensor    # [B, S_cap, rope_dim]
 
 
 def mla_shapes(d: int, n_heads: int, m: MLAConfig) -> dict:
@@ -80,3 +89,55 @@ def attention(p, x, positions, theta, n_heads: int, m: MLAConfig,
     v = (c_kv @ p["wv_b"]).reshape(B, S, n_heads, m.v_head_dim)
     out = torch.einsum("bhqs,bshv->bqhv", probs, v)
     return out.reshape(B, S, -1) @ p["wo"]
+
+
+def prefill(p, x, positions, theta, n_heads: int, m: MLAConfig,
+            cache_len: int, eps: float = 1e-6):
+    """The prompt's causal MLA (expanded, as :func:`attention`) and its
+    latents zero-padded to ``cache_len >= S`` slots."""
+    S = x.shape[1]
+    if cache_len < S:
+        raise ValueError(f"cache_len {cache_len} < the prompt's {S}")
+    out = attention(p, x, positions, theta, n_heads, m, eps)
+    c_kv, k_rope = _latents(p, x, m, positions, theta, eps)
+    pad = (0, 0, 0, cache_len - S)
+    return out, MLACache(torch.nn.functional.pad(c_kv, pad),
+                         torch.nn.functional.pad(k_rope, pad))
+
+
+def init_cache(batch: int, cache_len: int, m: MLAConfig,
+               device=None) -> MLACache:
+    """Zero latents ``[batch, cache_len, ...]`` in float32."""
+    return MLACache(
+        torch.zeros((batch, cache_len, m.kv_lora_rank), device=device),
+        torch.zeros((batch, cache_len, m.rope_head_dim), device=device))
+
+
+def decode(p, x, cache: MLACache, pos: int, theta, n_heads: int,
+           m: MLAConfig, eps: float = 1e-6):
+    """The absorbed one-token decode over the latent cache: x ``[B, 1,
+    d]`` at position ``pos`` (a Python int); its latents are written at
+    slot ``pos`` in place (the returned cache holds the caller's
+    tensors), and slots above ``pos`` are masked."""
+    B = x.shape[0]
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _queries(p, x, n_heads, m, positions, theta, eps)
+    c_new, kr_new = _latents(p, x, m, positions, theta, eps)
+    cache.c_kv[:, pos] = c_new[:, 0]
+    cache.k_rope[:, pos] = kr_new[:, 0]
+    c_kv, k_rope = cache
+
+    wk = p["wk_b"].reshape(m.kv_lora_rank, n_heads, m.nope_head_dim)
+    q_c = torch.einsum("bqhn,chn->bqhc", q_nope, wk)      # absorbed query
+    scale = 1.0 / math.sqrt(float(m.nope_head_dim + m.rope_head_dim))
+    s = torch.einsum("bqhc,bsc->bhqs", q_c, c_kv)
+    s = s + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)
+    kv_pos = torch.arange(c_kv.shape[1], device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    bias = torch.where(kv_pos <= pos, zero, -1e30)[None, None, None]
+    probs = torch.softmax(s.to(torch.float32) * scale + bias,
+                          dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqs,bsc->bqhc", probs, c_kv)
+    wv = p["wv_b"].reshape(m.kv_lora_rank, n_heads, m.v_head_dim)
+    out = torch.einsum("bqhc,chv->bqhv", ctx, wv)
+    return out.reshape(B, 1, -1) @ p["wo"], cache

@@ -1,9 +1,9 @@
-"""DeepSeek-style decoder, training forward (port of the train path of
-``repro.models.moe_transformer``): MLA attention, the first
-``first_dense`` layers with a dense SwiGLU FFN (width ``d_expert *
-(n_shared + top_k)``), the rest with the MoE FFN, and the optional MTP
-head (v3).  Prefill and decode are not ported yet (ROADMAP Queue 1 item
-4b).
+"""DeepSeek-style decoder (port of ``repro.models.moe_transformer``:
+``init``, ``forward``, and serving -- ``prefill``, ``init_decode_cache``,
+``decode_step``): MLA attention, the first ``first_dense`` layers with a
+dense SwiGLU FFN (width ``d_expert * (n_shared + top_k)``), the rest with
+the MoE FFN, and the optional MTP head (v3), which takes no part in
+serving.
 
 Parameters are a nested dict laid out as the reference's pytree::
 
@@ -20,6 +20,12 @@ mtp_logits)`` with the MTP head; ``aux`` is the router load imbalance
 averaged over the MoE layers, the functional constraint g(w) of the LM
 task's ``aux_constraint``.
 
+Serving caches each layer's MLA latents (:class:`ServeCache`: a list for
+the dense layers, one stacked :class:`mla.MLACache` for the MoE layers);
+a decode step routes its ``B`` tokens through :func:`moe.moe_ffn` with the
+reference's capacity ``C = round(G k / E * capacity_factor)`` at ``G =
+B``, so tokens that share an expert past ``C`` are dropped, as there.
+
 Atomics: the token embedding's backward (an accumulating index put) adds
 the rows of repeated tokens with atomics on CUDA, as in the dense
 transformer; the MoE layer's are in ``models/moe.py``.
@@ -27,6 +33,7 @@ transformer; the MoE layer's are in ``models/moe.py``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -72,7 +79,12 @@ def _layer_fwd(lp, cfg: ModelConfig, h, positions):
     a = mla.attention(lp["mla"], common.rms_norm(h, lp["ln1"], cfg.norm_eps),
                       positions, cfg.rope_theta, cfg.n_heads, cfg.mla,
                       cfg.norm_eps)
-    h = h + a
+    return _ffn(lp, cfg, h + a)
+
+
+def _ffn(lp, cfg: ModelConfig, h):
+    """The layer's dense or MoE FFN on ``h`` ``[B, S, d]`` (its residual
+    added): ``(h, aux)``."""
     hn = common.rms_norm(h, lp["ln2"], cfg.norm_eps)
     if "mlp" in lp:
         out = common.swiglu(hn, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
@@ -113,3 +125,79 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
         comb, _ = _layer_fwd(mtp["layer"], cfg, comb, positions[:-1])
         return logits, aux, comb @ params["lm_head"]
     return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + one-token decode
+# ---------------------------------------------------------------------------
+
+class ServeCache(NamedTuple):
+    dense: list             # one mla.MLACache a dense layer
+    moe: mla.MLACache       # stacked [L', B, S_cap, ...]
+
+
+def _serve_layer(lp, cfg: ModelConfig, h, *, positions=None, cache=None,
+                 pos=None, cache_len=0):
+    """One layer of a prefill (``cache`` None: the prompt's MLA and its
+    latents padded to ``cache_len``) or of a decode step (the absorbed
+    MLA over ``cache``, written in place).  Returns ``(h, cache)``."""
+    hn = common.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if cache is None:
+        a, cache = mla.prefill(lp["mla"], hn, positions, cfg.rope_theta,
+                               cfg.n_heads, cfg.mla, cache_len, cfg.norm_eps)
+    else:
+        a, cache = mla.decode(lp["mla"], hn, cache, pos, cfg.rope_theta,
+                              cfg.n_heads, cfg.mla, cfg.norm_eps)
+    return _ffn(lp, cfg, h + a)[0], cache
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: int):
+    """The prompt ``tokens`` ``[B, S]`` through the stack: the last
+    position's logits ``[B, 1, V]`` and a :class:`ServeCache` of
+    ``cache_len >= S`` slots a layer."""
+    S = tokens.shape[1]
+    h = params["embed"][tokens] * math.sqrt(float(cfg.d_model))
+    positions = torch.arange(S, device=tokens.device)
+    dense = []
+    for lp in params["dense_layers"]:
+        h, c = _serve_layer(lp, cfg, h, positions=positions,
+                            cache_len=cache_len)
+        dense.append(c)
+    made = []
+    for lp in common.unstack(params["moe_layers"],
+                             cfg.n_layers - cfg.moe.first_dense):
+        h, c = _serve_layer(lp, cfg, h, positions=positions,
+                            cache_len=cache_len)
+        made.append(c)
+    moe_cache = common.tree_stack(made)
+    logits = common.rms_norm(h[:, -1:], params["ln_f"], cfg.norm_eps) \
+        @ params["lm_head"]
+    return logits, ServeCache(dense, moe_cache)
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      media=None, params=None, device=None) -> ServeCache:
+    """Zero latents of ``cache_len`` slots a layer, on ``device``, in
+    float32 (``media`` and ``params`` are not read)."""
+    caches = [mla.init_cache(batch, cache_len, cfg.mla, device=device)
+              for _ in range(cfg.n_layers)]
+    nd = cfg.moe.first_dense
+    return ServeCache(caches[:nd], common.tree_stack(caches[nd:]))
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
+                cache: ServeCache, pos: int):
+    """token ``[B, 1]`` at position ``pos`` (a Python int) -> ``(logits
+    [B, 1, V], cache)``.  The cache is written in place: the returned one
+    holds the caller's tensors."""
+    h = params["embed"][token] * math.sqrt(float(cfg.d_model))
+    for lp, c in zip(params["dense_layers"], cache.dense):
+        h, _ = _serve_layer(lp, cfg, h, cache=c, pos=pos)
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    for i, lp in enumerate(common.unstack(params["moe_layers"], n_moe)):
+        h, _ = _serve_layer(lp, cfg, h, cache=common.tree_at(cache.moe, i),
+                            pos=pos)
+    logits = common.rms_norm(h, params["ln_f"], cfg.norm_eps) \
+        @ params["lm_head"]
+    return logits, cache

@@ -136,14 +136,9 @@ def _apply_layer(lp, cfg: ModelConfig, h, plan, *, positions=None,
     ``media`` ``[B, M, d]`` (in decode, over its cache); then the SwiGLU
     MLP.  Returns ``(h, the layer's cache)`` (None in train mode).
 
-    A windowed layer decodes over its ring: slot ``s`` holds position
-    ``pos - ((pos - s) mod cap)`` (negative: not written yet), and the
-    layer attends the positions in ``(pos - window, pos]``, those the
-    forward's :func:`attention.causal_bias` allows.  Here the port departs
-    from the reference, whose ring attends every written slot (``window +
-    1`` positions, or the whole prompt when it is longer than ``window +
-    1``); before ``pos = window``, with a prompt of at most ``window + 1``,
-    the two masks are the same."""
+    A windowed layer decodes over its ring, masked by the position each
+    slot holds (:func:`attention.ring_decode_attention`, where the port
+    departs from the reference)."""
     hd = cfg.resolved_head_dim
     hn = common.rms_norm(h, lp["ln1"], cfg.norm_eps)
     new_cache = cache
@@ -160,17 +155,13 @@ def _apply_layer(lp, cfg: ModelConfig, h, plan, *, positions=None,
             a = attention.self_attention(lp["attn"], hn, positions=positions,
                                          window=w, **kw)
         elif mode == "prefill":
-            clen = min(cache_len, w + 1) if w else cache_len
             a, new_cache = attention.prefill_attention(
                 lp["attn"], hn, positions=positions,
-                cache_len=max(clen, hn.shape[1]), window=w, **kw)
+                cache_len=attention.ring_slots(cache_len, w, hn.shape[1]),
+                window=w, **kw)
         elif w:                 # decode over the ring
-            cap = cache.k.shape[1]
-            slot = torch.arange(cap, device=h.device)
-            held = pos - torch.remainder(pos - slot, cap)
-            a, new_cache = attention.decode_attention(
-                lp["attn"], hn, cache, pos, write_pos=pos % cap,
-                kv_valid=(held >= 0) & (held > pos - w), rope_pos=pos, **kw)
+            a, new_cache = attention.ring_decode_attention(
+                lp["attn"], hn, cache, pos, window=w, **kw)
         else:
             a, new_cache = attention.decode_attention(lp["attn"], hn, cache,
                                                       pos, **kw)
@@ -178,53 +169,20 @@ def _apply_layer(lp, cfg: ModelConfig, h, plan, *, positions=None,
     return h, (None if mode == "train" else new_cache)
 
 
-def _cache_at(cache: attention.KVCache, i: int) -> attention.KVCache:
-    """Block ``i``'s cache: views into a stacked cache (a decode writes
-    through them)."""
-    return attention.KVCache(cache.k[i], cache.v[i])
-
-
-def _stack(caches) -> attention.KVCache:
-    caches = list(caches)
-    return attention.KVCache(torch.stack([c.k for c in caches]),
-                             torch.stack([c.v for c in caches]))
-
-
 def _run_patterned(params, cfg: ModelConfig, h, *, positions=None,
                    media=None, mode="train", caches=None, pos=None,
                    cache_len=0):
-    """The whole periods in order (each position's layer from its stack),
-    then the remainder's layers.  ``caches``: ``{"blocks", "rest"}`` in
-    decode mode.  Returns ``(h, caches)``: None in train mode, prefill's
-    new caches, or decode's (written in place)."""
+    """The pattern's layers in order (:func:`common.run_periods`);
+    ``caches``: ``{"blocks", "rest"}`` in decode mode.  Returns ``(h,
+    caches)``."""
     P, n_full, _ = _split_blocks(cfg)
     plans = [_pos_plan(cfg, p) for p in range(P)]
-    blocks = [common.unstack(b, n_full) for b in params["blocks"]]
-    made = [[] for _ in range(P)]
-    for i in range(n_full):
-        for p in range(P):
-            c = _cache_at(caches["blocks"][p], i) if caches else None
-            h, nc = _apply_layer(blocks[p][i], cfg, h, plans[p],
-                                 positions=positions, media=media,
-                                 mode=mode, cache=c, pos=pos,
-                                 cache_len=cache_len)
-            made[p].append(nc)
-    rest = []
-    for i, lp in enumerate(params["rest"]):
-        h, nc = _apply_layer(lp, cfg, h, plans[i % P], positions=positions,
-                             media=media, mode=mode,
-                             cache=caches["rest"][i] if caches else None,
-                             pos=pos, cache_len=cache_len)
-        rest.append(nc)
-    if mode == "train":
-        return h, None
-    if not n_full:
-        blk = [None] * P
-    elif mode == "decode":
-        blk = list(caches["blocks"])
-    else:
-        blk = [_stack(cs) for cs in made]
-    return h, {"blocks": blk, "rest": rest}
+
+    def apply(lp, p, h, cache):
+        return _apply_layer(lp, cfg, h, plans[p], positions=positions,
+                            media=media, mode=mode, cache=cache, pos=pos,
+                            cache_len=cache_len)
+    return common.run_periods(params, P, n_full, h, apply, mode, caches)
 
 
 def _media_embed(params, media):
@@ -295,7 +253,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
             window=cfg.window, **kw)
         h = _mlp_block(lp, cfg, h + a)
         kvs.append(kv)
-    return _logits(params, cfg, h[:, -1:]), ServeCache(_stack(kvs), None)
+    return _logits(params, cfg, h[:, -1:]), ServeCache(
+        common.tree_stack(kvs), None)
 
 
 def _empty_kv(cfg: ModelConfig, batch: int, clen: int, lead=(),
@@ -328,9 +287,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
         if plan["kind"] == "cross":
             return _empty_kv(cfg, batch, cfg.n_media_tokens or 8, lead,
                              device)
-        w = plan["window"]
-        return _empty_kv(cfg, batch, min(cache_len, w + 1) if w
-                         else cache_len, lead, device)
+        return _empty_kv(cfg, batch, attention.ring_slots(
+            cache_len, plan["window"]), lead, device)
 
     caches = {"blocks": [pos_cache(plans[p], (n_full,)) for p in range(P)]
               if n_full else [],
@@ -339,9 +297,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
         m = _media_embed(params, media)
         for p in range(P if n_full else 0):
             if plans[p]["kind"] == "cross":
-                caches["blocks"][p] = _stack(
+                caches["blocks"][p] = common.tree_stack([
                     attention.cross_kv(lp["attn"], m, cfg.n_kv_heads, hd)
-                    for lp in common.unstack(params["blocks"][p], n_full))
+                    for lp in common.unstack(params["blocks"][p], n_full)])
         for i in range(rest):
             if plans[i % P]["kind"] == "cross":
                 caches["rest"][i] = attention.cross_kv(
@@ -363,6 +321,6 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     for i, lp in enumerate(common.unstack(params["layers"], cfg.n_layers)):
         a, _ = attention.decode_attention(
             lp["attn"], common.rms_norm(h, lp["ln1"], cfg.norm_eps),
-            _cache_at(cache.layers, i), pos, window=cfg.window, **kw)
+            common.tree_at(cache.layers, i), pos, window=cfg.window, **kw)
         h = _mlp_block(lp, cfg, h + a)
     return _logits(params, cfg, h), cache

@@ -1230,18 +1230,33 @@ def test_wire_threads_equal_drive_on_card(dev, kind):
             np.asarray(a).view(np.uint32), np.asarray(b).view(np.uint32))
 
 
-SERVE_CARD_ARCHS = ["qwen3-4b", "gemma3-4b", "llama-3.2-vision-90b"]
+SERVE_CARD_ARCHS = ["qwen3-4b", "gemma3-4b", "llama-3.2-vision-90b",
+                    "mamba2-130m", "recurrentgemma-2b", "deepseek-v2-236b",
+                    "deepseek-v3-671b", "whisper-small"]
+
+
+def _cache_leaves(tree):
+    """The tensors of a serving cache (NamedTuples, dicts, lists; None
+    dropped), on the CPU."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _cache_leaves(v)]
+    return [] if tree is None else [tree.cpu()]
 
 
 @pytest.mark.parametrize("arch", SERVE_CARD_ARCHS)
 def test_prefill_and_decode_on_card_match_cpu(dev, arch):
     """Serving at the reduced dense (qk-norm), gemma3 (window 32, a prompt
-    of 30 and 8 decode steps: the ring wraps and the window masks) and vlm
-    (cross caches over 8 media tokens, gated at 0.5) configs: prefill's
-    logits and caches, then 8 decode steps' logits and the final caches on
-    the card against the CPU from the same weights, tokens and media, at
-    the forward's card tolerance (rtol 1e-4 / atol 1e-5: float32 GEMMs in
-    another order, TF32 off)."""
+    of 30 and 8 decode steps: the ring wraps and the window masks), vlm
+    (cross caches over 8 media tokens, gated at 0.5), mamba2 (conv windows
+    and SSM states), recurrentgemma (recurrent states and the local ring,
+    window 32), deepseek v2 / v3 (MLA latents, the MoE FFN at the
+    published capacity) and whisper (self caches, 16 frames) configs:
+    prefill's logits and caches, then 8 decode steps' logits and the final
+    caches on the card against the CPU from the same weights, tokens and
+    media, at the forward's card tolerance (rtol 1e-4 / atol 1e-5:
+    float32 GEMMs in another order, TF32 off)."""
     from repro_torch import configs
     from repro_torch.models import build
     from repro_torch.wire.bootstrap import tree_to
@@ -1254,17 +1269,10 @@ def test_prefill_and_decode_on_card_match_cpu(dev, arch):
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt + steps)))
     kw = {}
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "audio"):
         kw["media"] = torch.from_numpy(rng.standard_normal(
-            (2, cfg.n_media_tokens, cfg.d_media)).astype(np.float32) * 0.1)
-
-    def leaves(cache):
-        out = []
-        for part in cache.layers["blocks"] + cache.layers["rest"] \
-                if isinstance(cache.layers, dict) else [cache.layers]:
-            if part is not None:
-                out += [part.k.cpu(), part.v.cpu()]
-        return out
+            (2, cfg.n_media_tokens or cfg.n_audio_frames,
+             cfg.d_media or cfg.d_model)).astype(np.float32) * 0.1)
 
     out = {}
     for d in (dev, torch.device("cpu")):
@@ -1278,7 +1286,7 @@ def test_prefill_and_decode_on_card_match_cpu(dev, arch):
                 logits, cache = fns.decode_step(
                     p, cfg, toks[:, pos:pos + 1].to(d), cache, pos)
                 got.append(logits.cpu())
-        out[d.type] = (got, leaves(cache))
+        out[d.type] = (got, _cache_leaves(cache))
     for a, b in zip(out["cuda"][0] + out["cuda"][1],
                     out["cpu"][0] + out["cpu"][1]):
         assert torch.isfinite(a).all()

@@ -2,7 +2,8 @@
 cache pieces of ``models.attention``, ``models.flash_decode``, and
 ``prefill`` / ``decode_step`` / ``init_decode_cache`` of
 ``models.transformer`` at the reduced configs of smollm-360m, qwen3-4b,
-minitron-4b, gemma3-4b and llama-3.2-vision-90b, from the reference's own
+minitron-4b, gemma3-4b and llama-3.2-vision-90b (``init_decode_cache`` of
+every family's), from the reference's own
 weights (``init`` then ``jax.device_get``; the vlm's gates set to 0.5, as
 at 0 a cross layer adds nothing) and the same numpy tokens and media.
 The reference's calls are jitted, as its launcher jits them.
@@ -45,8 +46,8 @@ from torch_port_util import n, t
 
 SERVE_ARCHS = ["smollm-360m", "qwen3-4b", "minitron-4b", "gemma3-4b",
                "llama-3.2-vision-90b"]
-UNPORTED_ARCHS = ["deepseek-v2-236b", "mamba2-130m", "recurrentgemma-2b",
-                  "whisper-small"]
+STATE_ARCHS = ["mamba2-130m", "recurrentgemma-2b", "deepseek-v2-236b",
+               "deepseek-v3-671b", "whisper-small"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 BATCH = 2
 
@@ -75,19 +76,32 @@ def _gates(tree, value=0.5):
     return tree
 
 
+def _replace(cfg, over):
+    """``dataclasses.replace`` with ``over``; its ``capacity_factor`` goes
+    to the MoE config."""
+    over = dict(over)
+    if "capacity_factor" in over:
+        over["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=over.pop("capacity_factor"))
+    return dataclasses.replace(cfg, **over)
+
+
 def _setup(arch, **over):
-    jcfg = dataclasses.replace(jax_configs.get_reduced(arch), **over)
-    cfg = dataclasses.replace(configs.get_reduced(arch), **over)
+    jcfg = _replace(jax_configs.get_reduced(arch), over)
+    cfg = _replace(configs.get_reduced(arch), over)
     jparams = _gates(jax.device_get(
         jax_build(jcfg).init(jax.random.PRNGKey(0), jcfg)))
     return jcfg, cfg, jparams, params_from_numpy(jparams)
 
 
 def _media(cfg, seed=3):
-    if cfg.family != "vlm":
+    """The vlm's media tokens or whisper's frames (``normal * 0.1``);
+    None for a token-only family."""
+    if cfg.family not in ("vlm", "audio"):
         return None
     rng = np.random.default_rng(seed)
-    return (rng.standard_normal((BATCH, cfg.n_media_tokens,
+    return (rng.standard_normal((BATCH, cfg.n_media_tokens
+                                 or cfg.n_audio_frames,
                                  cfg.d_media or cfg.d_model)) * 0.1
             ).astype(np.float32)
 
@@ -323,13 +337,14 @@ def test_prefill_and_decode_match_reference(arch):
 
 @pytest.mark.parametrize("with_media", [False, True],
                          ids=["empty", "media"])
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS + STATE_ARCHS)
 def test_init_decode_cache_matches_reference(arch, with_media):
     """``init_decode_cache``'s tree and leaf shapes are the reference's
-    (ring slots for windowed layers, ``n_media_tokens or 8`` media slots
-    for cross layers); empty caches are zeros; with media and params the
-    cross caches hold the media's keys and values (rtol 1e-5).  A
-    token-only arch ignores media."""
+    for every family (ring slots for windowed layers, ``n_media_tokens or
+    8`` media slots for cross layers, conv windows and states, MLA
+    latents); empty caches are zeros; with media and params the cross
+    caches hold the media's keys and values, and whisper's the encoder
+    states (rtol 1e-5).  A token-only arch is given no media."""
     s = _Serve(arch)
     media = _media(s.cfg, seed=4) if with_media else None
     jkw = {} if media is None else dict(media=jnp.asarray(media),
@@ -412,7 +427,7 @@ def test_windowed_decode_attends_what_the_forward_attends(prompt, steps):
 
 
 # ---------------------------------------------------------------------------
-# the launcher, the example, the unported families
+# the launcher and the example
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "llama-3.2-vision-90b"])
@@ -447,15 +462,3 @@ def test_serve_entry_points_need_a_card_by_default(monkeypatch):
         serve_batched.main("gemma3-4b", batch=1, prompt_len=2, steps=1)
     assert serve.parser().parse_args(["--no-reduced"]).reduced is False
     assert serve.parser().parse_args([]).reduced is True
-
-
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_unported_families_raise_from_serving(arch):
-    """The moe, ssm, hybrid and audio families train, but their prefill,
-    decode and caches raise, naming the ROADMAP item they wait for."""
-    cfg = configs.get_reduced(arch)
-    fns = build(cfg)
-    for fn in (fns.prefill, fns.decode_step, fns.init_decode_cache):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-            fn(None, cfg, None, 8)
-    assert fns.forward is not None and fns.init is not None
