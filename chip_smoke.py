@@ -231,9 +231,33 @@ Phases, each fatal on failure (nonzero exit):
    deepseek-v2-236b``, ``--arch whisper-small`` and
    ``examples.serve_batched --arch deepseek-v3-671b`` as subprocesses
    started together, each exiting 0 with its line; no wire kernel
-   launches in the phase.
+   launches in the phase;
+20. the launch tooling (``repro_torch.launch.{steps,dryrun,roofline,
+   mesh}``): (a) ``python -m repro_torch.launch.dryrun --sweep`` as a
+   process started after the build (meta tensors only, no card visible to
+   it), read at the phase's end: 80 records, 66 ``ok`` and the reference's
+   14 skips (an ``error`` allowed only for a giant's bf16 train case), each
+   ok record's per-device GB and dominant term printed; on a (1, 1) debug
+   mesh, each case counted by the dry run on meta tensors, then built on
+   the card, whose bytes of the inputs must equal the dry run's argument
+   bytes within 1%: (b) smollm-360m whole at train_4k's sequence (4,096),
+   one client of 2 rows (``fed_config_for``: n = m = 1, top-k 0.1 up and
+   down on ``comm="pallas"``), remat on, 3 rounds (the second with every
+   wire-kernel launch held against its plain version, tolerance 0; f and
+   g_hat finite), one more profiled: s/round, device ms, busy share, peak
+   GB, FLOP/s against 67 TFLOP/s from the dry run's count; (c) the same
+   case at seq 1,024, one round with remat on and one off from the same
+   state: w bit-equal, each peak GB; then at phase 5's mask top-k layout
+   (4 clients, seq 64) rounds with remat on and off in turns, 5 timed of
+   each, and one of each profiled; (d) qwen3-4b whole, decode_32k at
+   batch 4 of 128 (caches of 32,768 slots, pos 32,767), 2 warm and 5
+   timed decode steps; (e) gemma3-4b whole, long_500k (batch 1, 524,288
+   slots in its 5 global layers); (f) mamba2-130m whole, prefill_32k at
+   batch 4 of 32 (32,768 tokens), one warm and one timed prefill; in (d)-(f)
+   the device ms and launches of one profiled call against the case's
+   roofline bound, finite logits, no wire kernel.
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18 and 19 the launch
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 the launch
 counts are zeroed just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
@@ -267,8 +291,6 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (published)
-F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 N_CLIENTS = 4
 N_GATHER, M_GATHER = 8, 4      # gather phases: m of n clients
 REPS = 3
@@ -341,6 +363,9 @@ def interleaved_ms(torch, fns: dict, pairs: int = 20) -> dict:
 
 
 def bound_ms(nbytes: float, ops: float):
+    """The larger of the bytes over the card's memory rate and the float32
+    operations over its peak (``launch/roofline.py``'s H100 table)."""
+    from repro_torch.launch.roofline import F32_OPS_PER_S, HBM_BYTES_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3134,8 +3159,10 @@ MEDIA_CELLS = [
      True),
 ]
 MEDIA_FREE_GB = 5.0            # 16(a)'s peak must leave this much free
-MEDIA_GATE_CALLS = 4           # 16(a): gated calls recorded, the forwards
-                               # of its first two rounds (2 a fused round)
+MEDIA_GATE_CALLS = 4           # 16(a): gated forwards of its first two
+                               # rounds (2 a fused round); with remat each
+                               # is called once more, recomputed in the
+                               # backward, so twice as many are recorded
 MEDIA_CHECK_ARCHS = ["llama-3.2-vision-90b", "whisper-small"]   # 16(c)
 MEDIA_SPANS = ("media.",)
 
@@ -3197,8 +3224,8 @@ def media_cell_record(state, hist, batches, pair, fed, dev,
     and in the encoder); f of client 0's rows under the round's media and
     under a second draw, which must differ (for the vlm with its gates
     set to 1, beside the pair at the trained gates); for the vlm,
-    ``tanh(gate)`` 0 in round 1's forwards and nonzero in round 2's
-    (``gates``)."""
+    ``tanh(gate)`` 0 in round 1's forwards (and their recomputes) and
+    nonzero in round 2's (``gates``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.comm import flat
@@ -3255,8 +3282,8 @@ def media_cell_record(state, hist, batches, pair, fed, dev,
         rec["tanh_gate_per_forward"] = tanh
         rec["tanh_gate_last"] = float(torch.tanh(
             params["blocks"][0]["attn"]["gate"]).reshape(-1)[0])
-        half = MEDIA_GATE_CALLS // 2
-        ok = ok and len(tanh) == MEDIA_GATE_CALLS \
+        half = gates.limit // 2
+        ok = ok and len(tanh) == gates.limit \
             and all(v == 0.0 for v in tanh[:half]) \
             and all(v != 0.0 for v in tanh[half:])
         ok = ok and total - peak >= MEDIA_FREE_GB
@@ -3297,7 +3324,8 @@ def media_phase(torch, dev, T: int) -> tuple:
                                    for k, v in cuts.items()},
                           "blocks": [r.block for r in layout.runs],
                           "k": [r.k for r in layout.runs]}), flush=True)
-        with (GateRecorder(torch, MEDIA_GATE_CALLS) if cfg.family == "vlm"
+        calls = MEDIA_GATE_CALLS * (2 if cfg.remat else 1)
+        with (GateRecorder(torch, calls) if cfg.family == "vlm"
               else contextlib.nullcontext()) as gates:
             rec = train_phase(
                 torch, name, ["--arch", arch] + argv, T, downlink=downlink,
@@ -4264,6 +4292,398 @@ def state_serve_phase(torch, dev) -> tuple:
             [{"phase": "19 state serving", "launches": counts}])
 
 
+# phase 20: the launch tooling.  (a) the dry run's sweep as a process,
+# started after the build and read here; (b)-(f) cases of launch/steps.py
+# at a single card's cut of their batch, on a (1, 1) debug mesh: the dry
+# run counts each case on meta tensors, the card runs it, and the card's
+# bytes of the inputs must equal the dry run's within 1%
+LAUNCH_SWEEP = 80              # 10 archs x 4 shapes x 2 meshes
+LAUNCH_SKIPS = 14              # long_500k of the 7 full-attention archs
+LAUNCH_SWEEP_WAIT = 900        # s the phase waits for the sweep at most
+LAUNCH_BYTES_RTOL = 0.01
+LAUNCH_DECODE_WARM, LAUNCH_DECODE_TIMED = 2, 5
+REMAT_PAIRS = 5                # 20(c): timed rounds of each, in turns
+# (label, arch, shape name, seq_len, batch) of the serving cells
+LAUNCH_SERVE_CELLS = [
+    ("20d qwen3-4b decode_32k", "qwen3-4b", "decode_32k", 32_768, 4),
+    ("20e gemma3-4b long_500k", "gemma3-4b", "long_500k", 524_288, 1),
+    ("20f mamba2-130m prefill_32k", "mamba2-130m", "prefill_32k", 32_768,
+     4)]
+
+
+def start_dryrun_sweep(out_dir: pathlib.Path):
+    """20(a)'s ``python -m repro_torch.launch.dryrun --sweep`` as a process
+    of its own, on the host's cores beside phases 3-19 (it builds meta
+    tensors only; no card is visible to it).  Returns ``(process, jsonl
+    path, log path)``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path, log = out_dir / "dryrun_sweep.jsonl", out_dir / "dryrun_sweep.log"
+    path.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--sweep",
+             "--out", str(path), "--quiet"], cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, path, log
+
+
+def sweep_record(sweep) -> dict:
+    """20(a): wait for the sweep, then its records: 80, of which 66 ``ok``
+    and the 14 reference skips; an ``error`` only for a giant's bf16 train
+    case.  Prints the count and each ok record's per-device GB and
+    dominant term."""
+    from repro_torch.launch import steps
+    proc, path, log = sweep
+    t0 = time.time()
+    rc = proc.wait(timeout=LAUNCH_SWEEP_WAIT)
+    waited = time.time() - t0
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    by = {}
+    for r in recs:
+        by[r["status"]] = by.get(r["status"], 0) + 1
+    errors = [r for r in recs if r["status"] == "error"]
+    print(json.dumps({"dryrun_sweep": {"records": len(recs), "by_status": by,
+                                       "rc": rc, "waited_s": waited}}),
+          flush=True)
+    for r in recs:
+        if r["status"] == "ok":
+            print(f"  {r['arch']} x {r['shape']} x {r['mesh']}: "
+                  f"{r['memory']['total_per_device'] / 1e9:.3f} GB per "
+                  f"device, {r['roofline']['dominant']}-bound "
+                  f"({r['flops_source']} flops, {r['count_s']} s)",
+                  flush=True)
+    for r in errors:
+        print(f"  error {r['arch']} x {r['shape']} x {r['mesh']}: "
+              f"{r['error'][:300]}", flush=True)
+    bad = [r for r in errors if not (r["shape"] == "train_4k"
+                                     and r["arch"] in steps.GIANTS)]
+    if rc != 0 or len(recs) != LAUNCH_SWEEP or \
+            by.get("skip", 0) != LAUNCH_SKIPS or bad or \
+            by.get("ok", 0) + len(errors) != LAUNCH_SWEEP - LAUNCH_SKIPS:
+        raise AssertionError(f"20(a): the sweep gave {by} over {len(recs)} "
+                             f"records (rc {rc}; log {log})")
+    return {"records": len(recs), "by_status": by, "waited_s": waited,
+            "errors": [(r["arch"], r["mesh"], r["error"][:300])
+                       for r in errors],
+            "ok": [{k: r[k] for k in ("arch", "shape", "mesh", "chips",
+                                      "dtype", "flops_source")}
+                   | {"gb_per_device": r["memory"]["total_per_device"] / 1e9,
+                      "dominant": r["roofline"]["dominant"],
+                      "compute_s": r["roofline"]["compute_s"],
+                      "memory_s": r["roofline"]["memory_s"]}
+                   for r in recs if r["status"] == "ok"]}
+
+
+def counted_case(torch, case, cfg, shape) -> dict:
+    """The dry run's count of ``case`` on its (1, 1) debug mesh, then the
+    mesh deactivated."""
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import partition
+    try:
+        with (torch.enable_grad() if shape.kind == "train"
+              else torch.no_grad()):
+            return dryrun.count(case, 1, cfg, shape)
+    finally:
+        partition.activate_mesh(None)
+
+
+def check_arg_bytes(torch, name: str, before: int, counted: dict) -> dict:
+    """The card's bytes of the inputs just built against the dry run's
+    per-device argument bytes, within :data:`LAUNCH_BYTES_RTOL`."""
+    torch.cuda.synchronize()
+    card = torch.cuda.memory_allocated() - before
+    want = counted["memory"]["argument_size_in_bytes"]
+    rel = abs(card - want) / want
+    print(json.dumps({"arg_bytes": name, "card": card, "dry_run": want,
+                      "rel": rel}), flush=True)
+    if rel > LAUNCH_BYTES_RTOL:
+        raise AssertionError(f"{name}: the card holds {card} B of inputs, "
+                             f"the dry run counts {want} B")
+    return {"card_arg_bytes": card, "dry_run_arg_bytes": want,
+            "arg_bytes_rel": rel}
+
+
+def free_card(torch) -> int:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def bits(torch, x):
+    return x.contiguous().view(torch.int32)
+
+
+def train_4k_cell(torch, dev) -> tuple:
+    """20(b): smollm-360m whole (d = 361,821,120) at train_4k's sequence,
+    one client of 2 rows (``fed_config_for`` on a (1, 1) mesh: n = m = 1,
+    top-k 0.1 up and down on ``comm="pallas"``), remat on: 3 rounds, the
+    second with every wire-kernel launch held against its plain version,
+    then one profiled; the card's FLOP/s against the dry run's count of
+    the same case.  20(c): the same case at seq 1,024, one round with
+    remat on and one with it off from the same state: w bit-equal, each
+    peak recorded."""
+    from repro_torch import configs, kernels
+    from repro_torch.configs.base import InputShape
+    from repro_torch.engine import rounds
+    from repro_torch.launch import mesh, roofline, steps
+    from repro_torch.models import build
+    from repro_torch.sharding import partition
+    from repro_torch.tasks import lm
+    cfg = configs.get_config("smollm-360m")
+    debug = mesh.make_debug_mesh((1, 1))
+    shape = InputShape("train_4k", 4096, 2, "train")
+    case = steps.build_train_case(cfg, shape, debug, comm="pallas")
+    fed = case.meta["fed"]
+    t0 = time.time()
+    counted = counted_case(torch, case, cfg, shape)
+    count_s = time.time() - t0
+    before = free_card(torch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build(cfg).init(gen, cfg, device=dev)
+    state = rounds.init_state(params, fed, device=dev)
+    del params
+    S = shape.seq_len
+    toks = torch.randint(0, cfg.vocab, (1, 2, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    mask = (torch.rand((1, 2, S), generator=gen, device=dev) < 0.1).float()
+    batches = lm.LMBatch(toks, mask)
+    rec = {"cell": "20b smollm-360m train_4k seq 4096, 1 client x 2 rows",
+           "d": state.spec.d, "fed": {"n": fed.n_clients, "m": fed.m,
+                                      "comm": fed.comm,
+                                      "uplink": fed.uplink.kind,
+                                      "downlink": fed.downlink.kind},
+           "remat": cfg.remat, "count_s": count_s,
+           "flops_counted": counted["cost"]["flops_counted"]}
+    rec.update(check_arg_bytes(torch, "20(b)", before, counted))
+    kernels.reset_launches()
+    walls = []
+    for r in range(3):
+        t0 = time.time()
+        if r == 1:
+            with PlainCheck(torch) as chk:
+                state, met = case.fn(state, batches)
+        else:
+            state, met = case.fn(state, batches)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        if not (math.isfinite(float(met.f)) and
+                math.isfinite(float(met.g_hat))):
+            raise AssertionError(f"20(b) round {r}: f {float(met.f)}, "
+                                 f"g_hat {float(met.g_hat)}")
+    counts = kernels.launch_counts()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["plain_check"] = {"kernel_calls": chk.calls,
+                          "max_abs_err": chk.err,
+                          "input_shapes": chk.layouts, "tolerance": 0.0}
+    if any(chk.err.values()) or not counts["block_topk"] or \
+            not counts["scatter_agg"]:
+        raise AssertionError(f"20(b): {rec['plain_check']}, launches "
+                             f"{counts}")
+    ms, launches, _ = profile_device(torch, lambda: case.fn(state, batches))
+    s_round = walls[2]
+    rec.update(s_round=walls, device_ms=ms, kernel_launches=launches,
+               busy_share=ms / 1e3 / s_round, launches=counts,
+               f=float(met.f), g_hat=float(met.g_hat),
+               flops_per_s=counted["cost"]["flops_counted"] / s_round,
+               f32_peak=roofline.F32_OPS_PER_S)
+    rec["f32_peak_share"] = rec["flops_per_s"] / roofline.F32_OPS_PER_S
+    print(json.dumps(rec), flush=True)
+    del state, batches, case
+    free_card(torch)
+
+    # 20(c): remat on against off at seq 1,024
+    shape = InputShape("train_4k", 1024, 2, "train")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = build(cfg).init(gen, cfg, device=dev)
+    state0 = rounds.init_state(params, fed, device=dev)
+    del params
+    toks = torch.randint(0, cfg.vocab, (1, 2, 1024), generator=gen,
+                         device=dev, dtype=torch.int32)
+    mask = (torch.rand((1, 2, 1024), generator=gen, device=dev) < 0.1).float()
+    batches = lm.LMBatch(toks, mask)
+    remat = {}
+    kernels.reset_launches()
+    for on in (True, False):
+        c = dataclasses.replace(cfg, remat=on)
+        case = steps.build_train_case(c, shape, debug, comm="pallas")
+        partition.activate_mesh(None)
+        w = state0.w.clone()
+        state = state0._replace(w=w, x=w if state0.x is not None else None,
+                                e_up=state0.e_up.clone())
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        state, met = case.fn(state, batches)
+        torch.cuda.synchronize()
+        remat[on] = (state.w, {"s_round": time.time() - t0,
+                               "peak_gb": torch.cuda.max_memory_allocated()
+                               / 1e9,
+                               "peak_above_inputs_gb":
+                               (torch.cuda.max_memory_allocated() - base)
+                               / 1e9, "f": float(met.f)})
+        del state, case
+    equal = torch.equal(bits(torch, remat[True][0]),
+                        bits(torch, remat[False][0]))
+    rec_c = {"cell": "20c smollm-360m seq 1024, remat on vs off",
+             "w_bit_equal": equal, "on": remat[True][1],
+             "off": remat[False][1]}
+    del remat, state0, batches
+    free_card(torch)
+    rec_c["phase5_layout"] = remat_pairs(torch)
+    counts_c = rec_c["launches"] = kernels.launch_counts()
+    print(json.dumps(rec_c), flush=True)
+    if not equal:
+        raise AssertionError("20(c): w differs with remat on and off")
+    return rec, rec_c, counts, counts_c
+
+
+def remat_pairs(torch) -> dict:
+    """20(c) at phase 5's mask top-k layout (smollm-360m whole, 4 clients
+    of 2 rows, seq 64, pallas top-k up, the fused round): rounds with
+    remat on and off in turns (one warm-up each, then
+    :data:`REMAT_PAIRS` pairs), host wall of each; then one round of each
+    profiled (device ms, launches)."""
+    from repro_torch import configs
+    from repro_torch.engine import rounds
+    from repro_torch.models import build
+    from repro_torch.tasks import lm
+    cfg = configs.get_config("smollm-360m")
+    state, batch_fn, _, fed, dev = setup_phase(
+        torch, ["--comm", "pallas", "--uplink", "topk", "--clients",
+                str(N_CLIENTS)], False)
+    batches = batch_fn(0, torch.Generator().manual_seed(7))
+    pairs = {}
+    for on in (True, False):
+        c = dataclasses.replace(cfg, remat=on)
+        pairs[on] = lm.make_loss_pair(build(c).forward, c, budget=6.0)
+    walls = {True: [], False: []}
+    for i in range(REMAT_PAIRS + 1):
+        for on in (True, False):
+            t0 = time.time()
+            state, _ = rounds.round_step(state, batches, pairs[on], fed,
+                                         device=dev)
+            torch.cuda.synchronize()
+            if i:
+                walls[on].append(time.time() - t0)
+    out = {}
+    for on in (True, False):
+        holder = {}
+
+        def one():
+            holder["s"] = rounds.round_step(state, batches, pairs[on], fed,
+                                            device=dev)[0]
+        ms, launches, _ = profile_device(torch, one)
+        state = holder["s"]
+        w = sorted(walls[on])
+        out["on" if on else "off"] = {"s_round": walls[on],
+                                      "median_s": w[len(w) // 2],
+                                      "device_ms": ms,
+                                      "kernel_launches": launches}
+    del state, batches
+    free_card(torch)
+    return out
+
+
+def serve_case_cell(torch, dev, label: str, arch: str, shape_name: str,
+                    seq: int, batch: int) -> dict:
+    """20(d)-(f): ``build_decode_case`` (its zero caches, as the reference
+    lowers them; pos = seq - 1) or ``build_prefill_case`` of ``arch``
+    whole at ``batch`` rows, weights drawn on a card generator; the card's
+    input bytes against the dry run's; a decode runs 2 warm and 5 timed
+    steps, a prefill one warm and one timed call; one more profiled;
+    against the case's roofline bound (the dry run's bytes and FLOPs on
+    the H100)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import build
+    cfg = configs.get_config(arch)
+    kind = configs.INPUT_SHAPES[shape_name].kind
+    shape = InputShape(shape_name, seq, batch, kind)
+    debug = mesh.make_debug_mesh((1, 1))
+    build_case = steps.build_decode_case if kind == "decode" \
+        else steps.build_prefill_case
+    case = build_case(cfg, shape, debug)
+    counted = counted_case(torch, case, cfg, shape)
+    fns = build(cfg)
+    before = free_card(torch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = fns.init(gen, cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab, tuple(case.args[1].shape),
+                         generator=gen, device=dev, dtype=torch.int32)
+    args = [params, toks] + [steps.materialize(a, dev)
+                             for a in case.args[2:]]
+    rec = {"cell": label, "batch": batch, "seq": seq,
+           "n_params": cfg.n_params()}
+    rec.update(check_arg_bytes(torch, label, before, counted))
+    warm, timed = (LAUNCH_DECODE_WARM, LAUNCH_DECODE_TIMED) \
+        if kind == "decode" else (1, 1)
+    with torch.inference_mode():
+        t0 = time.time()
+        for _ in range(warm):
+            logits, _ = case.fn(*args)
+        torch.cuda.synchronize()
+        first = time.time() - t0
+        t0 = time.time()
+        for _ in range(timed):
+            logits, _ = case.fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) / timed * 1e3
+        ms, launches, _ = profile_device(torch, lambda: case.fn(*args))
+    finite = bool(torch.isfinite(logits).all())
+    terms = counted["roofline"]
+    bound = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    rec.update(warm_s=first, wall_ms=wall_ms, device_ms=ms,
+               kernel_launches=launches, busy_share=ms / wall_ms,
+               bound_ms=bound, bound_by=terms["dominant"],
+               bound_share=bound / ms, logits_finite=finite,
+               logits_shape=list(logits.shape),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               flops_counted=counted["cost"]["flops_counted"],
+               bytes_counted=counted["cost"]["bytes"])
+    print(json.dumps(rec), flush=True)
+    if not finite:
+        raise AssertionError(f"{label}: logits not finite")
+    del args, params, case, logits
+    free_card(torch)
+    return rec
+
+
+def launch_phase(torch, dev, sweep) -> tuple:
+    """Phase 20, the launch tooling (see the module docstring).  Returns
+    ``(record, launch records)``."""
+    t_phase = time.time()
+    seconds = {}
+    t0 = time.time()
+    train_b, train_c, counts_b, counts_c = train_4k_cell(torch, dev)
+    seconds["20bc"] = time.time() - t0
+    serve = []
+    from repro_torch import kernels
+    kernels.reset_launches()
+    for cell in LAUNCH_SERVE_CELLS:
+        t0 = time.time()
+        serve.append(serve_case_cell(torch, dev, *cell))
+        seconds[cell[0].split()[0]] = time.time() - t0
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"20(d)-(f) launched wire kernels: {counts}")
+    t0 = time.time()
+    sweep_rec = sweep_record(sweep)
+    seconds["20a_wait"] = time.time() - t0
+    seconds["phase"] = time.time() - t_phase
+    print(json.dumps({"launch_seconds": seconds}), flush=True)
+    return ({"sweep": sweep_rec, "train_4k": train_b, "remat": train_c,
+             "serve": serve, "seconds": seconds},
+            [{"phase": "20b train_4k", "launches": counts_b},
+             {"phase": "20c remat", "launches": counts_c}])
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -4297,9 +4717,7 @@ def main(argv=None) -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import configs, resolve_device
-    from repro_torch.comm import flat
-    from repro_torch.configs.base import CompressorConfig
+    from repro_torch import resolve_device
     from repro_torch.kernels import build
 
     t_start = time.time()
@@ -4317,6 +4735,22 @@ def main(argv=None) -> int:
         print(f"--- nvcc {name} ---\n{log.strip()}", flush=True)
     print(f"build: {len(logs)} kernels in {time.time() - t0:.1f} s",
           flush=True)
+    sweep = start_dryrun_sweep(pathlib.Path(args.out).parent if args.out
+                               else ROOT / "results")
+    try:
+        return run_phases(torch, args, dev, card, t_start, sweep)
+    finally:
+        if sweep[0].poll() is None:
+            sweep[0].kill()
+            sweep[0].wait()
+
+
+def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
+    """Phases 3-20 (the sweep of 20(a) already running) and the last
+    lines."""
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import CompressorConfig
 
     cfg = configs.get_config("smollm-360m")
     spec = meta_spec(torch, cfg)
@@ -4379,11 +4813,13 @@ def main(argv=None) -> int:
     wire_rec, wire_launches = wire_phase(torch, dev)
     serve_rec, serve_launches = serve_phase(torch, dev)
     state_rec, state_launches = state_serve_phase(torch, dev)
+    launch_rec, launch_launches = launch_phase(torch, dev, sweep)
     # launches on the main paths: each phase's count, and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
         + async_launches + scale_launches + family_launches + moe_launches \
-        + media_launches + wire_launches + serve_launches + state_launches
+        + media_launches + wire_launches + serve_launches + state_launches \
+        + launch_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -4405,6 +4841,7 @@ def main(argv=None) -> int:
                                     "wire": wire_rec,
                                     "serve": serve_rec,
                                     "state_serve": state_rec,
+                                    "launch": launch_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

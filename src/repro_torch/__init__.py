@@ -14,7 +14,9 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on.  ``cuda`` needs a card -- there is
     no quiet switch to the CPU -- and turns TF32 off for matmuls and
-    convolutions, since the reference math is full float32."""
+    convolutions, since the reference math is full float32.  ``meta`` (for
+    the dry run, ``launch/dryrun.py``, only) computes shapes and no
+    values."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -25,6 +27,7 @@ def resolve_device(device="cuda") -> torch.device:
             dev = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: cuda or cpu")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}: cuda, cpu or "
+                         "meta")
     return dev

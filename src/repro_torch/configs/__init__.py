@@ -4,22 +4,24 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (CompressorConfig,  # noqa: F401
-                                      FedConfig, FleetConfig, MLAConfig,
+from repro_torch.configs.base import (INPUT_SHAPES,  # noqa: F401
+                                      CompressorConfig, FedConfig,
+                                      FleetConfig, InputShape, MLAConfig,
                                       ModelConfig, MoEConfig, RGLRUConfig,
                                       ScaleConfig, SSMConfig, SwitchConfig,
                                       reduce_model)
 
+# canonical ids -> module names, in the reference's order (the sweep's)
 ALIASES = {
-    "deepseek-v3-671b": "deepseek_v3_671b",
-    "deepseek-v2-236b": "deepseek_v2_236b",
     "qwen3-4b": "qwen3_4b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "mamba2-130m": "mamba2_130m",
     "minitron-4b": "minitron_4b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "smollm-360m": "smollm_360m",
     "llama-3.2-vision-90b": "llama32_vision_90b",
     "gemma3-4b": "gemma3_4b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "whisper-small": "whisper_small",
 }
 
@@ -38,3 +40,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_reduced(name: str) -> ModelConfig:
     return _module(name).reduced()
+
+
+def all_arch_names() -> list:
+    return list(ALIASES)

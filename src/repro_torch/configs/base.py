@@ -1,8 +1,8 @@
-"""Configuration dataclasses (port of ``repro.configs.base``, the part the
-LM trainer's families (dense, patterned dense, Mamba-2, Griffin, the
-DeepSeek MoE with MLA and MTP, the cross-attention VLM, the whisper
-encoder-decoder) on every wire, the async engine, obs and the population
-scale-out need).
+"""Configuration dataclasses for models, federation and input shapes (port
+of ``repro.configs.base``: the LM trainer's families (dense, patterned
+dense, Mamba-2, Griffin, the DeepSeek MoE with MLA and MTP, the
+cross-attention VLM, the whisper encoder-decoder) on every wire, the async
+engine, obs, the population scale-out, and the launch tooling's shapes).
 
 Every architecture file (``configs/<id>.py``) exports ``CONFIG`` (the exact
 full-scale :class:`ModelConfig`) and ``reduced()`` (a smoke-test variant).
@@ -87,6 +87,13 @@ class ModelConfig:
     n_audio_frames: int = 0
     max_target_len: int = 448
     mtp_depth: int = 0              # deepseek-v3 multi-token prediction depth
+    # serving limits
+    sub_quadratic: bool = False     # eligible for long_500k decode
+    remat: bool = True              # recompute each layer body in backward
+    # distribution
+    fsdp: bool = False              # shard params over the data axis (giants)
+    param_dtype: str = "float32"    # the giants' bf16: their decode caches
+                                    # and the dry run's parameter bytes
 
     @property
     def resolved_head_dim(self) -> int:
@@ -249,6 +256,7 @@ class FedConfig:
     comm: str = "dense"             # dense | packed | pallas (the wire
                                     # backend: comm.transports.backend_for)
     proj_radius: float = 0.0        # Pi_X: L2 ball radius (0 => none)
+    client_axis: Optional[str] = "data"   # mesh axis carrying the client dim
     track_wbar: bool = True         # keep the averaged-iterate accumulator
     seed: int = 0
     strategy: str = "fedsgm"        # engine.strategies registry key
@@ -269,6 +277,26 @@ class FedConfig:
 
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the launch tooling's cases)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:

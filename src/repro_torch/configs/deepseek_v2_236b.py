@@ -12,6 +12,7 @@ CONFIG = ModelConfig(
                   capacity_factor=1.25, router_group=4096, first_dense=1),
     mla=MLAConfig(kv_lora_rank=512, q_lora_rank=0, rope_head_dim=64,
                   nope_head_dim=128, v_head_dim=128),
+    fsdp=True, param_dtype="bfloat16",
 )
 
 

@@ -13,6 +13,7 @@ CONFIG = ModelConfig(
     mla=MLAConfig(kv_lora_rank=512, q_lora_rank=1536, rope_head_dim=64,
                   nope_head_dim=128, v_head_dim=128),
     mtp_depth=1,
+    fsdp=True, param_dtype="bfloat16",
 )
 
 

@@ -8,6 +8,7 @@ CONFIG = ModelConfig(
     d_ff=10240, vocab=262144, head_dim=256,
     qk_norm=True, tie_embeddings=True,
     window=1024, local_global_ratio=5, rope_theta=1_000_000.0,
+    sub_quadratic=True,   # 5:1 sliding locals; globals linear per token
 )
 
 

@@ -9,6 +9,7 @@ CONFIG = ModelConfig(
     d_ff=28672, vocab=128256, head_dim=128,
     cross_attn_every=5, n_media_tokens=1601, d_media=8192,
     rope_theta=500_000.0,
+    fsdp=True, param_dtype="bfloat16",
 )
 
 

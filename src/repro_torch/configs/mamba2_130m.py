@@ -7,6 +7,7 @@ CONFIG = ModelConfig(
     n_layers=24, d_model=768, n_heads=1, n_kv_heads=1,
     d_ff=0, vocab=50280, tie_embeddings=True,
     ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64, chunk=256),
+    sub_quadratic=True,
 )
 
 

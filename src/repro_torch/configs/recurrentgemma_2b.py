@@ -8,6 +8,7 @@ CONFIG = ModelConfig(
     d_ff=7680, vocab=256000, head_dim=256, tie_embeddings=True,
     rglru=RGLRUConfig(lru_width=2560, d_conv=4,
                       block_pattern=("rec", "rec", "attn"), window=2048),
+    sub_quadratic=True,
 )
 
 

@@ -27,7 +27,8 @@ def quantize_ef(e: torch.Tensor, delta: torch.Tensor, bits: int):
     ``[nblocks, block]`` and freshly allocated.
 
     CPU tensors take :func:`quantize_ef_ref`; CUDA tensors launch the kernel
-    (counted in ``quantize_ef.launches``)."""
+    (counted in ``quantize_ef.launches``); meta tensors (the dry run) get
+    empty outputs of the plain version's shapes."""
     if not 2 <= bits <= 16:
         raise ValueError(f"quantize_ef: bits={bits} outside [2, 16]")
     if e.dim() != 2 or e.shape != delta.shape:
@@ -40,6 +41,8 @@ def quantize_ef(e: torch.Tensor, delta: torch.Tensor, bits: int):
         raise ValueError("quantize_ef: inputs on different devices")
     if e.device.type == "cpu":
         return quantize_ef_ref(e, delta, bits)
+    if e.device.type == "meta":         # the dry run: shapes only
+        return torch.empty_like(e), torch.empty_like(e)
     if e.device.type != "cuda":
         raise ValueError(f"quantize_ef: unsupported device {e.device}")
     rows, block = e.shape

@@ -44,7 +44,8 @@ def quantize_ef_pack(e: torch.Tensor, delta: torch.Tensor, bits: int):
     all freshly allocated.
 
     CPU tensors take :func:`quantize_ef_pack_plain`; CUDA tensors launch
-    the kernel (counted in ``quantize_ef_pack.launches``)."""
+    the kernel (counted in ``quantize_ef_pack.launches``); meta tensors
+    (the dry run) get empty outputs of the plain version's shapes."""
     if bits not in payloads.PACK_BITS:
         raise ValueError(f"bits={bits} not packable; expected "
                          f"{payloads.PACK_BITS}")
@@ -57,6 +58,12 @@ def quantize_ef_pack(e: torch.Tensor, delta: torch.Tensor, bits: int):
         raise ValueError("quantize_ef_pack: inputs on different devices")
     if e.device.type == "cpu":
         return quantize_ef_pack_plain(e, delta, bits)
+    if e.device.type == "meta":         # the dry run: shapes only
+        lead = e.shape[:-1]
+        W = payloads.words_per_block(e.shape[-1], bits)
+        return (torch.empty(lead + (W,), dtype=torch.uint32, device="meta"),
+                torch.empty(lead + (1,), dtype=torch.float32, device="meta"),
+                torch.empty(e.shape, dtype=torch.float32, device="meta"))
     if e.device.type != "cuda":
         raise ValueError(f"quantize_ef_pack: unsupported device {e.device}")
     block = e.shape[-1]

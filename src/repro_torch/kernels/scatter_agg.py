@@ -52,7 +52,8 @@ def scatter_agg(vals: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
     leading strides are free.
 
     CPU tensors take :func:`scatter_agg_plain`; CUDA tensors launch the
-    kernel (counted in ``scatter_agg.launches``)."""
+    kernel (counted in ``scatter_agg.launches``); meta tensors (the dry
+    run) get an empty output of the plain version's shape."""
     if vals.dim() != 3 or idx.shape != vals.shape or \
             weight.shape != vals.shape[:1]:
         raise ValueError(f"scatter_agg: shapes vals {tuple(vals.shape)}, idx "
@@ -66,6 +67,9 @@ def scatter_agg(vals: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
         raise ValueError("scatter_agg: inputs on different devices")
     if vals.device.type == "cpu":
         return scatter_agg_plain(vals, idx, weight, block)
+    if vals.device.type == "meta":      # the dry run: shapes only
+        return torch.empty((vals.shape[1], block), dtype=torch.float32,
+                           device="meta")
     if vals.device.type != "cuda":
         raise ValueError(f"scatter_agg: unsupported device {vals.device}")
     if block > MAX_BLOCK:
@@ -112,7 +116,8 @@ def segment_rows(rows: torch.Tensor, seg: torch.Tensor,
     allocated.
 
     CPU tensors take :func:`segment_rows_plain`; CUDA tensors launch the
-    kernel (counted in ``segment_rows.launches``)."""
+    kernel (counted in ``segment_rows.launches``); meta tensors (the dry
+    run) get an empty output of the plain version's shape."""
     if rows.dim() != 2 or seg.shape != rows.shape[:1]:
         raise ValueError(f"segment_rows: shapes rows {tuple(rows.shape)}, "
                          f"seg {tuple(seg.shape)} do not agree")
@@ -123,6 +128,9 @@ def segment_rows(rows: torch.Tensor, seg: torch.Tensor,
         raise ValueError("segment_rows: inputs on different devices")
     if rows.device.type == "cpu":
         return segment_rows_plain(rows, seg, n)
+    if rows.device.type == "meta":      # the dry run: shapes only
+        return torch.empty((n, rows.shape[1]), dtype=torch.float32,
+                           device="meta")
     if rows.device.type != "cuda":
         raise ValueError(f"segment_rows: unsupported device {rows.device}")
     m, D = rows.shape

@@ -31,7 +31,8 @@ def switch_blend(gf: torch.Tensor, gg: torch.Tensor,
     ``[d]``, freshly allocated.
 
     CPU tensors take :func:`switch_blend_plain`; CUDA tensors launch the
-    kernel (counted in ``switch_blend.launches``)."""
+    kernel (counted in ``switch_blend.launches``); meta tensors (the dry
+    run) get an empty output of the plain version's shape."""
     if gf.dim() != 1 or gf.shape != gg.shape or sigma.numel() != 1:
         raise ValueError(f"switch_blend: expected [d] buffers and one sigma, "
                          f"got {tuple(gf.shape)}, {tuple(gg.shape)} and "
@@ -42,6 +43,8 @@ def switch_blend(gf: torch.Tensor, gg: torch.Tensor,
         raise ValueError("switch_blend: inputs on different devices")
     if gf.device.type == "cpu":
         return switch_blend_plain(gf, gg, sigma)
+    if gf.device.type == "meta":        # the dry run: shapes only
+        return torch.empty_like(gf)
     if gf.device.type != "cuda":
         raise ValueError(f"switch_blend: unsupported device {gf.device}")
     gf, gg, sigma = gf.contiguous(), gg.contiguous(), sigma.contiguous()

@@ -44,7 +44,8 @@ def block_topk(x: torch.Tensor, k: int):
     ``[n, d]`` buffer goes in without a copy.
 
     CPU tensors take :func:`block_topk_plain`; CUDA tensors launch the
-    kernel (counted in ``block_topk.launches``)."""
+    kernel (counted in ``block_topk.launches``); meta tensors (the dry run)
+    get empty outputs of the plain version's shapes."""
     if x.dtype != torch.float32:
         raise TypeError(f"block_topk: expected float32, got {x.dtype}")
     block = x.shape[-1]
@@ -53,6 +54,10 @@ def block_topk(x: torch.Tensor, k: int):
                          f"block={block}")
     if x.device.type == "cpu":
         return block_topk_plain(x, k)
+    if x.device.type == "meta":         # the dry run: shapes only
+        out = x.shape[:-1] + (k,)
+        return (torch.empty(out, dtype=torch.float32, device="meta"),
+                torch.empty(out, dtype=torch.int32, device="meta"))
     if x.device.type != "cuda":
         raise ValueError(f"block_topk: unsupported device {x.device}")
     if block > MAX_BLOCK:

@@ -45,7 +45,8 @@ def unpack_mma(words: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
     are free (run views of the stacked payload go in without a copy).
 
     CPU tensors take :func:`unpack_mma_plain`; CUDA tensors launch the
-    kernel (counted in ``unpack_mma.launches``)."""
+    kernel (counted in ``unpack_mma.launches``); meta tensors (the dry
+    run) get an empty output of the plain version's shape."""
     if bits not in payloads.PACK_BITS:
         raise ValueError(f"bits={bits} not packable; expected "
                          f"{payloads.PACK_BITS}")
@@ -66,6 +67,9 @@ def unpack_mma(words: torch.Tensor, scale: torch.Tensor, weight: torch.Tensor,
         raise ValueError("unpack_mma: inputs on different devices")
     if words.device.type == "cpu":
         return unpack_mma_plain(words, scale, weight, bits, block)
+    if words.device.type == "meta":     # the dry run: shapes only
+        return torch.empty((words.shape[1], block), dtype=torch.float32,
+                           device="meta")
     if words.device.type != "cuda":
         raise ValueError(f"unpack_mma: unsupported device {words.device}")
     n, nb, _ = build.rows3(words, "unpack_mma").shape

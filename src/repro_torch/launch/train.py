@@ -105,10 +105,12 @@ from repro_torch.configs.base import (AsyncConfig, CompressorConfig,
                                       ScaleConfig, SwitchConfig)
 from repro_torch.data import synthetic
 from repro_torch.engine import async_rounds, rounds
+from repro_torch.launch import mesh
 from repro_torch.models import build
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import sinks as obs_sinks
 from repro_torch.obs import trace as obs_trace
+from repro_torch.sharding import partition
 from repro_torch.tasks import lm
 
 # (attribute, flag) of the reference's flags whose paths the port does not
@@ -213,6 +215,9 @@ def parser() -> argparse.ArgumentParser:
                     help="capture a torch.profiler trace while START <= "
                          "round < STOP (a Chrome/Perfetto JSON under "
                          "profiles/)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="activate the production (2, 16, 16) mesh "
+                         "(launch.mesh; needs 512 CUDA devices)")
     ap.add_argument("--wire", type=int, default=0, metavar="K",
                     help="cross-process federation (repro_torch.wire): "
                          "spawn K worker processes over loopback TCP, each "
@@ -258,6 +263,8 @@ def setup(args, cfg=None):
     if cfg is None:
         cfg = configs.get_reduced(args.arch) if args.reduced \
             else configs.get_config(args.arch)
+    if args.multi_pod:
+        partition.activate_mesh(mesh.make_production_mesh(multi_pod=True))
     media = cfg.family in ("vlm", "audio")
     if args.fleet and media:
         raise SystemExit(

@@ -26,23 +26,29 @@ class ModelFns(NamedTuple):
                              # (logits [B, 1, V], cache)
     init_decode_cache: object  # (cfg, batch, cache_len[, media, params,
                                # device]) -> cache
+    param_rules: object      # [(path regex, logical axes)] (models.rules)
 
 
 def build(cfg: ModelConfig) -> ModelFns:
     if cfg.family in ("dense", "vlm"):
         from repro_torch.models import transformer as m
+        from repro_torch.models.rules import dense_rules as rules
     elif cfg.family == "moe":
         from repro_torch.models import moe_transformer as m
+        from repro_torch.models.rules import moe_rules as rules
     elif cfg.family == "ssm":
         from repro_torch.models import mamba2 as m
+        from repro_torch.models.rules import ssm_rules as rules
     elif cfg.family == "hybrid":
         from repro_torch.models import griffin as m
+        from repro_torch.models.rules import hybrid_rules as rules
     elif cfg.family == "audio":
         from repro_torch.models import whisper as m
+        from repro_torch.models.rules import audio_rules as rules
     else:
         raise ValueError(f"unknown family {cfg.family}")
     return ModelFns(m.init, m.forward, m.param_shapes, m.prefill,
-                    m.decode_step, m.init_decode_cache)
+                    m.decode_step, m.init_decode_cache, rules(cfg))
 
 
 def params_from_numpy(tree, device=None):

@@ -119,7 +119,9 @@ def decode_attention(p, x, cache: KVCache, pos: int, *, n_heads, n_kv,
 
     The write is in place: the returned cache holds the caller's tensors,
     which this call consumes (the reference's functional update, whose
-    input XLA donates).  ``pos``, ``write_pos`` and ``rope_pos`` are
+    input XLA donates), and casts to the cache's dtype.  The cache is read
+    in the compute dtype (a bf16 cache under float32 weights: bf16 storage,
+    float32 arithmetic).  ``pos``, ``write_pos`` and ``rope_pos`` are
     Python ints."""
     rp = pos if rope_pos is None else rope_pos
     positions = torch.full((1,), rp, dtype=torch.int32, device=x.device)
@@ -132,7 +134,8 @@ def decode_attention(p, x, cache: KVCache, pos: int, *, n_heads, n_kv,
     allowed = kv_pos <= pos if kv_valid is None else kv_valid
     if window:
         allowed = allowed & (kv_pos > pos - window)
-    out = attend(q, cache.k, cache.v, _bias(allowed)[None, None, None, None])
+    out = attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                 _bias(allowed)[None, None, None, None])
     return out @ p["wo"], cache
 
 
@@ -198,11 +201,13 @@ def _no_mask(q, kv_len: int):
 
 def cross_attention(p, x, kv: KVCache, *, n_heads, head_dim,
                     gated: bool = True):
-    """Every query attends to every media position; ``gated`` scales the
-    output by ``tanh(gate)``."""
+    """Every query attends to every media position (``kv`` read in the
+    compute dtype, as a decode cache is); ``gated`` scales the output by
+    ``tanh(gate)``."""
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
-    out = attend(q, kv.k, kv.v, _no_mask(q, kv.k.shape[1])) @ p["wo"]
+    out = attend(q, kv.k.to(q.dtype), kv.v.to(q.dtype),
+                 _no_mask(q, kv.k.shape[1])) @ p["wo"]
     if gated:
         out = torch.tanh(p["gate"]) * out
     return out

@@ -4,6 +4,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
@@ -18,6 +19,11 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
                device=None) -> torch.Tensor:
     return torch.randn((vocab, d), generator=gen, device=device,
                        dtype=torch.float32) * 0.02
+
+
+def param_dtype(cfg) -> torch.dtype:
+    """``cfg.param_dtype`` ("float32", "bfloat16") as a torch dtype."""
+    return getattr(torch, cfg.param_dtype)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +64,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def remat(cfg, fn, *args):
+    """``fn(*args)``; with ``cfg.remat`` and autograd recording, its
+    activations are not kept but recomputed in the backward (the
+    reference's ``jax.checkpoint`` of a layer body; non-reentrant, so
+    ``torch.autograd.grad`` and a graph kept across several backward
+    seeds work as without it; the bodies draw no random numbers, so no RNG
+    state is stashed)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def unstack(tree, n: int) -> list:
     """A tree of ``[n, ...]``-stacked layer leaves as n per-layer trees.
     Each leaf is unbound once, so its backward stacks the per-layer
@@ -92,18 +111,28 @@ def tree_at(tree, i: int):
 
 
 def run_periods(params, P: int, n_full: int, h, apply, mode: str,
-                caches=None):
+                caches=None, cfg=None):
     """A patterned stack: the ``n_full`` whole periods in order (position
     ``p``'s layer from its stack ``params["blocks"][p]``), then the
     remainder's layers ``params["rest"]`` (position ``i % P``).
     ``apply(lp, p, h, cache) -> (h, cache)`` runs one layer; ``caches``
     (``{"blocks", "rest"}``, decode mode) are passed as per-layer views.
+    In train mode each whole period is one :func:`remat` body under
+    ``cfg`` (the remainder's layers are not, as in the reference).
     Returns ``(h, caches)``: None in train mode, prefill's new caches
     (``"blocks"`` is ``[None] * P`` when there is no whole period, as in
     the reference), or decode's (the caller's, written in place)."""
     blocks = [unstack(b, n_full) for b in params["blocks"]]
     made = [[] for _ in range(P)]
+
+    def period(h, *lps):
+        for p in range(P):
+            h, _ = apply(lps[p], p, h, None)
+        return h
     for i in range(n_full):
+        if mode == "train":
+            h = remat(cfg, period, h, *(blocks[p][i] for p in range(P)))
+            continue
         for p in range(P):
             c = tree_at(caches["blocks"][p], i) if caches else None
             h, nc = apply(blocks[p][i], p, h, c)

@@ -2,16 +2,21 @@
 query per sequence against a KV cache, as partial softmax statistics (max,
 sum, weighted V) merged into the output.
 
-The reference merges the statistics of a length-sharded cache across a
-mesh with one collective; the port runs on one card and has no mesh
-(``sharding/partition.activate_mesh`` takes only None), so it takes the
-reference's dense path: one partial over the whole cache.  Plain PyTorch,
-as the reference's is plain ``jnp``."""
+With a mesh whose ``axis`` has size k (the given one, or the active one,
+``sharding.partition.current_mesh``), the cache length is split into k
+shards, each shard's statistics are computed on its own, and they are
+merged as the reference's ``shard_map`` merges them across devices (a
+max, then corrected sums: its ``pmax`` / ``psum``).  The shards are slices
+of the tensors one process holds.  Without a mesh, or without ``axis`` in
+it, one partial covers the whole cache (the reference's dense fallback).
+Plain PyTorch, as the reference's is plain ``jnp``."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.sharding import partition
 
 
 def _partial_attend(q, k, v, valid):
@@ -34,17 +39,33 @@ def _partial_attend(q, k, v, valid):
 
 def flash_decode_attend(q, k_cache, v_cache, kv_valid, mesh=None,
                         axis: str = "model"):
-    """q ``[B,1,H,hd]``; caches ``[B,S,KV,hd]``; kv_valid ``[S]`` bool.
-    Returns the ``[B,1,H*hd]`` attention output; a row with no valid slot
-    gives 0 (``max(l, 1e-30)``), not NaN.  ``mesh`` must be None (one
-    card: there is no length-sharded cache to merge across)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "flash_decode_attend over a device mesh is not ported yet (it "
-            "comes with launch/mesh.py); on one card pass mesh=None")
+    """q ``[B,1,H,hd]``; caches ``[B,S,KV,hd]``, length-sharded over
+    ``axis`` when a mesh has it; kv_valid ``[S]`` bool.  Returns the
+    ``[B,1,H*hd]`` attention output; a row with no valid slot gives 0
+    (``max(l, 1e-30)``), not NaN."""
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
     qg = q[:, 0].reshape(B, KV, H // KV, hd)
-    m, l, o = _partial_attend(qg, k_cache, v_cache, kv_valid)
-    out = o / torch.clamp(l, min=1e-30)[..., None]
+    mesh = partition.current_mesh() if mesh is None else mesh
+    if mesh is None or axis not in mesh.axis_names:
+        m, l, o = _partial_attend(qg, k_cache, v_cache, kv_valid)
+        out = o / torch.clamp(l, min=1e-30)[..., None]
+        return out.reshape(B, 1, H * hd).to(q.dtype)
+    k = dict(zip(mesh.axis_names, mesh.devices.shape))[axis]
+    S = k_cache.shape[1]
+    if S % k:
+        raise ValueError(f"cache length {S} does not split into {k} "
+                         f"shards over {axis!r}")
+    parts = [_partial_attend(qg, ks, vs, val) for ks, vs, val in zip(
+        k_cache.chunk(k, 1), v_cache.chunk(k, 1), kv_valid.chunk(k))]
+    # the stable logsumexp merge across shards
+    m_glob = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    m_safe = torch.where(torch.isfinite(m_glob), m_glob, 0.0)
+    l_glob, o_glob = 0.0, 0.0
+    for m, l, o in parts:
+        corr = torch.exp(torch.where(torch.isfinite(m), m, -math.inf)
+                         - m_safe)
+        l_glob = l_glob + l * corr
+        o_glob = o_glob + o * corr[..., None]
+    out = o_glob / torch.clamp(l_glob, min=1e-30)[..., None]
     return out.reshape(B, 1, H * hd).to(q.dtype)

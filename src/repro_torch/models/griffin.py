@@ -182,7 +182,8 @@ def _run_stack(params, cfg: ModelConfig, h, *, positions=None,
         return _apply_layer(lp, cfg, h, pat[p], positions=positions,
                             mode=mode, cache=cache, pos=pos,
                             cache_len=cache_len)
-    return common.run_periods(params, P, n_full, h, apply, mode, caches)
+    return common.run_periods(params, P, n_full, h, apply, mode, caches,
+                              cfg)
 
 
 def _embed(params, cfg: ModelConfig, tokens):

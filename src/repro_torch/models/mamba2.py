@@ -182,9 +182,12 @@ def _logits(params, cfg: ModelConfig, h):
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens ``[B, S]`` -> logits ``[B, S, V]`` (the embedding unscaled)."""
     h = params["embed"][tokens]
+
+    def body(h, lp):
+        return h + _mixer(lp, cfg, common.rms_norm(h, lp["ln"],
+                                                   cfg.norm_eps))[0]
     for lp in common.unstack(params["layers"], cfg.n_layers):
-        h = h + _mixer(lp, cfg, common.rms_norm(h, lp["ln"],
-                                                cfg.norm_eps))[0]
+        h = common.remat(cfg, body, h, lp)
     return _logits(params, cfg, h)
 
 

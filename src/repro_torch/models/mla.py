@@ -105,12 +105,14 @@ def prefill(p, x, positions, theta, n_heads: int, m: MLAConfig,
                          torch.nn.functional.pad(k_rope, pad))
 
 
-def init_cache(batch: int, cache_len: int, m: MLAConfig,
-               device=None) -> MLACache:
-    """Zero latents ``[batch, cache_len, ...]`` in float32."""
+def init_cache(batch: int, cache_len: int, m: MLAConfig, device=None,
+               dtype=torch.float32) -> MLACache:
+    """Zero latents ``[batch, cache_len, ...]`` in ``dtype``."""
     return MLACache(
-        torch.zeros((batch, cache_len, m.kv_lora_rank), device=device),
-        torch.zeros((batch, cache_len, m.rope_head_dim), device=device))
+        torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, cache_len, m.rope_head_dim), dtype=dtype,
+                    device=device))
 
 
 def decode(p, x, cache: MLACache, pos: int, theta, n_heads: int,
@@ -118,14 +120,15 @@ def decode(p, x, cache: MLACache, pos: int, theta, n_heads: int,
     """The absorbed one-token decode over the latent cache: x ``[B, 1,
     d]`` at position ``pos`` (a Python int); its latents are written at
     slot ``pos`` in place (the returned cache holds the caller's
-    tensors), and slots above ``pos`` are masked."""
+    tensors, cast to the cache's dtype), and slots above ``pos`` are
+    masked; the cache is read in the compute dtype."""
     B = x.shape[0]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _queries(p, x, n_heads, m, positions, theta, eps)
     c_new, kr_new = _latents(p, x, m, positions, theta, eps)
     cache.c_kv[:, pos] = c_new[:, 0]
     cache.k_rope[:, pos] = kr_new[:, 0]
-    c_kv, k_rope = cache
+    c_kv, k_rope = (c.to(x.dtype) for c in cache)
 
     wk = p["wk_b"].reshape(m.kv_lora_rank, n_heads, m.nope_head_dim)
     q_c = torch.einsum("bqhn,chn->bqhc", q_nope, wk)      # absorbed query

@@ -108,9 +108,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
         h, _ = _layer_fwd(lp, cfg, h, positions)
     n_moe = cfg.n_layers - cfg.moe.first_dense
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp in common.unstack(params["moe_layers"], n_moe):
+
+    def body(h, aux_sum, lp):
         h, a = _layer_fwd(lp, cfg, h, positions)
-        aux_sum = aux_sum + a
+        return h, aux_sum + a
+    for lp in common.unstack(params["moe_layers"], n_moe):
+        h, aux_sum = common.remat(cfg, body, h, aux_sum, lp)
     aux = aux_sum / max(n_moe, 1)
     logits = common.rms_norm(h, params["ln_f"], cfg.norm_eps) \
         @ params["lm_head"]
@@ -179,8 +182,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       media=None, params=None, device=None) -> ServeCache:
     """Zero latents of ``cache_len`` slots a layer, on ``device``, in
-    float32 (``media`` and ``params`` are not read)."""
-    caches = [mla.init_cache(batch, cache_len, cfg.mla, device=device)
+    ``cfg.param_dtype`` (``media`` and ``params`` are not read)."""
+    caches = [mla.init_cache(batch, cache_len, cfg.mla, device=device,
+                             dtype=common.param_dtype(cfg))
               for _ in range(cfg.n_layers)]
     nd = cfg.moe.first_dense
     return ServeCache(caches[:nd], common.tree_stack(caches[nd:]))

@@ -182,7 +182,8 @@ def _run_patterned(params, cfg: ModelConfig, h, *, positions=None,
         return _apply_layer(lp, cfg, h, plans[p], positions=positions,
                             media=media, mode=mode, cache=cache, pos=pos,
                             cache_len=cache_len)
-    return common.run_periods(params, P, n_full, h, apply, mode, caches)
+    return common.run_periods(params, P, n_full, h, apply, mode, caches,
+                              cfg)
 
 
 def _media_embed(params, media):
@@ -214,8 +215,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         h, _ = _run_patterned(params, cfg, h, positions=positions, media=m)
     else:
         plan = {"kind": "self", "window": cfg.window}
+
+        def body(h, lp):
+            return _apply_layer(lp, cfg, h, plan, positions=positions)[0]
         for lp in common.unstack(params["layers"], cfg.n_layers):
-            h, _ = _apply_layer(lp, cfg, h, plan, positions=positions)
+            h = common.remat(cfg, body, h, lp)
     return _logits(params, cfg, h)
 
 
@@ -259,23 +263,23 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
 
 def _empty_kv(cfg: ModelConfig, batch: int, clen: int, lead=(),
               device=None) -> attention.KVCache:
-    """Zero caches ``[*lead, batch, clen, KV, hd]`` in float32 (the
-    reference's ``param_dtype`` default; the port's config has no such
-    field)."""
+    """Zero caches ``[*lead, batch, clen, KV, hd]`` in ``cfg.param_dtype``
+    (the giants' bf16, as in the reference)."""
     shape = tuple(lead) + (batch, clen, cfg.n_kv_heads,
                            cfg.resolved_head_dim)
-    return attention.KVCache(
-        torch.zeros(shape, dtype=torch.float32, device=device),
-        torch.zeros(shape, dtype=torch.float32, device=device))
+    dt = common.param_dtype(cfg)
+    return attention.KVCache(torch.zeros(shape, dtype=dt, device=device),
+                             torch.zeros(shape, dtype=dt, device=device))
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       media: Optional[torch.Tensor] = None, params=None,
                       device=None) -> ServeCache:
-    """Empty caches for pure decode, on ``device``: ``cache_len`` slots a
-    layer (a windowed layer's ring ``min(cache_len, window + 1)``); a cross
-    layer's ``cfg.n_media_tokens or 8`` media slots are zeros, or with
-    ``media`` and ``params`` its keys and values of the media."""
+    """Empty caches for pure decode, on ``device``, in ``cfg.param_dtype``:
+    ``cache_len`` slots a layer (a windowed layer's ring ``min(cache_len,
+    window + 1)``); a cross layer's ``cfg.n_media_tokens or 8`` media slots
+    are zeros, or with ``media`` and ``params`` its keys and values of the
+    media (in their compute dtype, as in the reference)."""
     if not _is_patterned(cfg):
         return ServeCache(_empty_kv(cfg, batch, cache_len, (cfg.n_layers,),
                                     device), None)

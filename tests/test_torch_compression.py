@@ -34,7 +34,9 @@ from repro.core import compression as jc
 from repro_torch.comm import payloads
 from repro_torch.configs.base import CompressorConfig
 from repro_torch.core import compression
-from torch_port_util import assert_bits_equal, n, t
+from torch_port_util import assert_bits_equal, n, one_thread, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _special(x, kind, rng):

@@ -45,7 +45,7 @@ from repro_torch.launch import train
 from repro_torch.models import build, common, params_from_numpy
 from repro_torch.scale import shard
 from repro_torch.tasks import lm
-from torch_port_util import assert_bits_equal, t
+from torch_port_util import assert_bits_equal, one_thread, t  # noqa: F401
 
 NEW_ARCHS = ["qwen3-4b", "minitron-4b", "gemma3-4b", "mamba2-130m",
              "recurrentgemma-2b"]
@@ -59,16 +59,6 @@ CASES = [
     ("mamba2-padded", "mamba2-130m", {}, 40),
     ("griffin-4L", "recurrentgemma-2b", {"n_layers": 4}, 64),
 ]
-
-
-@pytest.fixture
-def one_thread():
-    # small shapes: one intra-op thread beats contending with the other
-    # test workers for the cores
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _setup(arch, over):

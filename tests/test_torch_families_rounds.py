@@ -28,14 +28,17 @@ from repro_torch.configs.base import CompressorConfig, FedConfig, SwitchConfig
 from repro_torch.engine import rounds
 from repro_torch.models import build
 from repro_torch.tasks import lm
-from test_torch_families import _batch, _setup, one_thread  # noqa: F401
-from torch_port_util import t
+from test_torch_families import _batch, _setup
+from torch_port_util import one_thread, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N_CLIENTS = 2
 ROUND_CASES = [("gemma3", "gemma3-4b", {}, 64),
                ("qwen3", "qwen3-4b", {}, 64),
                ("mamba2-2chunks", "mamba2-130m", {}, 64),
                ("griffin-3L", "recurrentgemma-2b", {}, 64)]
+
 
 
 @pytest.mark.parametrize("kind", ["topk", "quant"])

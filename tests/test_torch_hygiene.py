@@ -128,8 +128,8 @@ def test_not_ported_paths_raise():
 
 
 def test_new_modules_are_scanned():
-    """The async engine, obs, scale-out, sharding and checkpoint modules
-    are among the files the import scan reads."""
+    """The async engine, obs, scale-out, sharding, checkpoint and launch
+    tooling modules are among the files the import scan reads."""
     scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("engine/async_rounds.py", "obs/__init__.py", "obs/bus.py",
                 "obs/log.py", "obs/sinks.py", "obs/trace.py",
@@ -142,7 +142,8 @@ def test_new_modules_are_scanned():
                 "configs/mamba2_130m.py", "configs/recurrentgemma_2b.py",
                 "wire/__init__.py", "wire/frames.py", "wire/testing.py",
                 "wire/bootstrap.py", "wire/supervisor.py", "wire/worker.py",
-                "wire/coordinator.py"):
+                "wire/coordinator.py", "models/rules.py", "launch/mesh.py",
+                "launch/steps.py", "launch/dryrun.py", "launch/roofline.py"):
         assert f"src/repro_torch/{mod}" in scanned
 
 

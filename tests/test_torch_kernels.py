@@ -39,12 +39,16 @@ from repro_torch.kernels.scatter_agg import scatter_agg, segment_rows
 from repro_torch.kernels.switch_blend import switch_blend
 from repro_torch.kernels.topk_block import block_topk
 from repro_torch.kernels.unpack_mma import unpack_mma
-from torch_port_util import assert_bits_equal, assert_within_ulp, t
+from torch_port_util import (assert_bits_equal,  # noqa: F401
+                             assert_within_ulp, one_thread, t)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # (nblocks, block, k): the reduced config's blocks 42/126 and the full
 # config's 960/640/320 at ratio 0.1
 TOPK_SHAPES = [(5, 42, 4), (3, 126, 13), (2, 960, 96), (2, 640, 64),
                (2, 320, 32)]
+
 
 
 def _rows(nblocks, block, seed, special=True):

@@ -23,7 +23,10 @@ from repro_torch import configs
 from repro_torch.comm import flat, transports
 from repro_torch.configs.base import CompressorConfig
 from repro_torch.models import params_from_numpy, transformer
-from torch_port_util import assert_bits_equal, assert_within_ulp, t
+from torch_port_util import (assert_bits_equal,  # noqa: F401
+                             assert_within_ulp, one_thread, t)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _jax_spec(cfg):
@@ -32,6 +35,7 @@ def _jax_spec(cfg):
     paths = [tuple(k.key for k in path) for path, _ in
              jax.tree_util.tree_flatten_with_path(shapes)[0]]
     return jax_flat.spec_of(shapes), paths
+
 
 
 def _meta_params(cfg):

@@ -52,8 +52,10 @@ from repro_torch.launch import train
 from repro_torch.models import (attention, build, common, params_from_numpy,
                                 whisper)
 from repro_torch.tasks import lm
-from test_torch_families import _jax_paths, one_thread  # noqa: F401
-from torch_port_util import assert_bits_equal, t
+from test_torch_families import _jax_paths
+from torch_port_util import assert_bits_equal, one_thread, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCHS = ["llama-3.2-vision-90b", "whisper-small"]
 BATCH = 2

@@ -39,9 +39,10 @@ from repro_torch.engine import rounds
 from repro_torch.fleet import samplers
 from repro_torch.models import build
 from repro_torch.tasks import lm
-from test_torch_families import one_thread  # noqa: F401
 from test_torch_media import ARCHS, media_batch, media_setup
-from torch_port_util import t
+from torch_port_util import one_thread, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N, M, SEQ = 4, 2, 64
 # two recorded rounds of 2-of-4 cohorts

@@ -56,9 +56,10 @@ from repro_torch.engine import rounds
 from repro_torch.launch import train
 from repro_torch.models import build, common, mla, moe, params_from_numpy
 from repro_torch.tasks import lm
-from test_torch_families import (BATCH, _batch, _jax_paths,  # noqa: F401
-                                 _setup, one_thread)
-from torch_port_util import assert_bits_equal, t
+from test_torch_families import BATCH, _batch, _jax_paths, _setup
+from torch_port_util import assert_bits_equal, one_thread, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCHS = ["deepseek-v2-236b", "deepseek-v3-671b"]
 MARGIN = 1e-5

@@ -27,9 +27,11 @@ from repro_torch.configs.base import CompressorConfig, FedConfig, SwitchConfig
 from repro_torch.engine import rounds
 from repro_torch.models import build
 from repro_torch.tasks import lm
-from test_torch_families import _batch, _setup, one_thread  # noqa: F401
+from test_torch_families import _batch, _setup
 from test_torch_moe import ARCHS
-from torch_port_util import t
+from torch_port_util import one_thread, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N_CLIENTS, SEQ = 2, 64
 

@@ -53,7 +53,7 @@ from repro_torch.configs.base import (AsyncConfig, CompressorConfig,
 from repro_torch.core import baselines
 from repro_torch.engine import async_rounds, participation, rounds
 from repro_torch.fleet import samplers
-from repro_torch.launch import train
+from repro_torch.launch import mesh, train
 from repro_torch.obs import bus
 from repro_torch.scale import shard, slots
 from repro_torch.sharding import partition
@@ -780,8 +780,19 @@ def test_sharding_shims_are_identities():
     partition.activate_mesh(None, logical={"client": "pod"})
     assert partition.resolve("client") == ("pod",)
     partition.activate_mesh(None)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        partition.activate_mesh(object())
+    # with a mesh the helpers stay identities on values (one process holds
+    # whole tensors); the table remaps the client axis and drops the axes
+    # the mesh lacks
+    m = mesh.make_debug_mesh((2, 2), ("pod", "model"))
+    try:
+        partition.activate_mesh(m, client_axis="pod")
+        assert partition.current_mesh() is m
+        assert partition.resolve("client", "batch", "flat") == (
+            "pod", None, "model")
+        assert partition.shard_act(x, "batch") is x
+        assert partition.constrain_leading(x, "client") is x
+    finally:
+        partition.activate_mesh(None)
     assert partition.DEFAULT_LOGICAL == __import__(
         "repro.sharding.partition",
         fromlist=["DEFAULT_LOGICAL"]).DEFAULT_LOGICAL

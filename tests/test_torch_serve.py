@@ -39,7 +39,7 @@ from repro.models import build as jax_build
 from repro.models import flash_decode as jax_flash
 from repro_torch import configs
 from repro_torch.examples import serve_batched
-from repro_torch.launch import serve
+from repro_torch.launch import mesh, serve
 from repro_torch.models import attention, build, flash_decode, transformer
 from repro_torch.models import params_from_numpy
 from torch_port_util import n, t
@@ -120,12 +120,15 @@ def _paths(tree):
 
 
 def _assert_same_tree(got, want, values=True):
+    """Same paths, shapes and dtypes (the giants' bf16 caches included);
+    values compared in float32."""
     g, w = _paths(got), _paths(want)
     assert [p for p, _ in g] == [p for p, _ in w]
     for (path, a), (_, b) in zip(g, w):
         assert tuple(a.shape) == tuple(b.shape), path
+        assert str(a.dtype).replace("torch.", "") == str(b.dtype), path
         if values:
-            _close(a, b)
+            _close(a.float(), np.asarray(b).astype(np.float32))
 
 
 class _Serve:
@@ -299,11 +302,20 @@ def test_partial_attend_matches_reference_with_no_valid_slot():
 
 
 def test_flash_decode_refuses_a_mesh():
-    q, k, v = _qkv(1, 4, 2, 1, 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        flash_decode.flash_decode_attend(t(q), t(k), t(v),
-                                         torch.ones(4, dtype=torch.bool),
-                                         mesh=object())
+    """A mesh whose axis does not split the cache length is refused (the
+    reference's ``shard_map`` needs equal shards); a mesh without the axis
+    takes the dense path, as in the reference.  The sharded path against
+    the reference is ``test_torch_remat.py``'s."""
+    q, k, v = _qkv(1, 6, 2, 1, 4)
+    valid = torch.ones(6, dtype=torch.bool)
+    with pytest.raises(ValueError, match="does not split"):
+        flash_decode.flash_decode_attend(
+            t(q), t(k), t(v), valid, mesh=mesh.make_debug_mesh((4,),
+                                                               ("model",)))
+    dense = flash_decode.flash_decode_attend(t(q), t(k), t(v), valid)
+    other = flash_decode.flash_decode_attend(
+        t(q), t(k), t(v), valid, mesh=mesh.make_debug_mesh((2,), ("data",)))
+    assert torch.equal(other, dense)
 
 
 # ---------------------------------------------------------------------------
@@ -371,8 +383,10 @@ def test_decode_from_init_cache_matches_prefill_cache():
     """The vlm's cross caches from ``init_decode_cache(media, params)``
     are the prefill's, bit for bit; with the prompt's self-layer caches
     copied in, a decode step from them gives the prefill path's logits bit
-    for bit."""
-    s = _Serve("llama-3.2-vision-90b")
+    for bit.  At ``param_dtype`` float32: the config's bf16 empty caches
+    would round the copied self-layer caches (the bf16 caches are
+    ``test_torch_remat.py``'s)."""
+    s = _Serve("llama-3.2-vision-90b", param_dtype="float32")
     toks = _tokens(s.cfg, PROMPT + 1)
     _, cache = s.prefill(toks[:, :PROMPT], PROMPT + 1)
     init = s.f.init_decode_cache(s.cfg, BATCH, PROMPT + 1,

@@ -34,7 +34,9 @@ from repro_torch.configs.base import CompressorConfig, FedConfig, SwitchConfig
 from repro_torch.engine import rounds
 from repro_torch.models import params_from_numpy, transformer
 from repro_torch.tasks import lm
-from torch_port_util import t
+from torch_port_util import one_thread, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N_CLIENTS, BATCH, SEQ = 2, 2, 16
 

@@ -2,7 +2,20 @@
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture
+def one_thread():
+    """Run the test on one intra-op thread and restore the old count after.
+    Small shapes gain nothing from more threads, and uncapped ones contend
+    for the cores with the other test workers, whose timing-bound tests
+    (heartbeats, deadlines) can then miss."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def t(x, dtype=None) -> torch.Tensor:
@@ -12,8 +25,11 @@ def t(x, dtype=None) -> torch.Tensor:
 
 
 def n(x) -> np.ndarray:
-    """JAX array or tensor -> numpy."""
+    """JAX array or tensor -> numpy (a bf16 tensor as float32, exactly:
+    numpy has no bf16)."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
