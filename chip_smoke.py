@@ -255,9 +255,31 @@ Phases, each fatal on failure (nonzero exit):
    slots in its 5 global layers); (f) mamba2-130m whole, prefill_32k at
    batch 4 of 32 (32,768 tokens), one warm and one timed prefill; in (d)-(f)
    the device ms and launches of one profiled call against the case's
-   roofline bound, finite logits, no wire kernel.
+   roofline bound, finite logits, no wire kernel;
+21. rounds across ranks (the mesh's client axis over a
+   ``torch.distributed`` group, ``launch.mesh.make_rank_mesh``), 3 rounds a
+   cell through the engine API (the launcher's setup), first in one process
+   ((a) here; (b) and (c) are phases 14(a) and 5's runs, whose final states
+   they keep), then in one world of ranks started by ``spawn`` that runs
+   every cell: 2 ranks sharing the card over gloo (CUDA tensors, the
+   collectives staged through pinned host memory; the collectives gloo
+   takes on CUDA tensors probed first) and, where 2 or more cards exist,
+   one rank per card over NCCL, up to 4: (a) the reference's ``multidev``
+   configuration (NP, 12 clients, 4 sampled, gather, hard switch 0.35,
+   top-k 0.25 block 8 up on the dense wire, ``ef_slots`` 12, E 2) with the
+   reference's checks of ``sharded_take`` and ``constrain_fleet`` /
+   ``constrain_store``; (b) mamba2-130m whole at phase 14(a)'s layout
+   (gather 4 of 8, pallas top-k 0.1 up and down, the separate eval over all
+   8); (c) smollm-360m whole at phase 5's mask quant layout (4 of 4, pallas
+   8-bit quant up, the fused eval); on every rank the state (w, x, the
+   averaged-iterate sums, every metric, the residual rows or slot pool it
+   holds) bit-equal to the one process by sha1, the launches and
+   ``loss_pair`` calls its rows and the replicated reduce demand, the
+   collectives' bytes and host seconds per round, one more round profiled
+   and one whose every wire-kernel launch is held against its plain
+   version, tolerance 0; a rank that fails fails the phase.
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 the launch
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21 the launch
 counts are zeroed just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
@@ -802,7 +824,7 @@ def expected_launches(fed, runs: int) -> dict:
 
 def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
                 fleet_fn=None, after=None, cfg=None, d_want=D_FULL,
-                **fed_over):
+                digest: bool = False, **fed_over):
     """Phases 5, 7, 8, 9, 13 and 14: full-width training rounds through the
     launcher's setup (``cfg`` in place of ``--arch``'s config where depth
     is cut; the flat buffer must hold ``d_want`` parameters) and
@@ -810,10 +832,12 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     client fleet (the launcher's ``--fleet``, or ``fleet_fn(fed, dev)``
     through the engine API); returns the phase record (launch
     counts included, and the fields ``after(state, hist, batches,
-    loss_pair, fed, dev)`` returns, called last).  Every kernel must launch as often as the wire layout
-    demands, no other kernel may launch, and ``loss_pair`` must run once
-    per forward of the round (fused or not); on a fleet every provisioned
-    row must lie below its client's count."""
+    loss_pair, fed, dev)`` returns, called last; with ``digest``, the
+    final state's :func:`state_digest` for phase 21).  Every kernel must
+    launch as often as the wire layout demands, no other kernel may
+    launch, and ``loss_pair`` must run once per forward of the round (fused
+    or not); on a fleet every provisioned row must lie below its client's
+    count."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.comm import flat
@@ -857,6 +881,7 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     stamps.append(time.perf_counter())
     counts = kernels.launch_counts()
     per_round = [b - a for a, b in zip(stamps, stamps[1:])]
+    final = state_digest(torch, state, hist) if digest else None
     rec = {"phase": name, "d": state.spec.d, "comm": fed.comm,
            "clients": fed.n_clients, "participating": fed.m,
            "participation": fed.participation, "full_eval": fed.full_eval,
@@ -879,6 +904,8 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     if fleet is not None:
         rec.update(seen.check(fleet, fed, T))
     print(json.dumps(rec), flush=True)
+    if final is not None:
+        rec["digest"] = final
     if not (all(math.isfinite(v) for v in rec["f"])
             and all(math.isfinite(v) for v in rec["g_hat"])):
         raise AssertionError(f"{name}: non-finite f or g_hat")
@@ -1168,11 +1195,12 @@ def zipf_token_fleet(torch, cfg):
 # on an H100, so they are cut to keep the phase near a minute (and the
 # whole script, with phase 11, near half its time limit); Figure 1 from 60
 # to 40 when phase 16 came (a Figure-1 round took 0.16-0.31 s, the whole
-# script 652-1080 s, on H100 hosts of different speeds)
+# script 652-1080 s, on H100 hosts of different speeds), and all three
+# parts halved again (20 / 10 / 10) when phase 21 came
 NP_CHECK_ROUNDS = 2
-NP_FIGURE1_ROUNDS = 40
-NP_SWEEP_ROUNDS = 20
-NP_ENGINE_ROUNDS = 20
+NP_FIGURE1_ROUNDS = 20
+NP_SWEEP_ROUNDS = 10
+NP_ENGINE_ROUNDS = 10
 
 
 def np_phase(torch, dev) -> dict:
@@ -2874,7 +2902,7 @@ def family_phase(torch, dev, T: int) -> tuple:
               flush=True)
         rec = train_phase(torch, name, ["--arch", arch] + argv, T,
                           downlink=downlink, after=plain_check_record,
-                          cfg=cfg, d_want=spec.d)
+                          cfg=cfg, d_want=spec.d, digest=name in RANK_FROM)
         rec.update({"arch": arch, "n_layers": cfg.n_layers,
                     "seconds": time.time() - t0})
         cells.append(rec)
@@ -4684,6 +4712,388 @@ def launch_phase(torch, dev, sweep) -> tuple:
              {"phase": "20c remat", "launches": counts_c}])
 
 
+# phase 21: rounds across ranks -- the mesh's client axis over a
+# torch.distributed group.  (cell, arch (None: the NP task), launcher
+# arguments, compressed downlink, the earlier phase whose run is the cell's
+# one-process run (None: phase 21 runs it)); 21(a) is the reference's
+# ``multidev`` configuration (tests/test_scale.py), 21(b) phase 14(a)'s
+# layout, 21(c) phase 5's mask quant layout, each run by its phase with
+# the same launcher arguments, seeds and rounds
+RANK_CELLS = [
+    ("21a np multidev", None, [], False, None),
+    ("21b mamba2-130m", "mamba2-130m",
+     ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
+      "--participation", "gather", "--comm", "pallas", "--uplink", "topk"],
+     True, "14a mamba2-130m"),
+    ("21c smollm-360m", "smollm-360m",
+     ["--comm", "pallas", "--uplink", "quant"], False,
+     "smollm-360m uplink=quant"),
+]
+# the phases that keep their final state's digest for phase 21
+RANK_FROM = {cell[4] for cell in RANK_CELLS if cell[4] is not None}
+RANK_SHARED = 2                # ranks sharing the one card over gloo
+RANK_NCCL_MAX = 4              # ranks over NCCL, one a card, where 2+ cards
+RANK_TIMEOUT = 900             # s a world's collectives may wait
+RANK_DEVICE = "cuda"
+
+
+def rank_cell_setup(torch, cell):
+    """``(state, batch_fn, loss_pair, fed)`` of a phase-21 cell on the
+    current card, under whatever mesh is active (``init_state`` splits the
+    residual over the ranks)."""
+    from repro_torch import configs, resolve_device
+    _, arch, argv, downlink, _ = cell
+    if arch is not None:
+        state, batch_fn, pair, fed, _ = setup_phase(
+            torch, ["--arch", arch, "--device", RANK_DEVICE] + argv,
+            downlink, configs.get_config(arch))
+        return state, batch_fn, pair, fed
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          ScaleConfig, SwitchConfig)
+    from repro_torch.engine import rounds
+    from repro_torch.tasks import np_classification as npc
+    dev = resolve_device(RANK_DEVICE)
+    fed = FedConfig(n_clients=12, m=4, local_steps=2, lr=0.1,
+                    switch=SwitchConfig(mode="hard", eps=0.35),
+                    participation="gather",
+                    uplink=CompressorConfig(kind="topk", ratio=0.25, block=8),
+                    downlink=CompressorConfig(kind="none"),
+                    scale=ScaleConfig(ef_slots=12))
+    data, _ = npc.make_dataset(torch.Generator().manual_seed(0), 12,
+                               device=dev)
+    state = rounds.init_state(npc.init_params(data.x.shape[-1], dev), fed,
+                              device=dev)
+    return state, (lambda t, g: data), npc.loss_pair, fed
+
+
+def _sha1_all(torch, items: dict) -> dict:
+    """sha1 of the bytes of each tensor or array of ``items``, on the host
+    (a card tensor copied into pinned memory first), four at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().contiguous().reshape(-1).view(torch.uint8)
+            if x.is_cuda:
+                x = torch.empty(x.shape, dtype=torch.uint8,
+                                pin_memory=True).copy_(x)
+            x = x.numpy()
+        return hashlib.sha1(np.ascontiguousarray(x)).hexdigest()
+    with ThreadPoolExecutor(4) as ex:
+        return dict(zip(items, ex.map(one, items.values())))
+
+
+def state_digest(torch, state, hist) -> dict:
+    """sha1 of every field of a round state and of its metrics; the
+    residual's (the dense stack's or the slot store's pool) row by row,
+    keyed by row id: under a rank mesh, the rows this rank holds."""
+    from repro_torch.scale import slots
+    from repro_torch.sharding import partition
+    fields = {f: getattr(state, f) for f in ("w", "x", "wbar_sum",
+                                             "wbar_weight")
+              if getattr(state, f) is not None}
+    fields.update({f"metric_{f}": getattr(hist, f) for f in hist._fields
+                   if getattr(hist, f) is not None})
+    e = state.e_up
+    if isinstance(e, slots.SlotStore):
+        fields.update({f: getattr(e, f) for f in ("owner", "stamp",
+                                                  "weight", "client_slot")})
+        e = e.pool
+    rows = {}
+    if e is not None:
+        local, lo = (e.local, partition.block(e.n)[0]) \
+            if isinstance(e, partition.ClientShard) else (e, 0)
+        rows = {str(lo + i): local[i] for i in range(local.shape[0])}
+    return {"fields": _sha1_all(torch, fields),
+            "rows": _sha1_all(torch, rows)}
+
+
+def rank_expected(fed, runs: int, rank=None) -> tuple:
+    """A rank's (kernel launches, ``loss_pair`` calls) per round: the
+    wire's encode on its rows, the reduce and the downlink replicated; in
+    a gather round ``delta_norm``'s ``segment_rows`` on rank 0 only (it
+    aggregates there).  ``rank`` None: one process."""
+    import torch
+    from repro_torch.engine import participation, rounds, strategies
+    from repro_torch.sharding import partition
+    want = expected_launches(fed, runs)
+    gather = fed.participation == "gather"
+    rows = fed.m if gather else fed.n_clients
+    evals = fed.n_clients
+    if rank is not None:
+        rows = partition.counts(rows)[rank]
+        evals = partition.counts(evals)[rank]
+        if gather and not fed.lean_metrics and rank != 0:
+            want["segment_rows"] -= 1
+    part = participation.finalize(torch.ones(fed.n_clients), None, fed)
+    fused = rounds.fuses(part, strategies.get_strategy(fed.strategy), fed)
+    return want, rows * fed.local_steps + (0 if fused else evals)
+
+
+def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
+    """A phase-21 cell's T rounds on this card through ``run_rounds``, in
+    one process or (under an active rank mesh) as one rank: s/round, peak
+    GB, launches and ``loss_pair`` calls against what the layout demands,
+    the collectives' bytes and host seconds per round, the state's digest
+    (held against ``want_digest`` when given, every field and every row
+    this rank holds), then one more round profiled and, on a rank, one
+    whose every wire-kernel launch is held against its plain version."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.comm import flat
+    from repro_torch.engine import rounds
+    from repro_torch.sharding import collectives, partition
+    ra = partition.rank_axis()
+    state, batch_fn, pair, fed = rank_cell_setup(torch, cell)
+    dev = state.w.device
+    runs = len(flat.wire_layout(state.spec, fed.uplink).runs)
+    want, want_pairs = rank_expected(fed, runs,
+                                     None if ra is None else ra.rank)
+    calls, stamps = [], []
+
+    def loss_pair(params, batch):
+        calls.append(1)
+        return pair(params, batch)
+
+    def timed_batches(t, gen):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return batch_fn(t, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    collectives.reset_stats()
+    state, hist = rounds.run_rounds(state, timed_batches, loss_pair, fed,
+                                    T=T, device=dev)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    coll = collectives.stats()
+    counts = kernels.launch_counts()
+    per_round = [b - a for a, b in zip(stamps, stamps[1:])]
+    rec = {"phase": cell[0] if ra is None else
+           f"{cell[0]} {dist.get_backend()} rank {ra.rank} of {ra.size}",
+           "backend": None if ra is None else dist.get_backend(),
+           "world": 1 if ra is None else ra.size,
+           "rank": None if ra is None else ra.rank,
+           "cards": torch.cuda.device_count(), "device": str(dev),
+           "d": state.spec.d, "comm": fed.comm, "clients": fed.n_clients,
+           "participating": fed.m, "participation": fed.participation,
+           "uplink": fed.uplink.kind, "downlink": fed.downlink.kind,
+           "ef_slots": fed.scale.ef_slots, "rounds": T,
+           "s_per_round": per_round,
+           "s_per_round_after_first": (sum(per_round[1:]) / (T - 1)
+                                       if T > 1 else None),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "f": hist.f.tolist(), "g_hat": hist.g_hat.tolist(),
+           "loss_pair_per_round": len(calls) / T,
+           "loss_pair_per_round_expected": want_pairs,
+           "launches": counts, "launches_per_round_expected": want,
+           "collectives_per_round": {k: v / T for k, v in coll.items()}}
+    digest = state_digest(torch, state, hist)
+    if want_digest is not None:
+        bad = [k for k, v in digest["fields"].items()
+               if want_digest["fields"].get(k) != v]
+        bad += [f"row {k}" for k, v in digest["rows"].items()
+                if want_digest["rows"].get(k) != v]
+        if bad or digest["fields"].keys() != want_digest["fields"].keys():
+            raise AssertionError(f"{rec['phase']}: not bit-equal to one "
+                                 f"process: {bad}")
+        rec["bit_equal_to_one_process"] = True
+        rec["rows_held"] = sorted(int(k) for k in digest["rows"])
+    if not (all(math.isfinite(v) for v in rec["f"])
+            and all(math.isfinite(v) for v in rec["g_hat"])):
+        raise AssertionError(f"{rec['phase']}: non-finite f or g_hat")
+    if len(calls) != want_pairs * T:
+        raise AssertionError(f"{rec['phase']}: loss_pair ran {len(calls)} "
+                             f"times, expected {want_pairs * T}")
+    for kname, cnt in counts.items():
+        if cnt != want.get(kname, 0) * T:
+            raise AssertionError(f"{rec['phase']}: {kname} launched {cnt} "
+                                 f"times, expected {want.get(kname, 0) * T}")
+    collectives.reset_stats()
+    rec["profile"] = profile_round(torch, state, batch_fn, pair, fed, dev,
+                                   rec["s_per_round_after_first"])
+    rec["profile"]["collectives"] = collectives.stats()
+    if ra is not None:
+        rec.update(plain_check_record(state, hist, batch_fn, pair, fed, dev))
+    if cell[1] is None and ra is not None:
+        rec["shard_check"] = rank_shard_check(torch, dev)
+    rec["digest"] = digest
+    del state
+    free_card(torch)
+    return rec
+
+
+def rank_shard_check(torch, dev) -> dict:
+    """The reference's ``multidev`` checks (a), (b) on the card under the
+    rank mesh: ``sharded_take`` from a client-split stack gives the exact
+    rows; ``constrain_fleet`` / ``constrain_store`` split values that
+    gather back unchanged."""
+    from repro_torch.fleet.provision import Fleet
+    from repro_torch.scale import shard, slots
+    from repro_torch.sharding import partition
+    data = torch.arange(12 * 24.0, device=dev).reshape(12, 4, 6)
+    idx = torch.tensor([1, 5, 8, 11], device=dev)
+    taken = shard.sharded_take(partition.constrain_leading(data, "client"),
+                               idx)
+    rows = partition.all_rows(taken, 4)
+    count = torch.full((12,), 4, device=dev)
+    fleet = shard.constrain_fleet(Fleet(data, count, count.cpu()))
+    store = slots.init(12, 12, 16, torch.float32, dev)
+    pool = torch.randn(12, 16, generator=torch.Generator().manual_seed(0))
+    split = shard.constrain_store(store._replace(pool=pool.to(dev)))
+    ok = {"take": torch.equal(rows, data[idx]),
+          "fleet": torch.equal(partition.gather_leading(fleet.data), data)
+          and torch.equal(partition.gather_leading(fleet.count), count),
+          "store": torch.equal(partition.gather_leading(split.pool),
+                               pool.to(dev))
+          and split.owner is store.owner}
+    if not all(ok.values()):
+        raise AssertionError(f"21(a) shard checks: {ok}")
+    return ok
+
+
+def gloo_cuda_probe(torch, dist) -> dict:
+    """Which collectives gloo takes on CUDA tensors in this torch (each
+    tried on a ``uint8`` tensor on the card; ``sharding.collectives``
+    stages every CUDA tensor through the host under gloo either way)."""
+    world = dist.get_world_size()
+    x = torch.full((4,), dist.get_rank(), dtype=torch.uint8, device="cuda")
+    tries = {
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x, [4 // world] * world,
+            [4 // world] * world),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_reduce": lambda: dist.all_reduce(x.clone().to(torch.int32)),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as err:
+            out[name] = str(err).splitlines()[0][:160]
+    return out
+
+
+def rank_main(rank: int, world: int, backend: str, T: int, digests: list,
+              out_dir: str) -> None:
+    """One rank of a phase-21 world (started by ``spawn``): its card, the
+    default group (rendezvous through a file store in ``out_dir``), under
+    gloo the probe of its collectives on CUDA tensors, then each cell of
+    :data:`RANK_CELLS` under the rank mesh, held against its one-process
+    ``digests``; its records to ``out_dir/rank<r>.json``.  A failure raises
+    (and fails the world)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import partition
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend,
+                            init_method=f"file://{out_dir}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    try:
+        out = {"probe": gloo_cuda_probe(torch, dist)
+               if backend == "gloo" else None, "cells": []}
+        for cell, digest in zip(RANK_CELLS, digests):
+            partition.activate_mesh(mesh.make_rank_mesh(RANK_DEVICE))
+            rec = rank_cell_run(torch, cell, T, digest)
+            rec.pop("digest")
+            partition.activate_mesh(None)
+            out["cells"].append(rec)
+        pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        partition.activate_mesh(None)
+        dist.destroy_process_group()
+
+
+def rank_world(backend: str, world: int, T: int, digests: list) -> list:
+    """Spawn a phase-21 world of ``world`` ranks over ``backend`` that runs
+    every cell; each rank's records (a rank that fails raises here).  The
+    ranks' folder (their rendezvous and records) is removed after."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    out_dir = tempfile.mkdtemp(prefix="ranks-")
+    try:
+        mp.start_processes(rank_main, args=(world, backend, T, digests,
+                                            out_dir),
+                           nprocs=world, join=True, start_method="spawn")
+        return [json.loads(pathlib.Path(out_dir, f"rank{r}.json").read_text())
+                for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+ONE_PROCESS_KEYS = ("phase", "d", "rounds", "s_per_round",
+                    "s_per_round_after_first", "peak_mem_gb",
+                    "loss_pair_per_round", "launches", "profile")
+
+
+def rank_phase(torch, dev, T: int, earlier=None) -> tuple:
+    """Phase 21: each cell of :data:`RANK_CELLS` in one process: 21(b) and
+    (c) from the earlier phase the cell names (``earlier``: that phase's
+    record and its final state's digest, T rounds as here), otherwise run
+    here, its memory freed after it (21(a); every cell when phase 21 runs
+    alone); then one world that runs every cell over ranks:
+    :data:`RANK_SHARED` ranks sharing the card over gloo (CUDA tensors,
+    collectives staged through the host) and, where 2 or more cards exist,
+    one rank per card over NCCL (up to :data:`RANK_NCCL_MAX`); every rank
+    bit-equal to the one process.  Returns ``(records, launch
+    records)``."""
+    t_phase = time.time()
+    cards = torch.cuda.device_count()
+    cells, digests, launches, seconds = [], [], [], {}
+    for cell in RANK_CELLS:
+        t0 = time.time()
+        rec = (earlier or {}).get(cell[4])
+        if rec is None:
+            one = rank_cell_run(torch, cell, T)
+        else:
+            if rec["rounds"] != T:
+                raise AssertionError(f"{cell[0]}: {cell[4]} ran "
+                                     f"{rec['rounds']} rounds, not {T}")
+            one = {k: rec[k] for k in ONE_PROCESS_KEYS}
+            one["digest"] = rec.pop("digest")
+        digests.append(one.pop("digest"))
+        print(json.dumps({"rank_cell": cell[0], **one}), flush=True)
+        cells.append({"cell": cell[0], "one_process": one, "worlds": {}})
+        seconds[f"{cell[0]} one process"] = time.time() - t0
+    worlds = [("gloo", RANK_SHARED)]
+    if cards >= 2:
+        worlds.append(("nccl", min(cards, RANK_NCCL_MAX)))
+    probe = None
+    for backend, world in worlds:
+        t0 = time.time()
+        ranks = rank_world(backend, world, T, digests)
+        seconds[f"{backend} x{world}"] = time.time() - t0
+        probe = probe or ranks[0]["probe"]
+        for i, rec in enumerate(cells):
+            rec["worlds"][f"{backend} x{world}"] = [r["cells"][i]
+                                                    for r in ranks]
+            for r in ranks:
+                print(json.dumps({"rank_cell": rec["cell"], **r["cells"][i]}),
+                      flush=True)
+                launches.append({"phase": r["cells"][i]["phase"],
+                                 "launches": r["cells"][i]["launches"]})
+    nccl = None if cards >= 2 else (
+        f"not run: {cards} card; NCCL cannot put two ranks on one card, "
+        "and a one-rank group calls no collective")
+    seconds["phase"] = time.time() - t_phase
+    print(json.dumps({"rank_seconds": seconds, "cards": cards,
+                      "gloo_on_cuda_tensors": probe, "nccl": nccl}),
+          flush=True)
+    return {"cells": cells, "gloo_on_cuda_tensors": probe, "nccl": nccl,
+            "seconds": seconds}, launches
+
+
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
     """One more round (after the counted ones) under ``torch.profiler``:
     the device time by operator and the device's busy share of an
@@ -4703,7 +5113,8 @@ def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3,
-                    help="full-width rounds per training phase")
+                    help="full-width rounds per training phase (phases "
+                    "5-16 and 21)")
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
     args = ap.parse_args(argv)
@@ -4746,7 +5157,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
-    """Phases 3-20 (the sweep of 20(a) already running) and the last
+    """Phases 3-21 (the sweep of 20(a) already running) and the last
     lines."""
     from repro_torch import configs
     from repro_torch.comm import flat
@@ -4763,7 +5174,8 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
     reference_check(torch)
     phases = [train_phase(torch, f"smollm-360m uplink={uplink}",
                           ["--comm", "pallas", "--uplink", uplink],
-                          args.rounds)
+                          args.rounds,
+                          digest=f"smollm-360m uplink={uplink}" in RANK_FROM)
               for uplink in ("quant", "topk")]
     gather_mask_check(torch, dev)
     token_draw_probe(torch, dev, cfg.vocab)
@@ -4814,12 +5226,16 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
     serve_rec, serve_launches = serve_phase(torch, dev)
     state_rec, state_launches = state_serve_phase(torch, dev)
     launch_rec, launch_launches = launch_phase(torch, dev, sweep)
-    # launches on the main paths: each phase's count, and their sum
+    rank_rec, rank_launches = rank_phase(
+        torch, dev, args.rounds,
+        {r["phase"]: r for r in phases + family_rec["cells"]})
+    # launches on the main paths: each phase's count (phase 21's rank by
+    # rank), and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
         + async_launches + scale_launches + family_launches + moe_launches \
         + media_launches + wire_launches + serve_launches + state_launches \
-        + launch_launches
+        + launch_launches + rank_launches
     for name, rec in records.items():
         rec["launches_by_phase"] = {p["phase"]: p["launches"][name]
                                     for p in counted}
@@ -4842,6 +5258,7 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
                                     "serve": serve_rec,
                                     "state_serve": state_rec,
                                     "launch": launch_rec,
+                                    "ranks": rank_rec,
                                     "seconds": time.time() - t_start},
                                    indent=1))
     print(f"total: {time.time() - t_start:.1f} s", flush=True)

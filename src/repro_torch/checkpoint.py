@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.comm import flat
 from repro_torch.comm.payloads import FlatPacked, FlatQuant
+from repro_torch.sharding import partition
 
 # unsigned wire dtypes -> (signed torch view, its numpy dtype, the numpy
 # dtype written)
@@ -137,7 +138,8 @@ def _rebuild(like, prefix: str, data, device):
 
 def save(path: str, tree, metadata: Optional[dict] = None):
     """Atomic checkpoint write: ``<path>.npz`` + ``<path>.json`` (the
-    metadata and the sorted keys)."""
+    metadata and the sorted keys).  Refused under a rank mesh."""
+    partition.refuse_ranks("checkpoints")
     folder = os.path.dirname(path) or "."
     os.makedirs(folder, exist_ok=True)
     arrays = _flatten(tree)
@@ -155,7 +157,8 @@ def save(path: str, tree, metadata: Optional[dict] = None):
 def restore(path: str, like_tree, device=None):
     """Restore ``<path>.npz`` into the structure of ``like_tree`` (shapes
     checked, dtypes and devices taken from it; ``meta`` leaves restore onto
-    ``device``)."""
+    ``device``).  Refused under a rank mesh."""
+    partition.refuse_ranks("checkpoints")
     with np.load(path + ".npz") as data:
         return _rebuild(like_tree, "", data, device)
 

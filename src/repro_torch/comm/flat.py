@@ -29,6 +29,15 @@ mask and gather mode, for the uplink and the primal-EF21 downlink).
   - ``cohorts=k`` makes :meth:`FlatTransport.reduce` two-tier: k edge
     reducers over contiguous cohorts of the stacked rows, their partials
     summed left to right (``ScaleConfig.cohorts``, the uplink only).
+
+Under a rank mesh (``sharding.partition``) each rank encodes its block of
+the round's rows (:meth:`FlatTransport.transmit` and
+:meth:`FlatTransport.transmit_gathered`; the slot store through
+:meth:`FlatTransport.encode_rows`), ``sharding.partition.all_rows``
+all-gathers the messages in row order in the payload domain (values and
+offsets, codes and scales, or the dense rows), and every rank reduces all
+of them as one process does: the same kernels on the same stacked rows,
+so ``v_bar`` is bit-equal to one process's.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from repro_torch.comm.payloads import (FlatPacked, FlatQuant, PACK_BITS,
 from repro_torch.core import compression
 from repro_torch.kernels import ops
 from repro_torch.obs.trace import stage
+from repro_torch.sharding import partition
 
 
 # ---------------------------------------------------------------------------
@@ -577,44 +587,81 @@ class FlatTransport:
             return self._dense(buf)
         return self.codec.pack(buf)
 
-    def flush_messages(self, rows, key=None):
+    def flush_messages(self, rows, key=None, ids=None):
         """The messages of residual rows encoded at a zero residual, the
         reference's ``_ef_clients(zeros_like(rows), rows)`` without its
         residual: ``rows`` (ours, overwritten) become ``0 + rows`` in place,
         which turns their -0.0 into +0.0 as that encode does.  The random
-        kinds draw row i from stream i of ``key`` (the slot store's flush
-        stream)."""
+        kinds draw row i from stream ``ids[i]`` of ``key`` (the slot store's
+        flush stream; default: stream i)."""
+        if not rows.shape[0]:
+            return self.empty_messages(rows.device)
+        ids = range(rows.shape[0]) if ids is None else ids
         with stage("comm.ef_encode"):
-            return self._messages(rows.add_(0.0), key, range(rows.shape[0]))
+            return self._messages(rows.add_(0.0), key, ids)
 
-    def encode(self, e, deltas, mask, key=None):
+    def encode(self, e, deltas, mask, key=None, ids=None):
         """Per-client EF14 encode over the ``[n, d]`` stacks: ``(msgs,
         e_new)``; rows with ``mask == 0`` keep their residual.  The residual
         ``e`` is updated in place (the ``[n, d]`` buffer is the largest
-        state of a round) and returned."""
+        state of a round) and returned.  ``ids`` are the rows' client ids
+        (the random kinds' streams; default: row i is client i)."""
         if self.is_identity:
             return deltas, e
-        msgs, e_stack = self._ef_clients(e, deltas, key,
-                                         range(deltas.shape[0]))
+        ids = range(deltas.shape[0]) if ids is None else ids
+        msgs, e_stack = self.encode_rows(e, deltas, key, ids)
         return msgs, transports.mask_where(mask, e_stack, e, out=e)
 
-    def encode_gathered(self, e, deltas, idx, mask, unique: bool = True,
-                        key=None):
-        """Compute-sparse encode: ``deltas`` holds the m participants' rows
-        (``idx``, sorted); per-client results, random streams included,
-        match :meth:`encode`'s.  The participants' residual rows are
-        written back into ``e`` in place (``index_copy_``: any write wins,
-        so the repeated ids of a short cohort write the same row) and the
-        messages are scattered into the ``[n, ...]`` layout (``unique=False``
-        for a short cohort: see :func:`transports.scatter_rows`)."""
-        n = mask.shape[0]
+    def encode_rows(self, e, deltas, key=None, ids=None):
+        """EF14 over rows whose residuals ``e`` were read out of the state
+        (gathered rows; ``ids`` their client ids, for the random kinds):
+        ``(msgs, e_new)``, the caller writing ``e_new`` back.  No rows (a
+        rank with none to encode) give an empty message stack."""
         if self.is_identity:
-            return transports.scatter_rows(deltas, idx, n, unique), e
-        ids = idx.tolist() if self.needs_key else None
-        msgs, e_stack = self._ef_clients(e.index_select(0, idx), deltas, key,
-                                         ids)
-        e.index_copy_(0, idx, e_stack)
-        return transports.scatter_rows(msgs, idx, n, unique), e
+            return deltas, e
+        if not deltas.shape[0]:
+            return self.empty_messages(deltas.device), e
+        return self._ef_clients(e, deltas, key, ids)
+
+    def empty_messages(self, device):
+        """A message stack of no rows (a rank with no rows to encode)."""
+        def rows(width, dtype):
+            return torch.empty((0, width), dtype=dtype, device=device)
+        if self.is_identity or self.codec is None:
+            return rows(self.spec.d, self.spec.dtype)
+        layout = self.codec.layout
+        if isinstance(self.codec, _QuantCodec):
+            return FlatQuant(rows(layout.W_total, torch.uint32),
+                             rows(layout.NB_total, torch.float32))
+        return FlatPacked(rows(layout.K_total, self.spec.dtype),
+                          rows(layout.K_total, torch.uint16))
+
+    def encode_gathered(self, e, deltas, idx, mask, unique: bool = True,
+                        key=None, ids=None):
+        """Compute-sparse encode: ``deltas`` holds the m participants' rows
+        (``idx``, sorted; ``ids`` the same on the host, read from ``idx``
+        where needed when None); per-client results, random streams
+        included, match :meth:`encode`'s.  The participants' residual rows
+        are read out of ``e`` and written back in place
+        (``scale.shard.take`` / ``put``: any write wins, so the repeated ids
+        of a short cohort write the same row) and the messages are
+        scattered into the ``[n, ...]`` layout (``unique=False`` for a short
+        cohort: see :func:`transports.scatter_rows`).  Under a rank mesh
+        ``deltas`` are this rank's block of the m rows: their residual rows
+        come from the ranks that own them and go back after the EF step,
+        and the messages are all-gathered in row order first."""
+        from repro_torch.scale import shard
+        n, msgs = mask.shape[0], deltas
+        if not self.is_identity:
+            if ids is None and self.needs_key:
+                ids = idx.tolist()
+            lo, hi = partition.block(idx.shape[0])
+            msgs, e_stack = self.encode_rows(
+                shard.take(e, idx, ids), deltas, key,
+                None if ids is None else ids[lo:hi])
+            shard.put(e, idx, e_stack, ids)
+        return transports.scatter_rows(partition.all_rows(msgs, idx.shape[0]),
+                                       idx, n, unique), e
 
     def reduce_single(self, msgs, weights, m) -> torch.Tensor:
         """Single-tier weighted aggregation of stacked messages into
@@ -650,14 +697,23 @@ class FlatTransport:
         return acc
 
     def transmit(self, e, deltas, mask, m, key=None):
-        if self.is_identity:
-            return self.reduce(deltas, mask, m), e
-        msgs, e_out = self.encode(e, deltas, mask, key)
-        return self.reduce(msgs, mask, m), e_out
+        """EF14 and the aggregation over the ``[n, d]`` stacks: ``(v_bar,
+        e_new)``.  Under a rank mesh ``e`` and ``deltas`` are this rank's
+        block of the n rows (``partition.block``): each rank encodes its
+        rows, the messages are all-gathered in row order and every rank
+        reduces all n, as one process does."""
+        n = mask.shape[0]
+        lo, hi = partition.block(n)
+        msgs, e_out = self.encode(e, deltas, mask[lo:hi], key,
+                                  ids=range(lo, hi))
+        return self.reduce(partition.all_rows(msgs, n), mask, m), e_out
 
     def transmit_gathered(self, e, deltas, idx, mask, m,
-                          unique: bool = True, key=None):
-        msgs, e_out = self.encode_gathered(e, deltas, idx, mask, unique, key)
+                          unique: bool = True, key=None, ids=None):
+        """:meth:`encode_gathered`, then the aggregation: ``(v_bar,
+        e_new)``."""
+        msgs, e_out = self.encode_gathered(e, deltas, idx, mask, unique, key,
+                                           ids)
         return self.reduce(msgs, mask, m), e_out
 
     def broadcast(self, w: torch.Tensor, x_new: torch.Tensor,

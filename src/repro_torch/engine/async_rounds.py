@@ -58,6 +58,7 @@ from repro_torch.engine.rounds import FedState, RoundMetrics
 from repro_torch.fleet import provision, samplers
 from repro_torch.obs import bus as obs_bus
 from repro_torch.obs.trace import stage
+from repro_torch.sharding import partition
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +184,7 @@ def init_buffer(state: FedState, cfg) -> Optional[StaleBuffer]:
     for its model; None when the buffer is disabled."""
     if not cfg.async_.enabled:
         return None
+    partition.refuse_ranks("asynchronous rounds (AsyncConfig.enabled)")
     n, dev = cfg.n_clients, state.w.device
     struct = wire_msg_struct(state.spec, cfg)
     if isinstance(struct, torch.Tensor):
@@ -290,6 +292,7 @@ def async_round_step(state: FedState, buf: Optional[StaleBuffer], batches,
         new_state, mets = rounds.round_step(state, batches, loss_pair, cfg,
                                             device=device)
         return new_state, buf, _nominal_metrics(mets, cfg)
+    partition.refuse_ranks("asynchronous rounds (AsyncConfig.enabled)")
     dev = resolve_device(device)
     if state.w.device != dev:
         raise ValueError(f"async_round_step on {dev}: the state lives on "

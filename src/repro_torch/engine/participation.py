@@ -14,6 +14,16 @@ Two executions of the same sample S_t (m of n clients):
 The indices are computed on the CPU, where the samplers draw the mask, and
 move to the round's device with it: the round never waits on the device
 for them.
+
+Under a rank mesh (``sharding.partition``) the round's rows -- all n in
+mask mode, the m sampled in gather mode -- split into contiguous blocks of
+the row list over the ranks (:func:`gather` gives a rank its block, through
+``scale.shard.take`` from the ranks that own the rows).  :func:`transmit`
+then runs the uplink rank by rank: each encodes its block (the dense
+residual's rows brought from their owners and sent back after the EF
+step), the messages are all-gathered in row order and every rank reduces
+all of them as one process does.  :func:`aggregate_norm` gives every rank
+one process's ``delta_norm``.
 """
 from __future__ import annotations
 
@@ -23,6 +33,8 @@ import torch
 
 from repro_torch.comm import transports
 from repro_torch.fleet.partitions import leaves_of, rebuild
+from repro_torch.sharding import collectives, partition
+from repro_torch.sharding.partition import ClientShard
 
 MODES = ("mask", "gather")
 
@@ -82,11 +94,28 @@ def finalize(mask: torch.Tensor, weights: Optional[torch.Tensor], cfg,
 def gather(part: Participation, batches):
     """Participants' rows of a stacked ``[n, ...]`` batch (a NamedTuple, a
     plain tuple or a single tensor; ``[m, ...]`` in sorted-index order);
-    identity in mask mode."""
+    identity in mask mode.  Under a rank mesh, this rank's block of those
+    rows (:func:`own_rows` in mask mode)."""
     if part.idx is None:
+        return own_rows(batches)
+    from repro_torch.scale import shard
+    return rebuild(batches, shard.take(leaves_of(batches), part.idx,
+                                       part.host_idx))
+
+
+def own_rows(batches):
+    """Under a rank mesh, this rank's block of the clients of a stacked
+    ``[n, ...]`` batch (a :class:`ClientShard` leaf's own rows, a whole
+    leaf's slice); the batch itself in one process."""
+    if partition.rank_axis() is None:
         return batches
-    return rebuild(batches, [x.index_select(0, part.idx)
-                             for x in leaves_of(batches)])
+
+    def one(x):
+        if isinstance(x, ClientShard):
+            return x.local
+        lo, hi = partition.block(x.shape[0])
+        return x[lo:hi]
+    return rebuild(batches, [one(x) for x in leaves_of(batches)])
 
 
 def scatter_rows(part: Participation, rows):
@@ -108,6 +137,25 @@ def aggregate(part: Participation, deltas: torch.Tensor) -> torch.Tensor:
     if part.idx is None:
         return transports.masked_mean(deltas, w, part.m)
     return transports.masked_mean(scatter_rows(part, deltas), w, part.m)
+
+
+def aggregate_norm(part: Participation, deltas: torch.Tensor, norm):
+    """``norm(aggregate(part, deltas))`` (``rounds``' ``delta_norm``).
+    Under a rank mesh every rank's block of the delta rows goes to rank 0,
+    which aggregates them as one process does and broadcasts the norm: the
+    rows cross ranks once, ``(W - 1) / W`` of the ``[rows, d]`` stack, and
+    rank 0 holds them all."""
+    if partition.rank_axis() is None:
+        return norm(aggregate(part, deltas))
+    rows = part.n if part.idx is None else part.m
+    me = partition.rank_axis().rank
+    sizes = partition.counts(rows)
+    full = collectives.exchange_rows(
+        deltas, [deltas.shape[0]] + [0] * (len(sizes) - 1),
+        sizes if me == 0 else [0] * len(sizes))
+    out = norm(aggregate(part, full)) if me == 0 else \
+        torch.zeros((), dtype=torch.float32, device=deltas.device)
+    return collectives.broadcast(out, 0)
 
 
 def compose_weights(part: Participation, factor: torch.Tensor
@@ -159,9 +207,13 @@ def transmit(transport, e, deltas, part: Participation, key=None, *, t):
     if isinstance(e, slots.SlotStore):
         return slots.transmit(transport, e, deltas, part, t, key=key)
     w = agg_weights(part)
+    # both paths update the residual in place (under a rank mesh, the
+    # ClientShard's rows), so ``e`` is the new residual
     if part.idx is None:
-        v_bar, e_new = transport.transmit(e, deltas, w, part.m, key=key)
+        v_bar, _ = transport.transmit(partition.local(e), deltas, w, part.m,
+                                      key=key)
     else:
-        v_bar, e_new = transport.transmit_gathered(
-            e, deltas, part.idx, w, part.m, unique=not part.short, key=key)
-    return v_bar, e_new, None
+        v_bar, _ = transport.transmit_gathered(
+            e, deltas, part.idx, w, part.m, unique=not part.short, key=key,
+            ids=part.host_idx.tolist())
+    return v_bar, e, None

@@ -57,6 +57,21 @@ reference's chunked client vmap, a bound on its activation memory: the port
 runs the clients one after another whatever its value, and per-client
 results do not depend on it (the reference's own law), so every chunk gives
 the same trajectory.
+
+Across ranks: under ``sharding.partition.activate_mesh`` with a rank mesh
+(``launch.mesh.make_rank_mesh`` over the caller's default
+``torch.distributed`` group), the same functions run one round on every
+rank.  The population state is split into contiguous blocks of clients
+(``init_state``: the dense residual, the slot store's pool; a fleet under
+``scale.shard.constrain_fleet``), and the round's rows (all n in mask
+mode, the m sampled in gather mode) into contiguous blocks of the row
+list.  Each rank evaluates and steps its own rows; the per-row ``(f_j,
+g_j)`` and the wire messages are all-gathered in row order
+(``partition.all_rows``), and the
+aggregates, sigma, the reduce, the server step and the downlink run
+replicated.  Every rank ends each round with one process's ``w``, ``x``,
+averaged-iterate sums and metrics, bit for bit.  The telemetry bus,
+asynchronous rounds, checkpoints and the wire runtime refuse a rank mesh.
 """
 from __future__ import annotations
 
@@ -76,6 +91,7 @@ from repro_torch.obs import bus as obs_bus
 from repro_torch.obs.trace import stage
 from repro_torch.optim.sgd import axpy
 from repro_torch.scale import slots as slot_store
+from repro_torch.sharding import partition
 
 
 class FedState(NamedTuple):
@@ -143,8 +159,8 @@ def init_state(params, cfg, device="cuda") -> FedState:
             e_up = slot_store.init(cfg.n_clients, cfg.scale.ef_slots,
                                    spec.d, spec.dtype, dev)
         else:
-            e_up = torch.zeros((cfg.n_clients, spec.d), dtype=spec.dtype,
-                               device=dev)
+            e_up = partition.client_zeros((cfg.n_clients, spec.d),
+                                          spec.dtype, dev)
     return FedState(
         # x starts as w itself: no round updates either buffer in place
         w=w, x=w if downlink.tracks_center else None, e_up=e_up,
@@ -189,6 +205,10 @@ def eval_clients(params, batches, loss_pair: Callable, n: int):
     with torch.no_grad():
         pairs = [loss_pair(params, client_batch(batches, j))
                  for j in range(n)]
+    if not pairs:       # a rank with no rows under a rank mesh (the
+        # gather of the rows gives it rank 0's dtype)
+        z = torch.empty((0,), dtype=torch.float32)
+        return z, z
     return (torch.stack([p[0] for p in pairs]),
             torch.stack([p[1] for p in pairs]))
 
@@ -202,6 +222,19 @@ def _eval_aggregates(part, f_ev, g_ev, sparse_eval: bool, m: int):
     g_hat = torch.sum(w_agg * g_ev) / m
     f_part = torch.sum(w_agg * f_ev) / m
     return f_part, g_hat, g_ev.mean(), f_ev.mean()
+
+
+def _eval_rows(pairs, total: int, device):
+    """The per-row ``(f_j, g_j)`` of the eval as two ``[rows]`` stacks:
+    under a rank mesh this rank's block is all-gathered into the ``total``
+    rows."""
+    if not pairs:       # no rows here: the gather gives rank 0's dtype
+        z = torch.empty((0,), dtype=torch.float32, device=device)
+        f_ev = g_ev = z
+    else:
+        f_ev = torch.stack([f.detach() for f, _ in pairs])
+        g_ev = torch.stack([g.detach() for _, g in pairs])
+    return partition.all_rows((f_ev, g_ev), total)
 
 
 def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
@@ -256,8 +289,8 @@ def _fused_eval(wf, spec, strat, local_b, loss_pair: Callable, cfg, part,
         pairs.append(loss_pair(flat.unflatten(spec, leaf),
                                client_batch(local_b, j)))
         leaves.append(leaf)
-    f_ev = torch.stack([f.detach() for f, _ in pairs])
-    g_ev = torch.stack([g.detach() for _, g in pairs])
+    f_ev, g_ev = _eval_rows(pairs, cfg.m if sparse_eval else cfg.n_clients,
+                            wf.device)
     aggs = _eval_aggregates(part, f_ev, g_ev, sparse_eval, cfg.m)
     sigma = strat.switch_weight(aggs[1], cfg)
 
@@ -282,7 +315,8 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
     participants, and only their minibatches are provisioned), and fuses
     with the first local step where :func:`fuses` says so.  Returns
     ``(f_part, g_hat, g_full, f_full, sigma, deltas)``; ``deltas`` is
-    ``[n, d]`` or ``[m, d]``."""
+    ``[n, d]`` or ``[m, d]`` (under a rank mesh, this rank's block of
+    them; the eval's rows are gathered before the aggregates)."""
     sparse_eval = part.idx is not None and not cfg.full_eval
     pre_gathered = fleet is not None and sparse_eval
     if fleet is not None:
@@ -298,9 +332,13 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
                                              loss_pair, cfg, part,
                                              sparse_eval)
         else:
-            eval_b = local_b if sparse_eval else batches
+            eval_b = local_b if sparse_eval else \
+                participation.own_rows(batches)
             f_ev, g_ev = eval_clients(flat.unflatten(spec, wf), eval_b,
                                       loss_pair, n_rows(eval_b))
+            f_ev, g_ev = partition.all_rows(
+                (f_ev.to(wf.device), g_ev.to(wf.device)),
+                cfg.m if sparse_eval else cfg.n_clients)
             aggs = _eval_aggregates(part, f_ev, g_ev, sparse_eval, cfg.m)
             sigma, first = strat.switch_weight(aggs[1], cfg), None
     with stage("round.local_deltas"):
@@ -331,7 +369,8 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
                 if state.wbar_sum is not None else None)
     dev = wf.device
     delta_norm = torch.zeros((), device=dev) if cfg.lean_metrics else \
-        flat.tree_norm(spec, participation.aggregate(part, deltas))
+        participation.aggregate_norm(part, deltas,
+                                     lambda v: flat.tree_norm(spec, v))
     telemetry = None
     if cfg.obs.enabled:
         with stage("round.telemetry"):

@@ -19,6 +19,13 @@ device and the minibatch is one index gather per leaf.
 ``FleetConfig.batch_size <= 0`` returns the full shards; ``redraw``
 selects whether the key advances with the round (fresh draws) or stays
 pinned to the run seed (one fixed subsample, drawn the same every round).
+
+Under a rank mesh (``sharding.partition``; the fleet split over the ranks
+by ``scale.shard.constrain_fleet``) :func:`minibatch` gives each rank the
+rows it works on: its own clients' minibatches, or its block of the m
+sampled clients', each drawn on the rank that owns the client's shard (the
+same CPU stream as in one process) and moved to this rank
+(``scale.shard.take``).
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 from repro_torch.comm.transports import _mix64
 from repro_torch.fleet import partitions
 from repro_torch.fleet.partitions import leaves_of, rebuild, sum_f32
+from repro_torch.sharding import partition
 
 # seed word separating the provisioning streams from the wire's ("prov")
 PROVISION_TAG = 0x70726F76
@@ -137,7 +145,10 @@ def minibatch(fleet: Fleet, key: ProvisionKey, cfg,
     sorted participant indices of gather mode, on the CPU) provisions only
     those m (``[m, b, ...]``), drawing for each the rows provisioning all
     n would draw.  ``cfg.fleet.batch_size <= 0`` returns the full shards
-    (those of ``idx`` when given)."""
+    (those of ``idx`` when given).  Under a rank mesh, see
+    :func:`_minibatch_ranked`."""
+    if partition.rank_axis() is not None:
+        return _minibatch_ranked(fleet, key, cfg, idx)
     b = cfg.fleet.batch_size
     leaves = leaves_of(fleet.data)
     dev = leaves[0].device
@@ -150,3 +161,34 @@ def minibatch(fleet: Fleet, key: ProvisionKey, cfg,
     rows = draw_rows(key, fleet.host_count, ids, b).to(dev)
     cids = torch.tensor(ids, dtype=torch.int64).to(dev)[:, None]
     return rebuild(fleet.data, [a[cids, rows] for a in leaves])
+
+
+def _minibatch_ranked(fleet: Fleet, key: ProvisionKey, cfg,
+                      idx: Optional[torch.Tensor] = None):
+    """:func:`minibatch` under a rank mesh.  ``idx=None``: this rank's own
+    block of clients (``partition.block(n)``), as ``partition.ClientShard``
+    leaves of ``[n, b, ...]``; ``idx``: this rank's block of the sampled
+    rows (``[hi - lo, b, ...]``), each client's rows drawn and read on the
+    rank that owns its shard and moved here."""
+    from repro_torch.scale import shard
+    b = cfg.fleet.batch_size
+    n = n_clients(fleet)
+
+    def fetch(src, rows, ids):
+        if b <= 0:
+            return src.index_select(0, rows)
+        if not ids:
+            return src[:0, :1].expand((0, b) + tuple(src.shape[2:]))
+        drawn = draw_rows(key, fleet.host_count, ids, b).to(src.device)
+        return src[rows[:, None], drawn]
+    if idx is not None:
+        return rebuild(fleet.data, shard.take(leaves_of(fleet.data), idx,
+                                              fetch=fetch))
+    lo, hi = partition.block(n)
+    own = list(range(lo, hi))
+
+    def one(a):
+        src = a.local if isinstance(a, partition.ClientShard) else a[lo:hi]
+        rows = torch.arange(hi - lo, device=src.device)
+        return partition.ClientShard(fetch(src, rows, own), n)
+    return rebuild(fleet.data, [one(a) for a in leaves_of(fleet.data)])

@@ -8,6 +8,12 @@ devices present and raises the reference's ``RuntimeError`` when there are
 fewer.  The dry run builds the same shapes over :func:`placeholder_devices`
 (the port's counterpart of the reference's forced host devices): they
 lower nothing and run nothing, they only size each device's share.
+
+:func:`make_rank_mesh` lays the ranks of the default ``torch.distributed``
+group (started by the caller) out as a mesh: each entry is a
+:class:`RankDevice`, a rank and the device it computes on.  Under
+``sharding.partition.activate_mesh`` such a mesh runs the engine's rounds
+across the ranks (the client axis only: every other axis has size 1).
 """
 from __future__ import annotations
 
@@ -23,6 +29,55 @@ class Mesh(NamedTuple):
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+
+class RankDevice(NamedTuple):
+    """One entry of a rank mesh: a process of the default group and its
+    device (``cuda:<local rank>``, or ``cpu``)."""
+    rank: int
+    device: str
+
+
+def is_rank_mesh(mesh) -> bool:
+    """Whether ``mesh``'s entries are ranks (:func:`make_rank_mesh`)."""
+    return mesh is not None and mesh.devices.size > 0 and all(
+        isinstance(e, RankDevice) for e in mesh.devices.flat)
+
+
+def rank_device(device: str, rank: int) -> str:
+    """The device of ``rank`` under ``device`` (``cuda`` or ``cpu``): its
+    local rank's card, ranks past the card count sharing cards round robin
+    (two ranks on one card under gloo), or the CPU."""
+    import torch
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "cpu"
+    if kind != "cuda":
+        raise ValueError(f"a rank mesh runs on cuda or cpu, not {device!r}")
+    count = torch.cuda.device_count()
+    if not count:
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "for a mesh of CPU ranks")
+    return f"cuda:{rank % count}"
+
+
+def make_rank_mesh(device: str = "cuda", shape=None,
+                   axes=("data",)) -> Mesh:
+    """The world's ranks as a mesh of :class:`RankDevice` entries in rank
+    order (default: one axis, ``data``, the reference's client axis,
+    holding every rank).  Needs an initialised default group; on one host
+    a rank's local rank is its rank."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_rank_mesh needs the default process group: "
+                           "call torch.distributed.init_process_group first")
+    world = dist.get_world_size()
+    shape = (world,) if shape is None else tuple(shape)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} against axes {axes}")
+    n = int(np.prod(shape))
+    return _mesh([RankDevice(r, rank_device(device, r)) for r in range(n)],
+                 shape, axes)
 
 
 def placeholder_devices(n: int) -> list:

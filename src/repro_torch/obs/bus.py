@@ -13,13 +13,16 @@ With ``ObsConfig.enabled=False`` the ``RoundMetrics.telemetry`` field is
 None and the round computes nothing here.  Enabled, telemetry is
 observation only: the state trajectory is bit-identical to the disabled
 run.  No counter builds an ``[n, d]`` temporary (the norms are
-``torch.linalg.vector_norm`` reductions).
+``torch.linalg.vector_norm`` reductions).  Under a rank mesh the bus
+raises ``NotImplementedError`` (not ported across ranks yet).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.sharding import partition
 
 _TINY = 1e-30
 
@@ -89,6 +92,7 @@ def round_telemetry(cfg, deltas, e_up, x_new, wf, w_new_f, g_hat, sigma,
     are reductions, so the state is untouched).  ``slot_stats`` is the
     round's :class:`repro_torch.scale.slots.SlotStats`, None for a dense
     residual."""
+    partition.refuse_ranks("the telemetry bus (ObsConfig.enabled)")
     dev = wf.device
 
     def const(v):
@@ -133,6 +137,7 @@ def staleness_hist(occupied: torch.Tensor, age: torch.Tensor,
 def ring_init(cfg, device):
     """The sigma ring riding the drive-loop carry when telemetry is on: a
     ``[window]`` float32 buffer on ``device`` and the rounds seen."""
+    partition.refuse_ranks("the telemetry bus (ObsConfig.enabled)")
     w = max(1, int(cfg.obs.window))
     return (torch.zeros((w,), dtype=torch.float32, device=device), 0)
 

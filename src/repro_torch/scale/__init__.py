@@ -6,7 +6,8 @@
   flush in place of the dense ``[n, d]`` ``FedState.e_up``
   (``ScaleConfig.ef_slots``);
 * :mod:`repro_torch.scale.shard` -- client-axis sharding of
-  population-sized state: identities and plain row gathers on one card;
+  population-sized state: identities and plain row gathers in one
+  process, row moves between the ranks under a rank mesh;
 * two-tier payload aggregation lives in
   :class:`repro_torch.comm.flat.FlatTransport` (``ScaleConfig.cohorts``).
 """

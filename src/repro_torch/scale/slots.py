@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.comm import transports
 from repro_torch.engine import participation
+from repro_torch.sharding import partition
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -96,11 +97,12 @@ def validate(cfg) -> None:
 
 
 def init(n_clients: int, cap: int, d: int, dtype, device) -> SlotStore:
-    """An empty store on ``device``: every slot free, no client assigned."""
+    """An empty store on ``device``: every slot free, no client assigned
+    (under a rank mesh the pool holds this rank's block of slots)."""
     def full(shape, v, dt):
         return torch.full(shape, v, dtype=dt, device=device)
     return SlotStore(
-        pool=torch.zeros((cap, d), dtype=dtype, device=device),
+        pool=partition.client_zeros((cap, d), dtype, device),
         owner=full((cap,), -1, torch.int32),
         stamp=full((cap,), -1, torch.int32),
         weight=torch.zeros((cap,), dtype=torch.float32, device=device),
@@ -109,8 +111,10 @@ def init(n_clients: int, cap: int, d: int, dtype, device) -> SlotStore:
 
 def resident_bytes(store: SlotStore) -> int:
     """Bytes the store holds (the ``[n]`` ``client_slot`` index is its only
-    population term: 4 bytes per client, not 4*d)."""
-    return sum(x.numel() * x.element_size() for x in store)
+    population term: 4 bytes per client, not 4*d); under a rank mesh, this
+    rank's share."""
+    return sum(x.numel() * x.element_size()
+               for x in map(partition.local, store))
 
 
 def lookup(store: SlotStore, idx: torch.Tensor):
@@ -190,6 +194,8 @@ def encode(uplink, store: SlotStore, deltas: torch.Tensor,
     :class:`repro_torch.comm.transports.WireKey` (the flush draws from its
     ``FLUSH`` stream).  The pool is updated in place; the returned store
     holds it."""
+    if partition.rank_axis() is not None:
+        return _encode_ranked(uplink, store, deltas, part, t, key)
     idx, n, m = part.idx, part.n, part.m
     cap = store.pool.shape[0]
     w_m = participation.agg_weights(part).index_select(0, idx)
@@ -203,17 +209,10 @@ def encode(uplink, store: SlotStore, deltas: torch.Tensor,
     msgs, e_new = uplink._ef_clients(e_part, deltas, key, ids)
 
     # -- slot allocation, eviction and the flush (reads the old pool) -----
-    first = first_copies(idx) if part.short else None
-    slots = allocate(store, cur, t, first)
-    sl = slots.long()
-    old_owner = store.owner.index_select(0, sl)
-    evict = (cur < 0) & (old_owner >= 0)
-    if first is not None:
-        evict = evict & _leads(first)
-    w_orph = torch.where(evict, store.weight.index_select(0, sl), 0.0)
+    c = _claim(store, cur, part, t)
     v_flush = None
     if cap < n:     # static: at cap >= n a free slot always ranks first
-        v_flush = _flush(uplink, store.pool, sl, evict, w_orph, m, key)
+        v_flush = _flush(uplink, store.pool, c.sl, c.evict, c.w_orph, m, key)
 
     # -- the m messages into the full [n] layout ---------------------------
     full = transports.scatter_rows(msgs, idx, n, unique=not part.short)
@@ -221,7 +220,40 @@ def encode(uplink, store: SlotStore, deltas: torch.Tensor,
     # -- store update: hits rewrite their slot, misses claim theirs; the
     #    evicted owners lose their slot before the sampled ids take theirs;
     #    a short cohort's copies write the same values to the same entries -
-    store.pool.index_copy_(0, sl, e_new.to(store.pool.dtype))
+    store.pool.index_copy_(0, c.sl, e_new.to(store.pool.dtype))
+    new_store, stats = _update_index(store, idx, c, w_m, t, n, m)
+    return full, new_store, v_flush, stats
+
+
+class _Claim(NamedTuple):
+    """A round's slot allocation: the ``[m]`` slots (int32 and int64), the
+    owners they had, which of them this round evicts and the HT weights of
+    the evicted orphans."""
+    slots: torch.Tensor
+    sl: torch.Tensor
+    old_owner: torch.Tensor
+    evict: torch.Tensor
+    w_orph: torch.Tensor
+
+
+def _claim(store: SlotStore, cur: torch.Tensor, part, t) -> _Claim:
+    """Allocation and eviction for the sample of ``part`` (``cur``: its
+    current slots, from :func:`lookup`)."""
+    first = first_copies(part.idx) if part.short else None
+    slots = allocate(store, cur, t, first)
+    sl = slots.long()
+    old_owner = store.owner.index_select(0, sl)
+    evict = (cur < 0) & (old_owner >= 0)
+    if first is not None:
+        evict = evict & _leads(first)
+    w_orph = torch.where(evict, store.weight.index_select(0, sl), 0.0)
+    return _Claim(slots, sl, old_owner, evict, w_orph)
+
+
+def _update_index(store, idx, c: _Claim, w_m, t, n: int, m: int):
+    """The index vectors after a round's writes (the pool already written)
+    and the round's :class:`SlotStats`: ``(store, stats)``."""
+    slots, sl, old_owner, evict, w_orph = c
     owner = store.owner.index_copy(0, sl, idx.to(torch.int32))
     stamp = store.stamp.index_copy(
         0, sl, torch.full((m,), t, dtype=torch.int32, device=idx.device))
@@ -237,6 +269,44 @@ def encode(uplink, store: SlotStore, deltas: torch.Tensor,
         occupancy=torch.sum((owner >= 0).to(torch.float32)),
         evictions=torch.sum(evict.to(torch.float32)),
         flush_weight=torch.sum(w_orph))
+    return new_store, stats
+
+
+def _encode_ranked(uplink, store: SlotStore, deltas: torch.Tensor,
+                   part: participation.Participation, t, key=None):
+    """:func:`encode` under a rank mesh: ``deltas`` are this rank's block
+    of the m sampled rows, ``store.pool`` a ``partition.ClientShard``.  The
+    slot indices are read on the host (every rank holds them) to route the
+    rows; allocation, eviction and the index update run replicated."""
+    from repro_torch.scale import shard
+    idx, n, m = part.idx, part.n, part.m
+    cap = store.pool.shape[0]
+    w_m = participation.agg_weights(part).index_select(0, idx)
+    ids = part.host_idx.tolist()
+    lo, hi = partition.block(m)
+
+    cur = store.client_slot.index_select(0, idx)
+    cur_h = cur.tolist()
+    e_part = shard.take(store.pool, cur, cur_h,
+                        valid=[c >= 0 for c in cur_h])
+    msgs, e_new = uplink.encode_rows(e_part, deltas, key, ids[lo:hi])
+
+    c = _claim(store, cur, part, t)
+    sl_h = c.sl.tolist()
+    v_flush = None
+    if cap < n:
+        orphan = shard.take(store.pool, c.sl, sl_h,
+                            valid=c.evict.tolist())
+        fkey = None if key is None else key._replace(
+            direction=transports.FLUSH)
+        fmsgs = uplink.flush_messages(orphan, fkey, ids=range(lo, hi))
+        v_flush = uplink.reduce_single(partition.all_rows(fmsgs, m),
+                                       c.w_orph, m)
+
+    full = transports.scatter_rows(partition.all_rows(msgs, m), idx, n,
+                                   unique=not part.short)
+    shard.put(store.pool, c.sl, e_new.to(store.pool.dtype), sl_h)
+    new_store, stats = _update_index(store, idx, c, w_m, t, n, m)
     return full, new_store, v_flush, stats
 
 

@@ -90,6 +90,7 @@ from repro_torch.engine import async_rounds, participation, rounds, strategies
 from repro_torch.engine.async_rounds import StaleBuffer
 from repro_torch.fleet.partitions import leaves_of, rebuild
 from repro_torch.obs import log as obs_log
+from repro_torch.sharding import partition
 from repro_torch.wire import bootstrap, frames
 from repro_torch.wire import worker as worker_mod
 from repro_torch.wire.supervisor import ChaosProcess, Supervisor, WireFaultConfig
@@ -1034,6 +1035,7 @@ def wire_drive(fed: FedConfig, T: int, workers: int = 2, *,
     live workers mid-phase with ``chaos_seed`` determinism.  Both sides'
     connect/accept run under the bounded-backoff schedule; the accept waits
     surface in ``stats.accept_waits`` and the sink's opening record."""
+    partition.refuse_ranks("the wire runtime")
     if spawn not in ("process", "thread"):
         raise ValueError(f"spawn must be 'process' or 'thread', "
                          f"got {spawn!r}")

@@ -1292,3 +1292,33 @@ def test_prefill_and_decode_on_card_match_cpu(dev, arch):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
+
+# rounds across ranks: reduced smollm, 2 rounds, each case in this process
+# and then in a world of 2 ranks sharing the card over gloo
+RANK_CARD_CASES = ["pallas-topk-gather", "pallas-quant-mask",
+                   "slots-evict-topk", "dense-topk-mask"]
+
+
+def test_two_ranks_sharing_the_card_equal_one_process(dev, tmp_path):
+    """Two ranks sharing the card over gloo (CUDA tensors; the collectives
+    staged through pinned host memory) run each case of
+    ``RANK_CARD_CASES`` under a rank mesh: every rank ends with the one
+    process's state, metrics and residual, bit for bit."""
+    import torch_multidev_world as world_mod
+    want = {name: world_mod.run_case(name, "cuda")
+            for name in RANK_CARD_CASES}
+    torch.cuda.empty_cache()
+    ranks = world_mod.spawn_world(2, str(tmp_path), timeout_s=600,
+                                  device="cuda", names=RANK_CARD_CASES)
+    for r, res in enumerate(ranks):
+        assert res["collectives"]["bytes_out"] > 0
+        for name in RANK_CARD_CASES:
+            got = res["cases"][name]
+            assert got.keys() == want[name].keys(), name
+            for key, v in want[name].items():
+                if isinstance(v, torch.Tensor):
+                    assert torch.equal(got[key].reshape(-1).view(
+                        torch.uint8), v.reshape(-1).view(torch.uint8)), \
+                        f"rank {r} {name} {key}"
+                else:
+                    assert got[key] == v, f"rank {r} {name} {key}"

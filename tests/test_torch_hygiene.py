@@ -128,14 +128,16 @@ def test_not_ported_paths_raise():
 
 
 def test_new_modules_are_scanned():
-    """The async engine, obs, scale-out, sharding, checkpoint and launch
-    tooling modules are among the files the import scan reads."""
+    """The async engine, obs, scale-out, sharding (its collectives too),
+    checkpoint and launch tooling modules are among the files the import
+    scan reads."""
     scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("engine/async_rounds.py", "obs/__init__.py", "obs/bus.py",
                 "obs/log.py", "obs/sinks.py", "obs/trace.py",
                 "checkpoint.py", "scale/__init__.py", "scale/slots.py",
                 "scale/shard.py", "sharding/__init__.py",
-                "sharding/partition.py", "core/packing.py",
+                "sharding/partition.py", "sharding/collectives.py",
+                "core/packing.py",
                 "core/error_feedback.py", "models/mamba2.py",
                 "models/griffin.py", "configs/qwen3_4b.py",
                 "configs/minitron_4b.py", "configs/gemma3_4b.py",

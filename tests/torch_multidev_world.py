@@ -1,0 +1,335 @@
+"""The worlds of ``tests/test_torch_multidev.py``: gloo process groups of W
+CPU ranks (started by ``spawn``, rendezvous through a ``FileStore``) that
+run the port's rounds under a rank mesh, and the same rounds in one
+process.  This module imports no JAX: the ranks load it by name.
+
+Every case is reduced smollm-360m (seq 16, batch 2) for 2 rounds, except
+``np-multidev``: the reference's ``multidev`` configuration
+(``tests/test_scale.py``: NP, N 12, M 4, gather, hard switch 0.35, top-k
+0.25 block 8 up, ``ef_slots`` 12, E 2) for 3 rounds on recorded cohorts,
+from the reference's dataset (written to ``np.npz`` by the test).
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import time
+
+import numpy as np
+import torch
+
+SMOLLM = ["--reduced", "--seq", "16"]
+MASK = ["--clients", "4"]
+GATHER = ["--clients", "6", "--participating", "3", "--participation",
+          "gather"]
+ROUNDS = 2
+# a short cohort (2 of m = 3 sampled) in round 0, a full one in round 1
+SHORT_MASKS = [[0, 1, 0, 0, 1, 0], [1, 0, 1, 0, 0, 1]]
+NP_N, NP_M, NP_ROUNDS = 12, 4, 3
+NP_COHORTS = [[1, 5, 8, 11], [0, 2, 3, 4], [6, 7, 9, 10]]
+
+
+def _cases() -> dict:
+    out = {}
+    for comm in ("dense", "packed", "pallas"):
+        for kind in ("topk", "quant"):
+            for mode, argv in (("mask", MASK), ("gather", GATHER)):
+                out[f"{comm}-{kind}-{mode}"] = dict(
+                    argv=argv + ["--comm", comm, "--uplink", kind],
+                    downlink=True)
+    out.update({
+        # n = 6 over W ranks: blocks of 3/3 or 2/2/1/1; all 6 fused
+        "mask-6-of-6-quant": dict(argv=["--clients", "6", "--comm",
+                                        "pallas", "--uplink", "quant"]),
+        # partial participation in mask mode: the separate eval
+        "mask-3-of-6-topk": dict(argv=["--clients", "6", "--participating",
+                                       "3", "--comm", "pallas", "--uplink",
+                                       "topk"], downlink=True),
+        # the fused eval of the m sampled
+        "gather-sparse-eval": dict(argv=GATHER + ["--comm", "pallas",
+                                                  "--uplink", "topk"],
+                                   downlink=True, fed={"full_eval": False}),
+        "short-cohort": dict(argv=GATHER + ["--comm", "pallas", "--uplink",
+                                            "topk"], downlink=True,
+                             masks=SHORT_MASKS),
+        "short-cohort-slots": dict(argv=GATHER + ["--comm", "pallas",
+                                                  "--uplink", "quant",
+                                                  "--ef-slots", "4"],
+                                   masks=SHORT_MASKS),
+        "fleet-weighted": dict(argv=GATHER + ["--comm", "pallas", "--uplink",
+                                              "topk"], downlink=True,
+                               fleet="weighted"),
+        # full-shard provisioning (batch_size 0) of a fleet of one batch
+        "fleet-full-shards": dict(argv=GATHER + ["--comm", "pallas",
+                                                 "--uplink", "quant"],
+                                  fleet="stacked"),
+        "slots-evict-topk": dict(argv=GATHER + ["--comm", "pallas",
+                                                "--uplink", "topk",
+                                                "--ef-slots", "4"],
+                                 downlink=True),
+        # rand-k: the per-client streams and the flush's stream ids
+        "slots-evict-randk": dict(argv=GATHER + ["--comm", "packed",
+                                                 "--ef-slots", "4"],
+                                  kind="randk"),
+        "cohorts-2-quant": dict(argv=GATHER + ["--comm", "pallas",
+                                               "--uplink", "quant",
+                                               "--cohorts", "2"],
+                                downlink=True),
+        "penalty-fedavg": dict(argv=MASK + ["--comm", "pallas", "--uplink",
+                                            "topk", "--strategy",
+                                            "penalty-fedavg"]),
+        "fedsgm-hard": dict(argv=GATHER + ["--comm", "dense", "--uplink",
+                                           "topk", "--switch", "hard"]),
+        "lean-metrics": dict(argv=GATHER + ["--comm", "pallas", "--uplink",
+                                            "quant", "--lean-metrics"]),
+    })
+    return out
+
+
+CASES = _cases()
+REFUSALS = ("model-axis", "mesh-size", "obs", "async", "checkpoint", "wire")
+
+
+def _fleet(fed, cfg, device):
+    """A quantity-skewed token fleet with the weighted sampler (phase 9(a)'s
+    law at the reduced size)."""
+    from repro_torch.configs.base import FleetConfig
+    from repro_torch.data import synthetic
+    from repro_torch.fleet import provision
+    from repro_torch.tasks import lm
+    fed = fed.replace(fleet=FleetConfig(
+        partitioner="zipf", zipf_a=1.2, cap_factor=4.0, sampler="weighted",
+        batch_size=2, redraw=True))
+    toks, mask = synthetic.token_stream(torch.Generator().manual_seed(1), 32,
+                                        16, cfg.vocab, device=device)
+    return fed, provision.build_fleet(torch.Generator().manual_seed(2),
+                                      lm.LMBatch(toks, mask), fed)
+
+
+def _setup(name: str, device: str = "cpu"):
+    """``(state, batch_fn, loss_pair, fed)`` of a case on ``device``, under
+    whatever mesh is active (``init_state`` splits the residual over the
+    ranks)."""
+    from repro_torch.comm import flat
+    from repro_torch.engine import rounds
+    from repro_torch.fleet import provision, samplers
+    from repro_torch.launch import train
+    from repro_torch.scale import shard
+    case = CASES[name]
+    state, batch_fn, loss_pair, fed, cfg, _ = train.setup(
+        train.parser().parse_args(SMOLLM + ["--device", device]
+                                  + case["argv"]))
+    fed = fed.replace(**case.get("fed", {}))
+    if case.get("kind"):
+        fed = fed.replace(uplink=dataclasses.replace(fed.uplink,
+                                                     kind=case["kind"]))
+    if case.get("downlink"):
+        fed = fed.replace(downlink=fed.uplink)
+    if case.get("fleet"):
+        if case["fleet"] == "weighted":
+            fed, fleet = _fleet(fed, cfg, device)
+        else:
+            fleet = provision.from_stacked(
+                batch_fn(0, torch.Generator().manual_seed(5)))
+        fleet = shard.constrain_fleet(fleet)
+        batch_fn = (lambda t, g: fleet)
+    if case.get("masks") is not None:
+        fed = fed.replace(fleet=dataclasses.replace(fed.fleet,
+                                                    sampler="fixed"))
+    state = rounds.init_state(flat.unflatten(state.spec, state.w), fed,
+                              device=device)
+    if case.get("masks") is not None:
+        masks = np.asarray(case["masks"], np.float32)
+        state = state._replace(sampler=samplers.fixed_state(masks, masks))
+    return state, batch_fn, loss_pair, fed
+
+
+def summary(state, hist) -> dict:
+    """A state's tensors (the residual gathered whole) and the metrics."""
+    from repro_torch.scale import slots
+    from repro_torch.sharding import partition
+    out = {"w": state.w, "x": state.x, "wbar_sum": state.wbar_sum,
+           "wbar_weight": state.wbar_weight, "t": state.t}
+    e = state.e_up
+    if isinstance(e, slots.SlotStore):
+        out["pool"] = partition.gather_leading(e.pool)
+        out.update({f: getattr(e, f) for f in
+                    ("owner", "stamp", "weight", "client_slot")})
+    elif e is not None:
+        out["e_up"] = partition.gather_leading(e)
+    for f in hist._fields:
+        v = getattr(hist, f)
+        if v is not None:
+            out[f"metric_{f}"] = torch.from_numpy(np.asarray(v))
+    return out
+
+
+def run_case(name: str, device: str = "cpu") -> dict:
+    from repro_torch.engine import rounds
+    state, batch_fn, loss_pair, fed = _setup(name, device)
+    state, hist = rounds.run_rounds(state, batch_fn, loss_pair, fed,
+                                    T=ROUNDS, device=device)
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in summary(state, hist).items()}
+
+
+def np_setup(np_path: str):
+    """The reference's ``multidev`` configuration on its dataset, with the
+    recorded cohorts of :data:`NP_COHORTS` (``fixed`` sampler)."""
+    from repro_torch.configs.base import (CompressorConfig, FedConfig,
+                                          FleetConfig, ScaleConfig,
+                                          SwitchConfig)
+    from repro_torch.engine import rounds
+    from repro_torch.fleet import samplers
+    from repro_torch.tasks import np_classification as npc
+    z = np.load(np_path)
+    cfg = FedConfig(n_clients=NP_N, m=NP_M, local_steps=2, lr=0.1,
+                    switch=SwitchConfig(mode="hard", eps=0.35),
+                    participation="gather",
+                    uplink=CompressorConfig(kind="topk", ratio=0.25, block=8),
+                    downlink=CompressorConfig(kind="none"),
+                    scale=ScaleConfig(ef_slots=NP_N),
+                    fleet=FleetConfig(sampler="fixed"))
+    params = {"b": torch.from_numpy(z["b"]), "w": torch.from_numpy(z["w"])}
+    masks = np.zeros((NP_ROUNDS, NP_N), np.float32)
+    for r, ids in enumerate(NP_COHORTS):
+        masks[r, ids] = 1.0
+    state = rounds.init_state(params, cfg, device="cpu")
+    state = state._replace(sampler=samplers.fixed_state(masks, masks))
+    batch = npc.NPBatch(torch.from_numpy(z["xs"]), torch.from_numpy(z["ys"]))
+    return state, batch, npc.loss_pair, cfg
+
+
+def run_np(np_path: str) -> dict:
+    from repro_torch.engine import rounds
+    state, batch, loss_pair, cfg = np_setup(np_path)
+    state, hist = rounds.drive(state, batch, loss_pair, cfg, NP_ROUNDS,
+                               device="cpu")
+    return summary(state, hist)
+
+
+def shard_checks() -> dict:
+    """The reference's ``multidev`` checks (a) and (b) under the active rank
+    mesh: ``sharded_take`` from a client-split stack, ``constrain_fleet`` /
+    ``constrain_store`` leaving values as they are (gathered back)."""
+    from repro_torch.fleet.provision import Fleet
+    from repro_torch.scale import shard, slots
+    from repro_torch.sharding import partition
+    data = {"x": torch.arange(float(NP_N * 24)).reshape(NP_N, 4, 6)}
+    idx = torch.tensor([1, 5, 8, 11])
+    split = partition.constrain_leading(data, "client")
+    taken = shard.sharded_take(split, idx)
+    rows = partition.all_rows(taken["x"], len(idx))
+    fleet = Fleet(data["x"], torch.full((NP_N,), 4), torch.full((NP_N,), 4))
+    cf = shard.constrain_fleet(fleet)
+    store = slots.init(NP_N, NP_N, 16, torch.float32, "cpu")
+    store = store._replace(pool=torch.randn(NP_N, 16,
+                                            generator=torch.Generator()
+                                            .manual_seed(0)))
+    cs = shard.constrain_store(store)
+    return {"taken": rows, "want": data["x"][idx],
+            "split": isinstance(split["x"], partition.ClientShard)
+            and isinstance(cf.data, partition.ClientShard)
+            and isinstance(cs.pool, partition.ClientShard),
+            "fleet_data": partition.gather_leading(cf.data),
+            "fleet_count": partition.gather_leading(cf.count),
+            "fleet_want": data["x"], "pool": partition.gather_leading(cs.pool),
+            "pool_want": store.pool, "owner_same": cs.owner is store.owner}
+
+
+def refusal(what: str, W: int) -> bool:
+    """Whether ``what`` raises ``NotImplementedError`` under the active
+    rank mesh of ``W`` ranks (the mesh stays active)."""
+    from repro_torch import checkpoint
+    from repro_torch.configs.base import AsyncConfig, ObsConfig
+    from repro_torch.engine import async_rounds, rounds
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import partition
+    from repro_torch.wire import coordinator
+    active = partition.current_mesh()
+    try:
+        if what == "model-axis":
+            partition.activate_mesh(mesh.make_rank_mesh(
+                "cpu", shape=(W // 2, 2), axes=("data", "model")))
+        elif what == "mesh-size":
+            partition.activate_mesh(mesh.make_rank_mesh("cpu",
+                                                        shape=(W - 1,)))
+        else:
+            state, batch_fn, loss_pair, fed = _setup("pallas-topk-mask")
+            if what == "obs":
+                rounds.run_rounds(state, batch_fn, loss_pair,
+                                  fed.replace(obs=ObsConfig(enabled=True)),
+                                  T=1, device="cpu")
+            elif what == "async":
+                fed = fed.replace(async_=AsyncConfig(enabled=True))
+                async_rounds.async_round_step(
+                    state, None, batch_fn(0, torch.Generator()), loss_pair,
+                    fed, device="cpu")
+            elif what == "checkpoint":
+                checkpoint.save(os.devnull, {"w": state.w})
+            elif what == "wire":
+                coordinator.wire_drive(fed, 1, device="cpu")
+    except NotImplementedError:
+        return partition.current_mesh() is active
+    return False
+
+
+def world_main(rank: int, W: int, store_path: str, out_dir: str,
+               np_path, timeout_s: float, device: str = "cpu",
+               names=None) -> None:
+    """One rank: every case under a rank mesh of W ranks on ``device``, the
+    reference's ``multidev`` configuration, the refusals and the shard
+    checks (``names``: those cases only, on a card shared by the ranks);
+    the results to ``out_dir/rank<r>.pt``."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import collectives, partition
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, W), rank=rank,
+        world_size=W, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        partition.activate_mesh(mesh.make_rank_mesh(device))
+        assert partition.rank_axis().rank == rank
+        out = {"cases": {}, "seconds": {}}
+        collectives.reset_stats()
+        for name in names or CASES:
+            t0 = time.perf_counter()
+            out["cases"][name] = run_case(name, device)
+            out["seconds"][name] = time.perf_counter() - t0
+        out["collectives"] = collectives.stats()
+        if names is None:
+            out["cases"]["np-multidev"] = run_np(np_path)
+            out["shard"] = shard_checks()
+            out["refusals"] = {what: refusal(what, W) for what in REFUSALS}
+        partition.activate_mesh(None)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        partition.activate_mesh(None)
+        dist.destroy_process_group()
+
+
+def spawn_world(W: int, folder: str, np_path=None,
+                timeout_s: float = 240.0, device: str = "cpu",
+                names=None) -> list:
+    """Start W ranks by ``spawn`` and wait for them (at most ``timeout_s``
+    seconds: then every rank is killed and ``TimeoutError`` raised; a rank
+    that fails raises here); :func:`world_main` gives what they run.
+    Returns each rank's results, in rank order."""
+    import torch.multiprocessing as mp
+    os.makedirs(folder, exist_ok=True)
+    store = os.path.join(folder, "store")
+    ctx = mp.start_processes(world_main, args=(W, store, folder, np_path,
+                                               timeout_s, device, names),
+                             nprocs=W, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"a world of {W} ranks ran past {timeout_s} s")
+    return [torch.load(os.path.join(folder, f"rank{r}.pt"),
+                       weights_only=False) for r in range(W)]
