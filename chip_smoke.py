@@ -21,7 +21,9 @@ Phases, each fatal on failure (nonzero exit):
    events beside its plain version, the nearest single PyTorch call (where
    there is one) and its bound; ``block_topk`` also on the largest
    960-block run with rows of ties and of NaNs written in (bits compared),
-   and the kernel variant each run takes is printed;
+   and the kernel variant each run takes is printed; then the reader of
+   every profiled round below (``device_kernels``, from the Kineto events)
+   against ``key_averages()`` on one profile;
 4. a small-input reference check: one reduced round on the card against the
    same round on the CPU for each wire -- ``comm="pallas"`` with a top-k
    or quant uplink; ``comm="dense"`` and ``"packed"`` with top-k or 8-bit
@@ -171,25 +173,27 @@ Phases, each fatal on failure (nonzero exit):
    whisper-small, with media, as in 14(d);
 17. cross-process federation (``repro_torch.wire``): (a) the launcher's
    ``--wire 2 --reduced --clients 4 --participating 2 --comm pallas
-   --uplink topk --rounds 3`` as a subprocess (its two workers processes
+   --uplink topk --rounds 2`` as a subprocess (its two workers processes
    too), each round's f, g_hat and sigma bit-equal to ``rounds.drive`` on
    ``build_problem("lm")``; (b) mamba2-130m whole (d = 128,983,488), a
    full-width problem this script registers with ``bootstrap.problem``,
    ``wire_drive(spawn="thread")`` over 4 workers, 8 clients, gather 4,
    the full eval, lean metrics, pallas top-k 0.1 up, identity down, batch
-   2, seq 64, 3 rounds (round 1 profiled on the card's side, round 2
-   checked): state and every metric bit-equal to ``rounds.drive`` on the
-   same problem, every ``block_topk`` and ``scatter_agg`` launch of round
-   2 (every thread) bit-equal to its plain version, each kernel launched
+   2, seq 64, 3 rounds (round 1 timed and profiled on the card's side,
+   round 2 checked): state and every metric bit-equal to ``rounds.drive``
+   on the same problem, every ``block_topk`` and ``scatter_agg`` launch of
+   round 2 (every thread) bit-equal to its plain version, each kernel launched
    once per wire run and encoding worker or reduce; printed: s/round of
    the wire and of ``drive``, round 1's frames and bytes by kind, its
    host seconds in CRC-32 and socket I/O and its device busy share, the
    EF_DUMP frames, the largest frame against ``MAX_FRAME``, peak GB;
    (c) as (b) with pallas 8-bit quant up
    (``quantize_ef_pack``, ``unpack_mma``); (d) ``wire_drive(spawn=
-   "process")`` on the reduced LM problem with a ``WireFaultConfig`` and a
-   seeded ``ChaosProcess`` SIGKILL at round 1's eval: respawned, and
-   bit-equal to the clean oracle;
+   "process")`` on the reduced LM problem, 2 rounds, with a
+   ``WireFaultConfig`` and a seeded ``ChaosProcess`` SIGKILL at round 1's
+   eval: respawned, and bit-equal to the clean oracle; (a)'s subprocess
+   and those of 18(d) and 19(f) run beside (d) (none is timed, and each
+   process counts its own launches);
 18. serving (``prefill``, then greedy ``decode_step`` over the KV caches)
    at full published width, each cell under ``torch.inference_mode`` with
    weights drawn on CPU generators (seed 0) and the launcher's prompts and
@@ -206,8 +210,8 @@ Phases, each fatal on failure (nonzero exit):
    largest logit); (d) ``python -m repro_torch.launch.serve`` (reduced
    qwen3-4b), ``... --arch smollm-360m --no-reduced`` and ``python -m
    repro_torch.examples.serve_batched --arch gemma3-4b`` as subprocesses
-   started together, each exiting 0 with its line; no wire kernel
-   launches in the phase.
+   started together (beside 17(d)), each exiting 0 with its line; no wire
+   kernel launches in the phase.
 19. serving of the state-cache families, as 18(a)-(c) (the checked
    forward over the prompt and the decoded tokens, within 1e-4 of its
    largest logit): (a) mamba2-130m whole (24 layers), batch 4, prompt
@@ -230,8 +234,8 @@ Phases, each fatal on failure (nonzero exit):
    --no-reduced``, ``--arch recurrentgemma-2b``, ``--arch
    deepseek-v2-236b``, ``--arch whisper-small`` and
    ``examples.serve_batched --arch deepseek-v3-671b`` as subprocesses
-   started together, each exiting 0 with its line; no wire kernel
-   launches in the phase;
+   started together (beside 17(d)), each exiting 0 with its line; no wire
+   kernel launches in the phase;
 20. the launch tooling (``repro_torch.launch.{steps,dryrun,roofline,
    mesh}``): (a) ``python -m repro_torch.launch.dryrun --sweep`` as a
    process started after the build (meta tensors only, no card visible to
@@ -277,10 +281,26 @@ Phases, each fatal on failure (nonzero exit):
    ``loss_pair`` calls its rows and the replicated reduce demand, the
    collectives' bytes and host seconds per round, one more round profiled
    and one whose every wire-kernel launch is held against its plain
-   version, tolerance 0; a rank that fails fails the phase.
+   version, tolerance 0; a rank that fails fails the phase;
+22. the mesh's model axis (the flat state split by columns over a data x
+   model rank mesh, ``make_rank_mesh(shape=(W / 2, 2), axes=("data",
+   "model"))``), in phase 21's world after its cells, on the same
+   one-process runs: (a) 21(b)'s cell, mamba2-130m whole, gather 4 of 8,
+   pallas top-k up and down (``block_topk`` up and down, ``scatter_agg``
+   and ``segment_rows`` on each rank's column blocks); (b) 21(c)'s cell,
+   smollm-360m whole, mask quant (``quantize_ef_pack`` and ``unpack_mma``
+   on the column blocks); each model rank runs every client's eval and
+   local steps on the whole ``w``, holds its columns of the residual and
+   the server state, and all-gathers the new ``w`` each round; on every
+   rank the digests of what it holds (``w``, every metric, its column
+   block of ``x``, of the averaged-iterate sum and of each residual row)
+   bit-equal to the one process's, the launches its column block's wire
+   runs demand, its peak below the one process's, the collectives' bytes
+   and host seconds per group, one round profiled and one whose every
+   wire-kernel launch is held against its plain version.
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21 the launch
-counts are zeroed just before each part and read just after: each kernel must have launched
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and 22 the
+launch counts are zeroed just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
 store's eviction flush; the reduce kernel once per run and cohort on the
@@ -292,8 +312,10 @@ forwards (n*E fused, n + m*E unfused); f and g_hat must be finite and
 then runs under ``torch.profiler`` for the device time by kernel and
 the device's busy share.
 
-The last three lines are the kernels' JSON record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.  Without a card, or
+Before them, one line gives each phase's wall seconds
+(``{"phase_seconds": ...}``).  The last three lines are the kernels' JSON
+record, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.  Without a card, or
 without the rest of the repository beside it, it exits nonzero and prints
 no result.
 """
@@ -311,6 +333,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_CLIENTS = 4
@@ -881,7 +904,7 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     stamps.append(time.perf_counter())
     counts = kernels.launch_counts()
     per_round = [b - a for a, b in zip(stamps, stamps[1:])]
-    final = state_digest(torch, state, hist) if digest else None
+    final = state_digest(torch, state, hist, fed) if digest else None
     rec = {"phase": name, "d": state.spec.d, "comm": fed.comm,
            "clients": fed.n_clients, "participating": fed.m,
            "participation": fed.participation, "full_eval": fed.full_eval,
@@ -1294,19 +1317,20 @@ def np_phase(torch, dev) -> dict:
 # rounds and horizon; the CMDP example's rounds, in chunks of CMDP_CHUNK
 # with an eval after each, and the fair example's rounds, both cut from
 # their own 300 because they are bound by the host (a CMDP round is about
-# 242,000 launches, 2.4-5.4 s on an H100 depending on its host; a fair
-# round 0.05-0.12 s) to keep the CMDP part near 30 s (20 rounds until
-# phase 12 came, 10 until phase 16 came; the fair example 60 until then)
-# and the whole script near half its time limit; the weakly-convex
-# measure's training rounds (the reference test's 150); the 100m LM
-# example's rounds
+# 242,000 launches, 2.4-5.6 s on an H100 depending on its host; a fair
+# round 0.05-0.12 s) to keep the script inside its time (the CMDP example
+# 20 rounds until phase 12 came, 10 until phase 16 came, 5 until phase 22
+# came; the fair example 60 until phase 16 came, 30 until phase 22 came;
+# the LM example 3 rounds until phase 22 came);
+# the weakly-convex measure's training rounds (the reference test's 150);
+# the 100m LM example's rounds
 CMDP_CHECK_ROUNDS = 2
 CMDP_CHECK_HORIZON = 50
-CMDP_ROUNDS = 5
-CMDP_CHUNK = 5
-FAIR_ROUNDS = 30
+CMDP_ROUNDS = 1
+CMDP_CHUNK = 1
+FAIR_ROUNDS = 15
 WC_ROUNDS = 150
-LM100M_ROUNDS = 3
+LM100M_ROUNDS = 2
 
 
 def to_device(tree, device):
@@ -1414,8 +1438,9 @@ def cmdp_check(torch, dev) -> list:
     for comm in ("dense", "pallas"):
         fed = base.replace(comm=comm, fleet=dataclasses.replace(
             base.fleet, sampler="fixed"))
-        res = []
+        res, secs = [], {}
         for device in (dev, torch.device("cpu")):
+            t0 = time.time()
             fleet = cmdp.fleet_from_draws(s0, noise, device=device)
             state = rounds.init_state(to_device(params, device), fed,
                                       device=device)
@@ -1428,6 +1453,7 @@ def cmdp_check(torch, dev) -> list:
             if device is dev:
                 torch.cuda.synchronize()
                 counts = kernels.launch_counts()
+            secs[device.type] = time.time() - t0
             res.append((state.w.cpu(), hist, seen.flags))
         (w_c, h_c, f_c), (w_p, h_p, f_p) = res
         flips = [(i, int((a != b).sum())) for i, (a, b) in
@@ -1453,7 +1479,8 @@ def cmdp_check(torch, dev) -> list:
                "sigma": [h_c.sigma.tolist(), h_p.sigma.tolist()],
                "w_far_fraction": float(far.float().mean()),
                "rollouts": len(f_c), "rollouts_with_flag_flips": flips,
-               "launches": counts, "launches_expected": want, "ok": ok}
+               "launches": counts, "launches_expected": want,
+               "seconds": secs, "ok": ok}
         print(json.dumps(rec), flush=True)
         out.append({"phase": f"paper cmdp check {comm}", "launches": counts})
         if not ok:
@@ -1596,11 +1623,17 @@ def lm_100m_example(torch, dev) -> dict:
 def paper_phase(torch, dev) -> tuple:
     """Phase 11: the paper's other experiments on the card, (a)-(e).
     Returns ``(records, launch records)``."""
+    t0 = time.time()
     launches = cmdp_check(torch, dev)
-    rec = {"cmdp_example": cmdp_example(torch, dev),
-           "fair_example": fair_example(torch, dev),
-           "weakly_convex": weakly_convex_check(torch, dev),
-           "lm_100m": lm_100m_example(torch, dev)}
+    seconds, rec = {"11a": time.time() - t0}, {}
+    for part, fn in (("cmdp_example", cmdp_example),
+                     ("fair_example", fair_example),
+                     ("weakly_convex", weakly_convex_check),
+                     ("lm_100m", lm_100m_example)):
+        t0 = time.time()
+        rec[part] = fn(torch, dev)
+        seconds[part] = time.time() - t0
+    print(json.dumps({"paper_seconds": seconds}), flush=True)
     for name, part in (("paper cmdp example", "cmdp_example"),
                        ("paper fair example", "fair_example"),
                        ("paper weakly-convex", "weakly_convex"),
@@ -1609,9 +1642,11 @@ def paper_phase(torch, dev) -> tuple:
     return rec, launches
 
 
-# phase 12: asynchronous buffered rounds with the telemetry bus.  6 rounds
-# a part at full width; the checks of 12(c) at 2 layers, 3 rounds
-ASYNC_ROUNDS = 6
+# phase 12: asynchronous buffered rounds with the telemetry bus.  2 rounds
+# a part at full width (6 until phase 22 came: the parks, deliveries and
+# expiries the phase must see come from 12(c) as well); the checks of
+# 12(c) at 2 layers, 3 rounds
+ASYNC_ROUNDS = 2
 ASYNC_CHECK_ROUNDS = 3
 CARD_CPU_ROUNDS = 2            # 12(c)(iv): parks in round 0, expiries in 1
 ASYNC_COUNTERS = ("fresh", "departed", "merged", "dropped", "occupancy",
@@ -1751,17 +1786,6 @@ def check_stale_reduce(torch, name, up, buf, t, fed, g_hat) -> dict:
         raise AssertionError(f"{name}: the stale reduce kernel differs from "
                              f"its plain version: {err}")
     return rec
-
-
-def is_kernel(e) -> bool:
-    """A profiler entry (``key_averages`` or an event) of device work: on
-    the card, and not a stage span's device-side annotation (spans show on
-    the device timeline too, with their extent as their duration)."""
-    from torch.autograd import DeviceType
-    name = getattr(e, "key", None) or e.name
-    return (e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not name.startswith(STAGE_PREFIXES))
 
 
 def stage_split(prof, path, prefixes=STAGE_PREFIXES) -> dict:
@@ -2973,12 +2997,80 @@ def profile_device(torch, fn) -> tuple:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # device-side entries only: a span's device-side annotation repeats
-    # the extent of the kernels inside it
-    kernels = [e for e in prof.key_averages()
-               if is_kernel(e) and dev_us(e) > 0]
+    kernels = device_kernels(prof)
     return (sum(dev_us(e) for e in kernels) / 1e3,
             sum(e.count for e in kernels), kernels)
+
+
+class KernelTotal(NamedTuple):
+    """One kernel name's device work in a profile (:func:`device_kernels`),
+    under the names a ``key_averages()`` entry gives it."""
+    key: str
+    count: int
+    self_device_time_total: float       # microseconds
+
+
+def device_kernels(prof) -> list:
+    """The device work of a finished ``torch.profiler`` run by kernel name,
+    summed from its Kineto events: the ``key_averages()`` entries of work
+    on the card with a positive device time, less the stage spans'
+    device-side annotations (spans show on the device timeline too, with
+    their extent as their duration), without the Python event
+    ``key_averages()`` builds for every launch first (about 0.2 ms each on
+    the host: 10 s for a 43,000-launch round, most of a minute for a CMDP
+    round's 242,000)."""
+    from torch.autograd import DeviceType
+    us, count = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        name = e.name()
+        if name.startswith(STAGE_PREFIXES):
+            continue
+        us[name] = us.get(name, 0.0) + e.duration_ns() / 1e3
+        count[name] = count.get(name, 0) + 1
+    return [KernelTotal(k, count[k], v) for k, v in us.items() if v > 0]
+
+
+def profile_reader_check(torch, dev) -> dict:
+    """:func:`device_kernels` against ``key_averages()`` on one profile of
+    3,000 launches and a copy inside a stage span: the same kernel
+    names, launches and device ms (within 1e-9), and each reader's host
+    seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.trace import stage
+    x = torch.randn(1 << 20, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with stage("round.profile_reader_check"):
+            for _ in range(1000):
+                x = torch.tanh(x * 0.5 + 0.1)
+            x.cpu()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = {e.key: (e.count, dev_us(e)) for e in device_kernels(prof)}
+    t1 = time.perf_counter()
+    old = {e.key: (e.count, dev_us(e)) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not e.key.startswith(STAGE_PREFIXES) and dev_us(e) > 0}
+    t2 = time.perf_counter()
+    rec = {"profile_reader_check": {
+        "launches": [sum(c for c, _ in new.values()),
+                     sum(c for c, _ in old.values())],
+        "device_ms": [sum(u for _, u in new.values()) / 1e3,
+                      sum(u for _, u in old.values()) / 1e3],
+        "kernel_names": [len(new), len(old)],
+        "host_s": [t1 - t0, t2 - t1]}}
+    print(json.dumps(rec), flush=True)
+    if new.keys() != old.keys() or any(
+            new[k][0] != old[k][0]
+            or abs(new[k][1] - old[k][1]) > 1e-9 * old[k][1] for k in old):
+        raise AssertionError(f"device_kernels differs from key_averages: "
+                             f"{new} against {old}")
+    return rec
 
 
 def dev_us(e) -> float:
@@ -3389,7 +3481,8 @@ def media_phase(torch, dev, T: int) -> tuple:
 
 # phase 17: the wire (repro_torch.wire), cross-process federation.  17(a)
 # runs the launcher's --wire over worker processes on the reduced LM
-# problem; 17(b), (c) train mamba2-130m whole (d = 128,983,488) over 4 worker
+# problem, beside 17(d) (both untimed checks, mostly process start-ups);
+# 17(b), (c) train mamba2-130m whole (d = 128,983,488) over 4 worker
 # threads, 8 clients, gather 4: the largest of the port's models whose
 # flat buffer crosses the reference's frame bound (MAX_FRAME = 2^30 bytes:
 # one ACTIVATE frame holds 4d bytes, a worker's EF_DUMP 4d per residual row,
@@ -3402,12 +3495,17 @@ WIRE_PROBLEM = "chip-smoke-mamba2-130m"
 WIRE_WORKERS = 4
 WIRE_ROUNDS = 3                # round 1 timed, profiled (the card's
                                # kernels only) and its host seconds split;
-                               # round 2 checked
+                               # round 2 checked (after a round that left
+                               # the residual rows nonzero)
 WIRE_CELLS = [("17b mamba2-130m wire topk", "topk"),
               ("17c mamba2-130m wire quant", "quant")]
+# 17(a)'s launcher and 17(d)'s recovery: 2 rounds each (3 until phase 22
+# came; the launcher's process start-ups and the kill's respawn are most
+# of their time)
+WIRE_LAUNCH_ROUNDS = 2
 WIRE_LAUNCH = ["--wire", "2", "--reduced", "--clients", "4",
                "--participating", "2", "--comm", "pallas", "--uplink",
-               "topk", "--rounds", "3"]
+               "topk", "--rounds", str(WIRE_LAUNCH_ROUNDS)]
 WIRE_KILL_SEED = 10            # 17(d): ChaosProcess draws spare round 0's
                                # eval and kill at round 1's (p = 0.5)
 
@@ -3604,12 +3702,16 @@ def wire_cell(torch, dev, name: str, kind: str) -> dict:
         if 2 in snaps:
             chk.__exit__(None, None, None)
     torch.cuda.synchronize()
+    after = {"close_s": time.perf_counter() - marks[-1]}
     counts = kernels.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t1 = time.perf_counter()
     wire_equal(torch, name, st_o, mets_o, st_w, mets_w)
     del st_o, st_w
-    kernels_dev = [e for e in prof.key_averages()
-                   if is_kernel(e) and dev_us(e) > 0]
+    after["compare_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    kernels_dev = device_kernels(prof)
+    after["profile_read_s"] = time.perf_counter() - t1
     device_ms = sum(dev_us(e) for e in kernels_dev) / 1e3
     wire_s = [marks[0] - t0] + [b - a for a, b in zip(marks, marks[1:])]
     r1 = [r for r in sink.records if r["round"] == 1][0]
@@ -3620,7 +3722,7 @@ def wire_cell(torch, dev, name: str, kind: str) -> dict:
         "workers": WIRE_WORKERS, "clients": fed.n_clients,
         "participating": fed.m, "uplink": kind, "comm": fed.comm,
         "rounds": T, "wire_s_per_round": wire_s,
-        "drive_s_per_round": oracle_s,
+        "drive_s_per_round": oracle_s, "after_rounds": after,
         "wire_s_round1": wire_s[1], "drive_s_round1": oracle_s[1],
         "oracle_seconds": oracle_seconds,
         "frames_round1": r1["wire_kinds"],
@@ -3664,32 +3766,50 @@ def wire_cell(torch, dev, name: str, kind: str) -> dict:
     return rec
 
 
-def wire_launcher_check(torch, dev) -> dict:
-    """17(a): ``python -m repro_torch.launch.train --wire 2 --reduced ...``
-    as a subprocess on the card (its 2 workers are processes too); each
-    round's f, g_hat and sigma (its JSONL sink) equal ``rounds.drive`` on
-    ``build_problem("lm")`` with the launcher's FedConfig, bit for bit."""
-    path = ROOT / "build" / "wire_17a.jsonl"
-    path.parent.mkdir(parents=True, exist_ok=True)
+def wire_launcher_start():
+    """17(a)'s subprocess, started: ``python -m repro_torch.launch.train
+    --wire 2 --reduced ...`` on the card (its 2 workers are processes
+    too), its JSONL sink and its output under ``build/``.  Returns what
+    :func:`wire_launcher_check` waits for."""
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    path, log = build / "wire_17a.jsonl", build / "wire_17a.log"
     path.unlink(missing_ok=True)
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + \
         env.get("PYTHONPATH", "")
-    t0 = time.time()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *WIRE_LAUNCH,
-         "--sink", "jsonl", "--sink-path", str(path), "--quiet"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *WIRE_LAUNCH,
+             "--sink", "jsonl", "--sink-path", str(path), "--quiet"],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, path, log, time.time()
+
+
+def wire_launcher_check(torch, dev, started) -> dict:
+    """17(a): waits for :func:`wire_launcher_start`'s subprocess (``started``;
+    killed if it is still running after 600 s); each round's f, g_hat and
+    sigma (its JSONL sink) equal ``rounds.drive`` on
+    ``build_problem("lm")`` with the launcher's FedConfig, bit for bit."""
+    proc, path, log, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     seconds = time.time() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"17(a): the launcher exited {out.returncode}:"
-                             f"\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    text = log.read_text()
+    log.unlink()
+    if rc != 0:
+        raise AssertionError(f"17(a): the launcher exited {rc}:\n"
+                             f"{text[-6000:]}")
     recs = [json.loads(x) for x in path.read_text().splitlines()]
     meta, recs = recs[0]["meta"], [r for r in recs[1:] if r["round"] >= 0]
     path.unlink()
     fed = wire_fed("topk", 4, 2)
-    _, mets, _ = wire_oracle(torch, "lm", {"batch": 2, "seq": 64}, fed, 3,
-                             dev)
+    _, mets, _ = wire_oracle(torch, "lm", {"batch": 2, "seq": 64}, fed,
+                             WIRE_LAUNCH_ROUNDS, dev)
     rec = {"wire_launcher": " ".join(WIRE_LAUNCH), "seconds": seconds,
            "device": meta.get("device"),
            "rounds": [{k: r[k] for k in ("round", "f", "g_hat", "sigma",
@@ -3718,7 +3838,7 @@ def wire_fault_check(torch, dev) -> dict:
     from repro_torch.comm import flat
     from repro_torch.wire import wire_drive
     from repro_torch.wire.supervisor import WireFaultConfig
-    fed, T = wire_fed("topk", 4, 2), 3
+    fed, T = wire_fed("topk", 4, 2), WIRE_LAUNCH_ROUNDS
     args = {"batch": 2, "seq": 64}
     st_o, mets_o, _ = wire_oracle(torch, "lm", args, fed, T, dev)
     ckpt = ROOT / "build" / "wire_17d_ckpt"
@@ -3752,28 +3872,44 @@ def wire_fault_check(torch, dev) -> dict:
 
 
 def wire_phase(torch, dev) -> tuple:
-    """Phase 17: (a) :func:`wire_launcher_check`; (b), (c)
-    :func:`wire_cell` for :data:`WIRE_CELLS`; (d) :func:`wire_fault_check`.
-    Returns ``(record, launch records)``."""
+    """Phase 17: (b), (c) :func:`wire_cell` for :data:`WIRE_CELLS`; then
+    (a)'s launcher (:func:`wire_launcher_start`) and the subprocesses of
+    18(d) and 19(f) (:func:`start_commands`) started, (d)
+    :func:`wire_fault_check` while they run, and (a)
+    :func:`wire_launcher_check`, 18(d) and 19(f) waited for.  Returns
+    ``(record, launch records, {"18(d)": record, "19(f)": record})``."""
     register_wire_problem()
-    seconds, t0 = {}, time.time()
-    launcher = wire_launcher_check(torch, dev)
-    seconds["17a"] = time.time() - t0
-    cells = []
+    seconds, cells = {}, []
     for name, kind in WIRE_CELLS:
         t0 = time.time()
         cells.append(wire_cell(torch, dev, name, kind))
         seconds[name.split()[0]] = time.time() - t0
     t0 = time.time()
-    fault = wire_fault_check(torch, dev)
-    seconds["17d"] = time.time() - t0
+    started = wire_launcher_start()
+    serving = [start_commands(SERVE_COMMANDS, "18(d)"),
+               start_commands(STATE_COMMANDS, "19(f)")]
+    try:
+        fault = wire_fault_check(torch, dev)
+        seconds["17d"] = time.time() - t0
+        launcher = wire_launcher_check(torch, dev, started)
+        commands = {s[0]: finish_commands(s) for s in serving}
+    finally:
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
+        for s_ in serving:
+            stop_commands(s_)
+    seconds["17a"] = launcher["seconds"]
+    seconds["18d"] = commands["18(d)"][-1]["seconds"]
+    seconds["19f"] = commands["19(f)"][-1]["seconds"]
+    seconds["17a, 17d, 18d, 19f"] = time.time() - t0
     print(json.dumps({"wire_seconds": seconds}), flush=True)
     return ({"launcher": launcher, "cells": cells, "fault": fault,
              "seconds": seconds},
             [{"phase": c["wire_cell"], "launches": c["launches"]}
              for c in cells]
             + [{"phase": "17d wire SIGKILL recovered",
-                "launches": fault["launches"]}])
+                "launches": fault["launches"]}], commands)
 
 
 # phase 18: serving (prefill, then greedy one-token decode over the KV
@@ -4130,42 +4266,63 @@ def torch_leaves(tree):
         yield tree
 
 
-def serve_commands(dev, commands=SERVE_COMMANDS, label="18(d)") -> list:
+def start_commands(commands, label: str):
     """18(d), 19(f): ``commands`` as subprocesses started together on the
-    card (``PYTHONPATH=src``), each must exit 0 and print its line."""
-    import re
+    card (``PYTHONPATH=src``), each one's output to a file under
+    ``build/``; what :func:`finish_commands` waits for."""
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + \
         env.get("PYTHONPATH", "")
-    t0 = time.time()
-    procs = [(argv, pat, subprocess.Popen(
-        [sys.executable, *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)) for argv, pat in commands]
+    procs = []
+    for i, (argv, pat) in enumerate(commands):
+        log = build / f"serve_{label[:2]}_{i}.log"
+        with open(log, "w") as out:
+            procs.append((argv, pat, log, subprocess.Popen(
+                [sys.executable, *argv], cwd=ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT)))
+    return label, procs, time.time()
+
+
+def finish_commands(started) -> list:
+    """Waits for :func:`start_commands`' subprocesses (``started``; each
+    killed if still running 300 s from the start): each must exit 0 and
+    print its line."""
+    import re
+    label, procs, t0 = started
     recs = []
     try:
-        for argv, pat, proc in procs:
-            out, errs = proc.communicate(timeout=300)
-            line = next((x for x in out.splitlines() if re.search(pat, x)),
+        for argv, pat, log, proc in procs:
+            rc = proc.wait(timeout=max(1.0, t0 + 300 - time.time()))
+            text = log.read_text()
+            line = next((x for x in text.splitlines() if re.search(pat, x)),
                         None)
-            recs.append({"command": " ".join(argv), "rc": proc.returncode,
+            recs.append({"command": " ".join(argv), "rc": rc,
                          "line": line, "seconds": time.time() - t0})
-            if proc.returncode != 0 or line is None:
-                raise AssertionError(
-                    f"{label}: {' '.join(argv)} exited {proc.returncode}:"
-                    f"\n{out[-3000:]}\n{errs[-3000:]}")
+            if rc != 0 or line is None:
+                raise AssertionError(f"{label}: {' '.join(argv)} exited "
+                                     f"{rc}:\n{text[-6000:]}")
+            log.unlink()
     finally:
-        for _, _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_commands(started)
     print(json.dumps({"serve_commands": recs, "part": label}), flush=True)
     return recs
 
 
-def serve_phase(torch, dev) -> tuple:
-    """Phase 18: :func:`serve_cell` for :data:`SERVE_CELLS`, then
-    :func:`serve_commands`; no wire kernel may launch.  Returns ``(record,
-    launch records)``."""
+def stop_commands(started) -> None:
+    """Kills what is left of :func:`start_commands`' subprocesses."""
+    for _, _, _, proc in started[1]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def serve_phase(torch, dev, commands=None) -> tuple:
+    """Phase 18: :func:`serve_cell` for :data:`SERVE_CELLS`; ``commands``
+    is 18(d)'s record (:data:`SERVE_COMMANDS`, run beside 17(d) in the
+    whole script; None: run here, after the cells); no wire kernel may
+    launch.  Returns ``(record, launch records)``."""
     from repro_torch import kernels
     t_phase = time.time()
     kernels.reset_launches()
@@ -4174,9 +4331,10 @@ def serve_phase(torch, dev) -> tuple:
         t0 = time.time()
         cells.append(serve_cell(torch, dev, *cell))
         seconds[cell[0].split()[0]] = time.time() - t0
-    t0 = time.time()
-    commands = serve_commands(dev)
-    seconds["18d"] = time.time() - t0
+    if commands is None:
+        t0 = time.time()
+        commands = finish_commands(start_commands(SERVE_COMMANDS, "18(d)"))
+        seconds["18d"] = time.time() - t0
     counts = kernels.launch_counts()
     seconds["phase"] = time.time() - t_phase
     print(json.dumps({"serve_seconds": seconds}), flush=True)
@@ -4286,11 +4444,13 @@ def state_card_check(torch, dev, arch: str) -> dict:
     return rec
 
 
-def state_serve_phase(torch, dev) -> tuple:
+def state_serve_phase(torch, dev, commands=None) -> tuple:
     """Phase 19: :func:`serve_cell` for :data:`STATE_CELLS` (19(c) must
     drop no route at its capacity), :func:`state_card_check` for
-    :data:`STATE_CHECK_ARCHS`, then :data:`STATE_COMMANDS`; no wire kernel
-    may launch.  Returns ``(record, launch records)``."""
+    :data:`STATE_CHECK_ARCHS`; ``commands`` is 19(f)'s record
+    (:data:`STATE_COMMANDS`, run beside 17(d) in the whole script; None:
+    run here, last); no wire kernel may launch.  Returns ``(record, launch
+    records)``."""
     from repro_torch import kernels
     t_phase = time.time()
     kernels.reset_launches()
@@ -4307,9 +4467,10 @@ def state_serve_phase(torch, dev) -> tuple:
     checks = [state_card_check(torch, dev, arch)
               for arch in STATE_CHECK_ARCHS]
     seconds["19e"] = time.time() - t0
-    t0 = time.time()
-    commands = serve_commands(dev, STATE_COMMANDS, "19(f)")
-    seconds["19f"] = time.time() - t0
+    if commands is None:
+        t0 = time.time()
+        commands = finish_commands(start_commands(STATE_COMMANDS, "19(f)"))
+        seconds["19f"] = time.time() - t0
     counts = kernels.launch_counts()
     seconds["phase"] = time.time() - t_phase
     print(json.dumps({"state_serve_seconds": seconds}), flush=True)
@@ -4330,7 +4491,8 @@ LAUNCH_SKIPS = 14              # long_500k of the 7 full-attention archs
 LAUNCH_SWEEP_WAIT = 900        # s the phase waits for the sweep at most
 LAUNCH_BYTES_RTOL = 0.01
 LAUNCH_DECODE_WARM, LAUNCH_DECODE_TIMED = 2, 5
-REMAT_PAIRS = 5                # 20(c): timed rounds of each, in turns
+REMAT_PAIRS = 3                # 20(c): timed rounds of each, in turns
+                               # (5 until phase 22 came)
 # (label, arch, shape name, seq_len, batch) of the serving cells
 LAUNCH_SERVE_CELLS = [
     ("20d qwen3-4b decode_32k", "qwen3-4b", "decode_32k", 32_768, 4),
@@ -4729,10 +4891,17 @@ RANK_CELLS = [
      ["--comm", "pallas", "--uplink", "quant"], False,
      "smollm-360m uplink=quant"),
 ]
-# the phases that keep their final state's digest for phase 21
+# phase 22: the mesh's model axis -- the flat state split by columns over
+# a data x model rank mesh of RANK_MODEL model ranks, in phase 21's world
+# after its cells: 22(a) is 21(b)'s cell, 22(b) 21(c)'s, held against the
+# same one-process digests (their column blocks)
+MODEL_CELLS = [("22a mamba2-130m",) + RANK_CELLS[1][1:],
+               ("22b smollm-360m",) + RANK_CELLS[2][1:]]
+# the phases that keep their final state's digest for phases 21 and 22
 RANK_FROM = {cell[4] for cell in RANK_CELLS if cell[4] is not None}
 RANK_SHARED = 2                # ranks sharing the one card over gloo
 RANK_NCCL_MAX = 4              # ranks over NCCL, one a card, where 2+ cards
+RANK_MODEL = 2                 # phase 22's model ranks
 RANK_TIMEOUT = 900             # s a world's collectives may wait
 RANK_DEVICE = "cuda"
 
@@ -4784,15 +4953,43 @@ def _sha1_all(torch, items: dict) -> dict:
         return dict(zip(items, ex.map(one, items.values())))
 
 
-def state_digest(torch, state, hist) -> dict:
-    """sha1 of every field of a round state and of its metrics; the
-    residual's (the dense stack's or the slot store's pool) row by row,
-    keyed by row id: under a rank mesh, the rows this rank holds."""
+def digest_split(fed, spec):
+    """The column split of a round of ``fed`` over :data:`RANK_MODEL`
+    model ranks (what ``comm.flat.columns_for`` gives phase 22's ranks)."""
+    from repro_torch.comm import flat
+    return flat.column_split(spec, flat.flat_transports_for(fed, spec),
+                             RANK_MODEL)
+
+
+def state_digest(torch, state, hist, fed) -> dict:
+    """sha1 of every field of a round state and of its metrics; the residual
+    (the dense stack's or the slot store's pool) row by row, keyed by row
+    id: under a rank mesh, the rows this rank holds.  The fields split by
+    columns under a model axis (x, the averaged-iterate sum, each residual
+    row) are digested per column block of :func:`digest_split`, keyed
+    ``"<name> cols <lo>:<hi>"``: in one process every block, on a model
+    rank (a ``partition.FlatShard``) its own."""
     from repro_torch.scale import slots
     from repro_torch.sharding import partition
-    fields = {f: getattr(state, f) for f in ("w", "x", "wbar_sum",
-                                             "wbar_weight")
-              if getattr(state, f) is not None}
+    split = digest_split(fed, state.spec)
+
+    def blocks(name, x, own=None):
+        if own is not None:
+            return {f"{name} cols {own[0]}:{own[1]}": x}
+        return {f"{name} cols {lo}:{hi}": x[..., lo:hi]
+                for lo, hi in map(split.block, range(RANK_MODEL))}
+
+    def own(x):
+        if not isinstance(x, partition.FlatShard):
+            return None
+        if x.split != split:
+            raise AssertionError(f"columns {x.split} against {split}")
+        return x.split.block()
+    fields = {f: getattr(state, f) for f in ("w", "wbar_weight")}
+    for f in ("x", "wbar_sum"):
+        v = getattr(state, f)
+        if v is not None:
+            fields.update(blocks(f, partition.flat_local(v), own(v)))
     fields.update({f"metric_{f}": getattr(hist, f) for f in hist._fields
                    if getattr(hist, f) is not None})
     e = state.e_up
@@ -4802,18 +4999,58 @@ def state_digest(torch, state, hist) -> dict:
         e = e.pool
     rows = {}
     if e is not None:
+        held, e = own(e), partition.flat_local(e)
         local, lo = (e.local, partition.block(e.n)[0]) \
             if isinstance(e, partition.ClientShard) else (e, 0)
-        rows = {str(lo + i): local[i] for i in range(local.shape[0])}
+        for i in range(local.shape[0]):
+            rows.update(blocks(str(lo + i), local[i], held))
     return {"fields": _sha1_all(torch, fields),
-            "rows": _sha1_all(torch, rows)}
+            "rows": _sha1_all(torch, rows),
+            "delta_norm": [float(v) for v in hist.delta_norm]}
+
+
+# where a column cut falls inside a leaf, delta_norm adds two ranks' partial
+# sums of that leaf (comm.flat.tree_norm): within this rtol of one process
+NORM_RTOL = 1e-6
+
+
+def straddles(split, spec) -> bool:
+    """Whether a cut of ``split`` falls inside a leaf of ``spec``."""
+    starts = {ls.offset for ls in spec.leaves}
+    return any(c not in starts for c in split.cuts[1:-1])
+
+
+def digest_mismatch(digest: dict, want: dict, norm_close: bool = False
+                    ) -> list:
+    """What a rank's :func:`state_digest` holds that is not the one
+    process's: a differing or unknown key, or a field it lacks (a field
+    split by columns needs one block).  ``norm_close``: ``delta_norm``
+    within :data:`NORM_RTOL` instead of bit-equal."""
+    close = {"metric_delta_norm"} if norm_close else set()
+    bad = [k for k, v in digest["fields"].items()
+           if k not in close and want["fields"].get(k) != v]
+    if close and not all(
+            math.isclose(a, b, rel_tol=NORM_RTOL, abs_tol=0.0)
+            for a, b in zip(digest["delta_norm"], want["delta_norm"])):
+        bad.append(f"delta_norm {digest['delta_norm']} against "
+                   f"{want['delta_norm']}")
+    bad += [f"row {k}" for k, v in digest["rows"].items()
+            if want["rows"].get(k) != v]
+
+    def names(keys):
+        return {k.split(" cols ")[0] for k in keys}
+    bad += [f"no {k}" for k in names(want["fields"]) - names(
+        digest["fields"])]
+    return bad
 
 
 def rank_expected(fed, runs: int, rank=None) -> tuple:
     """A rank's (kernel launches, ``loss_pair`` calls) per round: the
     wire's encode on its rows, the reduce and the downlink replicated; in
     a gather round ``delta_norm``'s ``segment_rows`` on rank 0 only (it
-    aggregates there).  ``rank`` None: one process."""
+    aggregates there).  ``rank`` None: one process (or a client axis of
+    one rank).  ``runs``: the wire runs this rank works on (under a model
+    axis, those of its columns)."""
     import torch
     from repro_torch.engine import participation, rounds, strategies
     from repro_torch.sharding import partition
@@ -4832,22 +5069,26 @@ def rank_expected(fed, runs: int, rank=None) -> tuple:
 
 
 def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
-    """A phase-21 cell's T rounds on this card through ``run_rounds``, in
-    one process or (under an active rank mesh) as one rank: s/round, peak
-    GB, launches and ``loss_pair`` calls against what the layout demands,
-    the collectives' bytes and host seconds per round, the state's digest
-    (held against ``want_digest`` when given, every field and every row
-    this rank holds), then one more round profiled and, on a rank, one
-    whose every wire-kernel launch is held against its plain version."""
+    """A phase-21 or 22 cell's T rounds on this card through
+    ``run_rounds``, in one process or (under an active rank mesh) as one
+    rank: s/round, peak GB, launches and ``loss_pair`` calls against what
+    the layout demands, the collectives' bytes and host seconds per round
+    (both axes, and each axis's group), the state's digest (held against
+    ``want_digest`` when given, every field, row and column block this
+    rank holds), then one more round profiled and, on a rank, one whose
+    every wire-kernel launch is held against its plain version."""
     import torch.distributed as dist
     from repro_torch import kernels
     from repro_torch.comm import flat
     from repro_torch.engine import rounds
     from repro_torch.sharding import collectives, partition
-    ra = partition.rank_axis()
+    ra, ma = partition.rank_axis(), partition.model_axis()
     state, batch_fn, pair, fed = rank_cell_setup(torch, cell)
     dev = state.w.device
-    runs = len(flat.wire_layout(state.spec, fed.uplink).runs)
+    cols = flat.columns_for(fed, state.spec)
+    up, _ = flat.flat_transports_for(fed, state.spec, cols)
+    runs = len(up.codec.layout.runs) if up.codec is not None else \
+        len(flat.wire_layout(state.spec, fed.uplink).runs)
     want, want_pairs = rank_expected(fed, runs,
                                      None if ra is None else ra.rank)
     calls, stamps = [], []
@@ -4869,13 +5110,27 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     coll = collectives.stats()
+    coll_axes = collectives.stats_by_axis()
     counts = kernels.launch_counts()
     per_round = [b - a for a, b in zip(stamps, stamps[1:])]
-    rec = {"phase": cell[0] if ra is None else
-           f"{cell[0]} {dist.get_backend()} rank {ra.rank} of {ra.size}",
-           "backend": None if ra is None else dist.get_backend(),
-           "world": 1 if ra is None else ra.size,
+    ranked = ra is not None or ma is not None
+    where = ""
+    if ranked:
+        where = f" {dist.get_backend()} rank {dist.get_rank()} of " \
+            f"{dist.get_world_size()}"
+        if ma is not None:
+            where += f" (data {0 if ra is None else ra.rank}, model " \
+                f"{ma.rank}; columns {cols.lo}:{cols.hi})"
+    rec = {"phase": cell[0] + where,
+           "backend": dist.get_backend() if ranked else None,
+           "world": dist.get_world_size() if ranked else 1,
            "rank": None if ra is None else ra.rank,
+           "model_rank": None if ma is None else ma.rank,
+           "mesh": None if partition.current_mesh() is None else
+           list(partition.current_mesh().devices.shape),
+           "columns": None if cols is None else [cols.lo, cols.hi],
+           "split": None if cols is None else list(cols.split.cuts),
+           "wire_runs": runs,
            "cards": torch.cuda.device_count(), "device": str(dev),
            "d": state.spec.d, "comm": fed.comm, "clients": fed.n_clients,
            "participating": fed.m, "participation": fed.participation,
@@ -4889,18 +5144,24 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
            "loss_pair_per_round": len(calls) / T,
            "loss_pair_per_round_expected": want_pairs,
            "launches": counts, "launches_per_round_expected": want,
-           "collectives_per_round": {k: v / T for k, v in coll.items()}}
-    digest = state_digest(torch, state, hist)
+           "collectives_per_round": {k: v / T for k, v in coll.items()},
+           "collectives_per_round_by_axis": {
+               a: {k: v / T for k, v in st.items()}
+               for a, st in coll_axes.items()}}
+    digest = state_digest(torch, state, hist, fed)
+    rec["straddles"] = cols is not None and straddles(cols.split,
+                                                       state.spec)
     if want_digest is not None:
-        bad = [k for k, v in digest["fields"].items()
-               if want_digest["fields"].get(k) != v]
-        bad += [f"row {k}" for k, v in digest["rows"].items()
-                if want_digest["rows"].get(k) != v]
-        if bad or digest["fields"].keys() != want_digest["fields"].keys():
+        bad = digest_mismatch(digest, want_digest, rec["straddles"])
+        rec["delta_norm"] = [digest["delta_norm"],
+                             want_digest["delta_norm"]]
+        if bad:
             raise AssertionError(f"{rec['phase']}: not bit-equal to one "
                                  f"process: {bad}")
         rec["bit_equal_to_one_process"] = True
-        rec["rows_held"] = sorted(int(k) for k in digest["rows"])
+        rec["rows_held"] = sorted({int(k.split()[0])
+                                   for k in digest["rows"]})
+        rec["digests_held"] = len(digest["fields"]) + len(digest["rows"])
     if not (all(math.isfinite(v) for v in rec["f"])
             and all(math.isfinite(v) for v in rec["g_hat"])):
         raise AssertionError(f"{rec['phase']}: non-finite f or g_hat")
@@ -4915,7 +5176,8 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
     rec["profile"] = profile_round(torch, state, batch_fn, pair, fed, dev,
                                    rec["s_per_round_after_first"])
     rec["profile"]["collectives"] = collectives.stats()
-    if ra is not None:
+    rec["profile"]["collectives_by_axis"] = collectives.stats_by_axis()
+    if ranked:
         rec.update(plain_check_record(state, hist, batch_fn, pair, fed, dev))
     if cell[1] is None and ra is not None:
         rec["shard_check"] = rank_shard_check(torch, dev)
@@ -4981,13 +5243,15 @@ def gloo_cuda_probe(torch, dist) -> dict:
 
 
 def rank_main(rank: int, world: int, backend: str, T: int, digests: list,
-              out_dir: str) -> None:
+              out_dir: str, phases=(21, 22)) -> None:
     """One rank of a phase-21 world (started by ``spawn``): its card, the
     default group (rendezvous through a file store in ``out_dir``), under
-    gloo the probe of its collectives on CUDA tensors, then each cell of
-    :data:`RANK_CELLS` under the rank mesh, held against its one-process
-    ``digests``; its records to ``out_dir/rank<r>.json``.  A failure raises
-    (and fails the world)."""
+    gloo the probe of its collectives on CUDA tensors, then (phase 21)
+    each cell of :data:`RANK_CELLS` under the rank mesh of the client axis
+    and (phase 22) each of :data:`MODEL_CELLS` under the ``(world /
+    RANK_MODEL, RANK_MODEL)`` data x model mesh, held against its
+    one-process ``digests``; its records to ``out_dir/rank<r>.json``.  A
+    failure raises (and fails the world)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -5001,30 +5265,43 @@ def rank_main(rank: int, world: int, backend: str, T: int, digests: list,
                             timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
     try:
         out = {"probe": gloo_cuda_probe(torch, dist)
-               if backend == "gloo" else None, "cells": []}
-        for cell, digest in zip(RANK_CELLS, digests):
-            partition.activate_mesh(mesh.make_rank_mesh(RANK_DEVICE))
-            rec = rank_cell_run(torch, cell, T, digest)
-            rec.pop("digest")
-            partition.activate_mesh(None)
-            out["cells"].append(rec)
+               if backend == "gloo" else None, "cells": [],
+               "model_cells": [], "seconds": {}}
+        meshes = {21: (RANK_CELLS, mesh.make_rank_mesh(RANK_DEVICE)),
+                  22: (MODEL_CELLS, mesh.make_rank_mesh(
+                      RANK_DEVICE, shape=(world // RANK_MODEL, RANK_MODEL),
+                      axes=("data", "model")))}
+        for phase in phases:
+            cells, rank_mesh = meshes[phase]
+            key = "cells" if phase == 21 else "model_cells"
+            for cell in cells:
+                t0 = time.time()
+                partition.activate_mesh(rank_mesh)
+                rec = rank_cell_run(torch, cell, T, digests[cell[4] or
+                                                            cell[0]])
+                rec.pop("digest")
+                partition.activate_mesh(None)
+                out[key].append(rec)
+                out["seconds"][cell[0]] = time.time() - t0
         pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         partition.activate_mesh(None)
         dist.destroy_process_group()
 
 
-def rank_world(backend: str, world: int, T: int, digests: list) -> list:
-    """Spawn a phase-21 world of ``world`` ranks over ``backend`` that runs
-    every cell; each rank's records (a rank that fails raises here).  The
-    ranks' folder (their rendezvous and records) is removed after."""
+def rank_world(backend: str, world: int, T: int, digests: dict,
+               phases=(21, 22)) -> list:
+    """Spawn a world of ``world`` ranks over ``backend`` that runs every
+    cell of ``phases`` (:func:`rank_main`); each rank's records (a rank
+    that fails raises here).  The ranks' folder (their rendezvous and
+    records) is removed after."""
     import shutil
     import tempfile
     import torch.multiprocessing as mp
     out_dir = tempfile.mkdtemp(prefix="ranks-")
     try:
         mp.start_processes(rank_main, args=(world, backend, T, digests,
-                                            out_dir),
+                                            out_dir, phases),
                            nprocs=world, join=True, start_method="spawn")
         return [json.loads(pathlib.Path(out_dir, f"rank{r}.json").read_text())
                 for r in range(world)]
@@ -5037,21 +5314,26 @@ ONE_PROCESS_KEYS = ("phase", "d", "rounds", "s_per_round",
                     "loss_pair_per_round", "launches", "profile")
 
 
-def rank_phase(torch, dev, T: int, earlier=None) -> tuple:
-    """Phase 21: each cell of :data:`RANK_CELLS` in one process: 21(b) and
-    (c) from the earlier phase the cell names (``earlier``: that phase's
-    record and its final state's digest, T rounds as here), otherwise run
-    here, its memory freed after it (21(a); every cell when phase 21 runs
-    alone); then one world that runs every cell over ranks:
-    :data:`RANK_SHARED` ranks sharing the card over gloo (CUDA tensors,
-    collectives staged through the host) and, where 2 or more cards exist,
-    one rank per card over NCCL (up to :data:`RANK_NCCL_MAX`); every rank
-    bit-equal to the one process.  Returns ``(records, launch
+def rank_phase(torch, dev, T: int, earlier=None, phases=(21, 22),
+               backends=("gloo", "nccl")) -> tuple:
+    """Phases 21 and 22: each cell of :data:`RANK_CELLS` in one process:
+    21(b) and (c) from the earlier phase the cell names (``earlier``: that
+    phase's record and its final state's digest, T rounds as here),
+    otherwise run here, its memory freed after it (21(a); every cell when
+    the phase runs alone); then one world that runs every cell of
+    ``phases`` over ranks (phase 22's cells on the same one-process runs
+    as 21(b), (c)): :data:`RANK_SHARED` ranks sharing the card over gloo
+    (CUDA tensors, collectives staged through the host) and, where 2 or
+    more cards exist, one rank per card over NCCL (up to
+    :data:`RANK_NCCL_MAX`); every rank bit-equal to the one process, and
+    in phase 22 each rank's peak below the one process's.  ``backends``:
+    the worlds to run of these two.  Returns ``(records, launch
     records)``."""
     t_phase = time.time()
     cards = torch.cuda.device_count()
-    cells, digests, launches, seconds = [], [], [], {}
-    for cell in RANK_CELLS:
+    cells, digests, launches, seconds = [], {}, [], {}
+    wanted = [c for c in RANK_CELLS if 21 in phases or c[4] is not None]
+    for cell in wanted:
         t0 = time.time()
         rec = (earlier or {}).get(cell[4])
         if rec is None:
@@ -5062,27 +5344,44 @@ def rank_phase(torch, dev, T: int, earlier=None) -> tuple:
                                      f"{rec['rounds']} rounds, not {T}")
             one = {k: rec[k] for k in ONE_PROCESS_KEYS}
             one["digest"] = rec.pop("digest")
-        digests.append(one.pop("digest"))
+        digests[cell[4] or cell[0]] = one.pop("digest")
         print(json.dumps({"rank_cell": cell[0], **one}), flush=True)
-        cells.append({"cell": cell[0], "one_process": one, "worlds": {}})
+        cells.append({"cell": cell[0], "from": cell[4], "one_process": one,
+                      "worlds": {}})
         seconds[f"{cell[0]} one process"] = time.time() - t0
-    worlds = [("gloo", RANK_SHARED)]
-    if cards >= 2:
+    model_cells = [{"cell": cell[0], "from": cell[4], "worlds": {},
+                    "one_process": next(c["one_process"] for c in cells
+                                        if c["from"] == cell[4])}
+                   for cell in (MODEL_CELLS if 22 in phases else [])]
+    cells_21 = cells if 21 in phases else []
+    worlds = [("gloo", RANK_SHARED)] if "gloo" in backends else []
+    if cards >= 2 and "nccl" in backends:
         worlds.append(("nccl", min(cards, RANK_NCCL_MAX)))
     probe = None
     for backend, world in worlds:
         t0 = time.time()
-        ranks = rank_world(backend, world, T, digests)
-        seconds[f"{backend} x{world}"] = time.time() - t0
+        ranks = rank_world(backend, world, T, digests, phases)
+        label = f"{backend} x{world}"
+        seconds[label] = time.time() - t0
+        for key, value in ranks[0]["seconds"].items():
+            seconds[f"{label} {key}"] = value
         probe = probe or ranks[0]["probe"]
-        for i, rec in enumerate(cells):
-            rec["worlds"][f"{backend} x{world}"] = [r["cells"][i]
-                                                    for r in ranks]
-            for r in ranks:
-                print(json.dumps({"rank_cell": rec["cell"], **r["cells"][i]}),
-                      flush=True)
-                launches.append({"phase": r["cells"][i]["phase"],
-                                 "launches": r["cells"][i]["launches"]})
+        for recs, key in ((cells_21, "cells"), (model_cells,
+                                                "model_cells")):
+            for i, rec in enumerate(recs):
+                rec["worlds"][label] = [r[key][i] for r in ranks]
+                for r in ranks:
+                    print(json.dumps({"rank_cell": rec["cell"],
+                                      **r[key][i]}), flush=True)
+                    launches.append({"phase": r[key][i]["phase"],
+                                     "launches": r[key][i]["launches"]})
+    for rec in model_cells:
+        one = rec["one_process"]["peak_mem_gb"]
+        for label, recs in rec["worlds"].items():
+            peaks = [r["peak_mem_gb"] for r in recs]
+            if not all(p < one for p in peaks):
+                raise AssertionError(f"{rec['cell']} {label}: peaks "
+                                     f"{peaks} GB, one process {one} GB")
     nccl = None if cards >= 2 else (
         f"not run: {cards} card; NCCL cannot put two ranks on one card, "
         "and a one-rank group calls no collective")
@@ -5090,7 +5389,8 @@ def rank_phase(torch, dev, T: int, earlier=None) -> tuple:
     print(json.dumps({"rank_seconds": seconds, "cards": cards,
                       "gloo_on_cuda_tensors": probe, "nccl": nccl}),
           flush=True)
-    return {"cells": cells, "gloo_on_cuda_tensors": probe, "nccl": nccl,
+    return {"cells": cells_21, "model_cells": model_cells,
+            "gloo_on_cuda_tensors": probe, "nccl": nccl,
             "seconds": seconds}, launches
 
 
@@ -5114,7 +5414,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3,
                     help="full-width rounds per training phase (phases "
-                    "5-16 and 21)")
+                    "5-16, 21 and 22)")
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
     args = ap.parse_args(argv)
@@ -5157,11 +5457,19 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
-    """Phases 3-21 (the sweep of 20(a) already running) and the last
-    lines."""
+    """Phases 3-22 (the sweep of 20(a) already running) and the last
+    lines; each phase's wall seconds on a line of their own before
+    them."""
     from repro_torch import configs
     from repro_torch.comm import flat
     from repro_torch.configs.base import CompressorConfig
+
+    walls, mark = {"1, 2 card, build": time.time() - t_start}, [time.time()]
+
+    def done(name):
+        now = time.time()
+        walls[name] = now - mark[0]
+        mark[0] = now
 
     cfg = configs.get_config("smollm-360m")
     spec = meta_spec(torch, cfg)
@@ -5170,15 +5478,20 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
           f"{[r.block for r in layout.runs]}, k {[r.k for r in layout.runs]}",
           flush=True)
     records = check_kernels(torch, dev, layout)
+    profile_reader_check(torch, dev)
     torch.cuda.empty_cache()
+    done("3 kernels")
     reference_check(torch)
+    done("4 reference")
     phases = [train_phase(torch, f"smollm-360m uplink={uplink}",
                           ["--comm", "pallas", "--uplink", uplink],
                           args.rounds,
                           digest=f"smollm-360m uplink={uplink}" in RANK_FROM)
               for uplink in ("quant", "topk")]
+    done("5 mask")
     gather_mask_check(torch, dev)
     token_draw_probe(torch, dev, cfg.vocab)
+    done("6 gather = mask")
     gather = ["--clients", str(N_GATHER), "--participating", str(M_GATHER),
               "--participation", "gather"]
     phases += [train_phase(torch, f"smollm-360m gather {M_GATHER} of "
@@ -5186,6 +5499,7 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
                            gather + ["--comm", "pallas", "--uplink", kind],
                            args.rounds, downlink=True)
                for kind in ("topk", "quant")]
+    done("7 gather")
     phases += [
         train_phase(torch, "smollm-360m dense topk up and down",
                     ["--comm", "dense", "--uplink", "topk"], args.rounds,
@@ -5197,6 +5511,7 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
         train_phase(torch, "smollm-360m packed quant up and down",
                     ["--comm", "packed", "--uplink", "quant"], args.rounds,
                     downlink=True)]
+    done("8 dense, packed")
     from repro_torch.configs.base import FleetConfig
     phases += [
         train_phase(torch, f"smollm-360m fleet zipf weighted gather "
@@ -5215,22 +5530,36 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
     if not phases[-2]["weights_non_unit"]:
         raise AssertionError("the zipf fleet's weighted sampler gave only "
                              "0/1 weights")
+    done("9 fleet")
     np_rec = np_phase(torch, dev)
+    done("10 np")
     paper_rec, paper_launches = paper_phase(torch, dev)
+    done("11 paper")
     async_rec, async_launches = async_phase(torch, dev)
+    done("12 async")
     scale_rec, scale_launches = scale_phase(torch, dev, args.rounds)
+    done("13 scale")
     family_rec, family_launches = family_phase(torch, dev, args.rounds)
+    done("14 families")
     moe_rec, moe_launches = moe_phase(torch, dev, args.rounds)
+    done("15 moe")
     media_rec, media_launches = media_phase(torch, dev, args.rounds)
-    wire_rec, wire_launches = wire_phase(torch, dev)
-    serve_rec, serve_launches = serve_phase(torch, dev)
-    state_rec, state_launches = state_serve_phase(torch, dev)
+    done("16 media")
+    wire_rec, wire_launches, commands = wire_phase(torch, dev)
+    done("17 wire")
+    serve_rec, serve_launches = serve_phase(torch, dev, commands["18(d)"])
+    done("18 serve")
+    state_rec, state_launches = state_serve_phase(torch, dev,
+                                                  commands["19(f)"])
+    done("19 state serve")
     launch_rec, launch_launches = launch_phase(torch, dev, sweep)
+    done("20 launch")
     rank_rec, rank_launches = rank_phase(
         torch, dev, args.rounds,
         {r["phase"]: r for r in phases + family_rec["cells"]})
-    # launches on the main paths: each phase's count (phase 21's rank by
-    # rank), and their sum
+    done("21, 22 ranks")
+    # launches on the main paths: each phase's count (phases 21 and 22's
+    # rank by rank), and their sum
     counted = phases + [{"phase": "np quickstart",
                          "launches": np_rec["launches"]}] + paper_launches \
         + async_launches + scale_launches + family_launches + moe_launches \
@@ -5259,8 +5588,10 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
                                     "state_serve": state_rec,
                                     "launch": launch_rec,
                                     "ranks": rank_rec,
+                                    "phase_seconds": walls,
                                     "seconds": time.time() - t_start},
                                    indent=1))
+    print(json.dumps({"phase_seconds": walls}), flush=True)
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps(kern), flush=True)
     print(card, flush=True)

@@ -38,16 +38,34 @@ all-gathers the messages in row order in the payload domain (values and
 offsets, codes and scales, or the dense rows), and every rank reduces all
 of them as one process does: the same kernels on the same stacked rows,
 so ``v_bar`` is bit-equal to one process's.
+
+Under a rank mesh with a model axis the flat state is split by columns
+(:func:`columns_for`: a :class:`Columns` block of a
+``sharding.partition.ColumnSplit``).  The cuts never divide a compression
+unit of either direction's wire -- a block of a blockwise operator (every
+packed codec; the dense wire's quant, and its top-k above
+``_SORT_FREE_MIN`` elements), a whole leaf where the operator decides per
+leaf (the dense wire's top-k below that size, rand-k) -- and balance the
+element count as nearly as those units allow.  A :class:`FlatTransport`
+built on a rank's columns works on them alone: the codecs run on
+:func:`local_layout`'s runs (the same blocks, so the same kernels on the
+same values), the payloads hold that rank's contiguous slot range of the
+one-process payload, the dense wire compresses leaf by leaf or block by
+block, and the random kinds draw the whole buffer from the one-process
+generator and keep their columns.  :func:`tree_norm` adds the per-leaf
+partials of every rank.
 """
 from __future__ import annotations
 
+import bisect
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.comm import payloads, transports
 from repro_torch.comm.payloads import (FlatPacked, FlatQuant, PACK_BITS,
-                                       choose_block, pack_codes, to_u16,
+                                       block_geometry, pack_codes, to_u16,
                                        u16_to_i64, unpack_codes,
                                        words_per_block, _SORT_FREE_MIN)
 from repro_torch.core import compression
@@ -158,12 +176,44 @@ def unflatten(spec: FlatSpec, flat: torch.Tensor):
     return _rebuild(root)
 
 
-def tree_norm(spec: FlatSpec, flat: torch.Tensor) -> torch.Tensor:
+def tree_norm(spec: FlatSpec, flat: torch.Tensor,
+              cols: "Columns | None" = None) -> torch.Tensor:
     """sqrt(sum ||leaf||^2): each leaf slice reduces on its own and the
-    partials add in leaf order."""
-    parts = [flat[ls.offset:ls.offset + ls.size].to(torch.float32)
-             .square().sum() for ls in spec.leaves]
-    return torch.sqrt(sum(parts))
+    partials add in leaf order.
+
+    Under a model axis ``flat`` holds the columns ``cols``: each rank
+    reduces its part of every leaf, the ``[leaves]`` partials are
+    all-gathered over the model axis, a leaf's partials add in rank order
+    and the leaves in leaf order.  A leaf that lies on one rank gives one
+    process's partial bit for bit; a leaf that straddles a cut adds two
+    partial sums in another order than one process's single reduction
+    (allclose: within a few ulps of float32, rtol 1e-6 in the tests)."""
+    if cols is None:
+        parts = [flat[ls.offset:ls.offset + ls.size].to(torch.float32)
+                 .square().sum() for ls in spec.leaves]
+        return torch.sqrt(sum(parts))
+    from repro_torch.sharding import collectives
+    parts = torch.zeros(len(spec.leaves), dtype=torch.float32,
+                        device=flat.device)
+    for i, a, b in pieces(spec, cols.lo, cols.hi):
+        parts[i] = flat[a - cols.lo:b - cols.lo].to(torch.float32) \
+            .square().sum()
+    size = len(cols.split.cuts) - 1
+    every = collectives.all_gather_rows(parts[None], [1] * size,
+                                        axis="model")
+    total = []
+    for i, ls in enumerate(spec.leaves):
+        owners = [r for r in range(size)
+                  if _overlap(cols.split.block(r), ls)] or [0]
+        p = every[owners[0], i]
+        for r in owners[1:]:
+            p = p + every[r, i]
+        total.append(p)
+    return torch.sqrt(sum(total))
+
+
+def _overlap(block: tuple, ls: LeafSpec) -> bool:
+    return max(block[0], ls.offset) < min(block[1], ls.offset + ls.size)
 
 
 def struct_tree(spec: FlatSpec) -> dict:
@@ -173,11 +223,14 @@ def struct_tree(spec: FlatSpec) -> dict:
                                        device="meta"))
 
 
-def project_ball(spec: FlatSpec, flat: torch.Tensor, radius: float):
-    """Euclidean projection of the flat buffer onto ``||w|| <= radius``."""
+def project_ball(spec: FlatSpec, flat: torch.Tensor, radius: float,
+                 cols: "Columns | None" = None):
+    """Euclidean projection of the flat buffer onto ``||w|| <= radius``
+    (``flat`` the columns ``cols`` under a model axis: the norm is
+    :func:`tree_norm`'s over every rank)."""
     if not radius:
         return flat
-    nrm = tree_norm(spec, flat)
+    nrm = tree_norm(spec, flat, cols)
     scale = torch.clamp(radius / torch.clamp(nrm, min=1e-12), max=1.0)
     return flat * scale
 
@@ -235,8 +288,7 @@ def wire_layout(spec: FlatSpec, cfg) -> WireLayout:
     for ls in spec.leaves:
         D = ls.shape[-1] if len(ls.shape) else 1
         lead = ls.size // D
-        b = choose_block(D, cfg.block, cfg.shards)
-        k = max(1, min(b, int(round(b * cfg.ratio))))
+        b, k = block_geometry(D, cfg)
         lws.append(LeafWire(ls.offset, lead, D, b, lead * (D // b), k,
                             ls.size > _SORT_FREE_MIN))
     runs, koff, boff, woff = [], 0, 0, 0
@@ -275,6 +327,130 @@ def _cat(xs):
     if signed is None:
         return torch.cat(xs, dim=-1)
     return torch.cat([x.view(signed) for x in xs], dim=-1).view(xs[0].dtype)
+
+
+# ---------------------------------------------------------------------------
+# Column blocks under a model axis
+# ---------------------------------------------------------------------------
+
+class Columns(NamedTuple):
+    """This model rank's columns ``lo:hi`` of the flat buffer, one block of
+    ``split``."""
+    split: partition.ColumnSplit
+    lo: int
+    hi: int
+
+    @property
+    def width(self) -> int:
+        return self.hi - self.lo
+
+    def cut(self, flat: torch.Tensor) -> torch.Tensor:
+        """The columns of a whole ``[*lead, d]`` buffer (a view)."""
+        return flat[..., self.lo:self.hi]
+
+
+class PayloadCut(NamedTuple):
+    """A column block's contiguous ranges of the one-process payload:
+    top-k / rand-k slots, quant scales (blocks) and quant words."""
+    slots: tuple
+    blocks: tuple
+    words: tuple
+
+
+def pieces(spec: FlatSpec, lo: int, hi: int) -> list:
+    """``(leaf index, a, b)``: the flat columns ``a:b`` of each leaf that
+    meets the columns ``lo:hi``, in leaf order."""
+    out = []
+    for i, ls in enumerate(spec.leaves):
+        a, b = max(lo, ls.offset), min(hi, ls.offset + ls.size)
+        if a < b:
+            out.append((i, a, b))
+    return out
+
+
+def local_layout(layout: WireLayout, lo: int, hi: int) -> tuple:
+    """``(WireLayout, PayloadCut)`` of the columns ``lo:hi``: each run cut
+    to the blocks it holds there, offsets counted from ``lo`` and from the
+    block's first slot, scale and word.  A cut that divides a block raises
+    ``ValueError``."""
+    runs, koff, boff, woff, start = [], 0, 0, 0, None
+    for r in layout.runs:
+        a, b = max(lo, r.offset), min(hi, r.offset + r.span)
+        if a >= b:
+            continue
+        if (a - r.offset) % r.block or (b - r.offset) % r.block:
+            raise ValueError(f"columns {lo}:{hi} divide a block of "
+                             f"{r.block} in the run at {r.offset}")
+        first, nb = (a - r.offset) // r.block, (b - a) // r.block
+        if start is None:
+            start = (r.koff + first * r.k, r.boff + first,
+                     r.woff + first * r.W)
+        runs.append(RunSpec(a - lo, b - a, r.block, nb, r.k, r.sort_free,
+                            koff, boff, woff, r.W))
+        koff, boff, woff = koff + nb * r.k, boff + nb, woff + nb * r.W
+    k0, b0, w0 = start or (0, 0, 0)
+    return (WireLayout((), tuple(runs), koff, boff, woff),
+            PayloadCut((k0, k0 + koff), (b0, b0 + boff), (w0, w0 + woff)))
+
+
+def _leaf_units(ft: "FlatTransport") -> list:
+    """Per leaf, the columns of one compression unit of a whole-width
+    transport: its block where the operator works block by block, the
+    whole leaf where it decides per leaf, 1 where it works per entry."""
+    spec = ft.spec
+    if ft.is_identity:
+        return [1] * len(spec.leaves)
+    lws = wire_layout(spec, ft.cfg).leaves
+    out = []
+    for ls, lw in zip(spec.leaves, lws):
+        if ft.codec is not None:
+            unit = lw.block
+        elif ft.kind == "quant":
+            unit = lw.block if ls.shape else 1
+        elif ft.kind == "topk":
+            unit = lw.block if ls.size > _SORT_FREE_MIN else ls.size
+        elif ft.kind == "natural":
+            unit = 1
+        else:                   # rand-k: one permutation per leaf
+            unit = ls.size
+        out.append(max(1, unit))
+    return out
+
+
+def column_split(spec: FlatSpec, transports, size: int
+                 ) -> partition.ColumnSplit:
+    """``size`` column blocks of ``spec``'s flat buffer whose cuts divide
+    no compression unit of any of ``transports`` (whole-width
+    :class:`FlatTransport`): cut r lies at the unit boundary nearest to
+    ``r * d / size`` (the lower one on a tie), so the blocks balance the
+    element count as nearly as the units allow."""
+    units = [1] * len(spec.leaves)
+    for ft in transports:
+        units = [math.lcm(a, b) for a, b in zip(units, _leaf_units(ft))]
+    ends = [ls.offset + ls.size for ls in spec.leaves]
+    cuts = [0]
+    for r in range(1, size):
+        target = (r * spec.d + size // 2) // size
+        i = min(bisect.bisect_right(ends, target), len(ends) - 1)
+        ls, u = spec.leaves[i], units[i]
+        below = ls.offset + (target - ls.offset) // u * u
+        above = min(below + u, ls.offset + ls.size)
+        cut = below if target - below <= above - target else above
+        cuts.append(max(cut, cuts[-1]))
+    cuts.append(spec.d)
+    return partition.ColumnSplit(tuple(cuts))
+
+
+def columns_for(cfg, spec: FlatSpec) -> "Columns | None":
+    """This rank's :class:`Columns` of a round of FedConfig ``cfg`` under a
+    rank mesh with a model axis (:func:`column_split` of the uplink and
+    the downlink); None without one."""
+    ma = partition.model_axis()
+    if ma is None:
+        return None
+    split = column_split(spec, flat_transports_for(cfg, spec), ma.size)
+    lo, hi = split.block(ma.rank)
+    return Columns(split, lo, hi)
 
 
 # ---------------------------------------------------------------------------
@@ -445,13 +621,13 @@ class _QuantPallasCodec(_QuantCodec):
         return msg
 
 
-def _make_codec(t: transports.Transport, spec: FlatSpec):
+def _make_codec(t: transports.Transport, spec: FlatSpec, layout=None):
     """The flat wire codec for a transport, or None for a dense wire (the
     ref backend, ``none``, ``natural``, quant at a bit width that does not
-    pack)."""
+    pack).  ``layout``: a column block's (default: the whole buffer's)."""
     if t.backend == "ref" or t.kind in ("none", "natural"):
         return None
-    layout = wire_layout(spec, t.cfg)
+    layout = layout or wire_layout(spec, t.cfg)
     pallas = t.backend == "pallas"
     if t.kind == "topk":
         return _SelectCodec(t.cfg, spec, layout, pallas)
@@ -489,22 +665,39 @@ class FlatTransport:
     payload) and the k partials add left to right.  ``cohorts=1`` is the
     single-tier reduce itself; select partials re-associate the same
     weighted sums, quant's are a reordered sum (allclose).
+
+    ``cols`` (a :class:`Columns` block, under a model axis) makes every
+    buffer, stack and message the block's columns (see the module
+    docstring); :meth:`wire_bytes` still counts a whole message.
     """
 
     def __init__(self, t: transports.Transport, spec: FlatSpec,
-                 cohorts: int = 1):
+                 cohorts: int = 1, cols: "Columns | None" = None):
         self.cfg = t.cfg
         self.kind = t.kind
         self.backend = t.backend
         self.spec = spec
         self.cohorts = max(1, int(cohorts))
+        self.cols = cols
+        self.whole = self.cut = None
         self.codec = _make_codec(t, spec)
+        if cols is not None:
+            self.whole = FlatTransport(t, spec, cohorts)
+            if self.codec is not None:
+                layout, self.cut = local_layout(self.codec.layout, cols.lo,
+                                                cols.hi)
+                self.codec = _make_codec(t, spec, layout)
         if self.codec is None and t.kind == "quant" and t.backend != "ref":
             # quant at a bit width that does not pack, on the packed or
             # pallas backend: the dense wire of the ref transport (the same
             # values as the dense quantizer, bit for bit)
             t = transports.get_transport(t.cfg, "ref")
         self.t = t
+
+    @property
+    def width(self) -> int:
+        """Columns of the buffers this transport works on."""
+        return self.spec.d if self.cols is None else self.cols.width
 
     @property
     def is_identity(self) -> bool:
@@ -530,6 +723,8 @@ class FlatTransport:
         """True wire bytes of one message: packed formats count their
         arrays (uint32 words, uint16 offsets); dense wires take the tree
         transport's accounting."""
+        if self.whole is not None:
+            return self.whole.wire_bytes()
         if self.codec is None:
             return self.t.wire_bytes(struct_tree(self.spec))
         return self.codec.wire_bytes()
@@ -541,6 +736,8 @@ class FlatTransport:
         the random kinds' generator."""
         if self.is_identity:
             return buf
+        if self.cols is not None and self.needs_key:
+            return self._drawn_whole(buf, gen)
         if self.codec is None:
             return self._dense(buf, gen)
         return self.codec.pack(buf, gen)
@@ -555,8 +752,51 @@ class FlatTransport:
         operator is :func:`repro_torch.core.compression.compress`, run on
         the unflattened buffer with the lead axes as batch axes."""
         batch = buf.dim() - 1
+        if self.cols is not None:
+            return self._dense_columns(buf, batch)
         return flatten(self.spec, compression.compress(
             unflatten(self.spec, buf), self.cfg, gen, batch))
+
+    def _dense_columns(self, buf: torch.Tensor, batch: int) -> torch.Tensor:
+        """:meth:`_dense` of a deterministic kind on the columns ``cols``:
+        a whole leaf through ``compress_leaf``, part of one (blockwise
+        operators only: the cuts follow their blocks) through
+        ``compress_blocks`` with the leaf's block and k; the dtype round
+        trip of ``unflatten`` / ``flatten``."""
+        lead, lo = tuple(buf.shape[:-1]), self.cols.lo
+        lws = wire_layout(self.spec, self.cfg).leaves
+        outs = []
+        for i, a, b in pieces(self.spec, lo, self.cols.hi):
+            ls, x = self.spec.leaves[i], buf[..., a - lo:b - lo]
+            if b - a == ls.size:
+                y = compression.compress_leaf(
+                    x.reshape(lead + ls.shape).to(ls.dtype), self.cfg, None,
+                    batch)
+            else:
+                lw = lws[i]
+                y = compression.compress_blocks(
+                    x.reshape(lead + (-1, lw.block)).to(ls.dtype),
+                    self.cfg, lw.k, lw.sort_free)
+            outs.append(y.to(self.spec.dtype).reshape(lead + (b - a,)))
+        # a new tensor even for one piece: an operator that keeps its
+        # whole leaf gives the leaf back, and the EF step updates ``buf``
+        # in place
+        return torch.cat(outs, dim=-1)
+
+    def _drawn_whole(self, row: torch.Tensor, gen) -> torch.Tensor:
+        """A random kind's message of one row of the columns ``cols``: the
+        row placed in a whole ``[d]`` row of zeros, compressed with the
+        one-process draws from ``gen``, the message cut to the columns
+        (its slot range on a packed wire)."""
+        lo, hi = self.cols.lo, self.cols.hi
+        full = row.new_zeros((self.spec.d,))
+        full[lo:hi] = row
+        msg = self.whole.compress(full, gen)
+        if self.codec is None:
+            return msg[lo:hi].clone()
+        k0, k1 = self.cut.slots
+        return FlatPacked(msg.values[k0:k1].clone(),
+                          msg.indices[k0:k1].clone())
 
     # -- round-level call sites ---------------------------------------------
 
@@ -628,7 +868,7 @@ class FlatTransport:
         def rows(width, dtype):
             return torch.empty((0, width), dtype=dtype, device=device)
         if self.is_identity or self.codec is None:
-            return rows(self.spec.d, self.spec.dtype)
+            return rows(self.width, self.spec.dtype)
         layout = self.codec.layout
         if isinstance(self.codec, _QuantCodec):
             return FlatQuant(rows(layout.W_total, torch.uint32),
@@ -727,12 +967,13 @@ class FlatTransport:
             return w + self.decompress(self.compress(x_new - w, gen))
 
 
-def flat_transports_for(cfg, spec: FlatSpec):
-    """(uplink, downlink) :class:`FlatTransport` pair for a FedConfig;
-    ``cfg.scale.cohorts`` sets the uplink's two-tier aggregation (the
-    downlink is one broadcast and never tiers)."""
+def flat_transports_for(cfg, spec: FlatSpec, cols: "Columns | None" = None):
+    """(uplink, downlink) :class:`FlatTransport` pair for a FedConfig, on
+    the columns ``cols`` when given; ``cfg.scale.cohorts`` sets the
+    uplink's two-tier aggregation (the downlink is one broadcast and never
+    tiers)."""
     backend = transports.backend_for(cfg.comm)
     return (FlatTransport(transports.get_transport(cfg.uplink, backend), spec,
-                          cohorts=cfg.scale.cohorts),
+                          cohorts=cfg.scale.cohorts, cols=cols),
             FlatTransport(transports.get_transport(cfg.downlink, backend),
-                          spec))
+                          spec, cols=cols))

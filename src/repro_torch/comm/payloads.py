@@ -186,20 +186,25 @@ def block_topk_unpack(p: PackedLeaf, shape, dtype=torch.float32,
     return dense.reshape(tuple(shape)).to(dtype)
 
 
+def sort_free_keep(blocks: torch.Tensor, k: int) -> torch.Tensor:
+    """The sort-free block top-k of a ``[..., nblocks, block]`` view, dense:
+    what lies above :func:`_block_threshold` kept, +0.0 elsewhere (the
+    reference's ``blocks * keep`` is a select: NaNs, -0.0 and negatives
+    below it all become +0.0); ``k >= block`` keeps every entry."""
+    if k >= blocks.shape[-1]:
+        return blocks
+    absx = blocks.abs()
+    return torch.where(absx > _block_threshold(absx, k), blocks, 0.0)
+
+
 def block_topk_dense(x: torch.Tensor, cfg) -> torch.Tensor:
     """Dense result of block-wise top-k (pack then unpack); giant leaves
-    keep what lies above the per-block threshold instead, and write +0.0
-    elsewhere (the reference's ``blocks * keep`` is a select: NaNs, -0.0
-    and negatives below it all become +0.0)."""
+    through :func:`sort_free_keep` instead."""
     if x.dim() == 0:
         return x
     blocks, b, k = _leaf_blocks(x, cfg)
     if x.numel() > _SORT_FREE_MIN and b > 1:
-        if k >= b:
-            return x
-        absx = blocks.abs()
-        keep = absx > _block_threshold(absx, k)
-        return torch.where(keep, blocks, 0.0).reshape(x.shape)
+        return sort_free_keep(blocks, k).reshape(x.shape)
     return block_topk_unpack(block_topk_pack(x, cfg), x.shape, x.dtype,
                              block=b)
 

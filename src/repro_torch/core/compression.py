@@ -21,7 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.comm.payloads import (_SORT_FREE_MIN, block_topk_dense,
-                                       choose_block, tree_leaves, tree_map)
+                                       choose_block, sort_free_keep,
+                                       tree_leaves, tree_map)
 
 
 def _rows(x: torch.Tensor, batch: int) -> torch.Tensor:
@@ -70,12 +71,16 @@ def _leaf_quant(x: torch.Tensor, bits: int, block: int, shards: int = 1,
     D = x.shape[-1]
     b = choose_block(D, block, shards)
     blocks = x.reshape(tuple(x.shape[:-1]) + (D // b, b))
+    return _quant_blocks(blocks, bits).reshape(x.shape)
+
+
+def _quant_blocks(blocks: torch.Tensor, bits: int) -> torch.Tensor:
+    """:func:`_leaf_quant`'s rounding of ``[..., block]`` blocks."""
     scale = blocks.abs().amax(dim=-1, keepdim=True)
-    levels = torch.tensor(float(2 ** (bits - 1) - 1), device=x.device)
+    levels = torch.tensor(float(2 ** (bits - 1) - 1), device=blocks.device)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.round(blocks / safe * levels) / levels * safe
-    q = torch.where(scale > 0, q, torch.zeros_like(q))
-    return q.reshape(x.shape)
+    return torch.where(scale > 0, q, torch.zeros_like(q))
 
 
 def _leaf_natural(x: torch.Tensor, gen: Optional[torch.Generator]):
@@ -118,6 +123,24 @@ def compress_leaf(x: torch.Tensor, cfg, gen: Optional[torch.Generator] = None,
     if cfg.kind == "quant":
         return _leaf_quant(x, cfg.bits, cfg.block, cfg.shards, batch)
     raise ValueError(f"unknown compressor kind: {cfg.kind}")
+
+
+def compress_blocks(blocks: torch.Tensor, cfg, k: int,
+                    giant: bool) -> torch.Tensor:
+    """The operator C of a deterministic blockwise kind on ``[...,
+    nblocks, block]`` blocks of a leaf (the leaf's own block size and top-k
+    slots ``k``: ``payloads.block_geometry``; the lead axes batch axes):
+    what :func:`compress_leaf` gives those blocks of the whole leaf.
+    ``quant`` rounds every leaf by blocks, ``topk`` only a leaf above
+    ``_SORT_FREE_MIN`` elements (``giant``): a column block of the flat
+    buffer holding part of such a leaf compresses on its own
+    (``comm.flat`` under a model axis)."""
+    if cfg.kind == "quant":
+        return _quant_blocks(blocks, cfg.bits)
+    if cfg.kind != "topk" or not giant:
+        raise ValueError(f"{cfg.kind} (giant={giant}) does not compress by "
+                         "blocks")
+    return sort_free_keep(blocks, k)
 
 
 def compress(tree, cfg, gen: Optional[torch.Generator] = None,

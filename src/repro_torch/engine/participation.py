@@ -23,7 +23,9 @@ then runs the uplink rank by rank: each encodes its block (the dense
 residual's rows brought from their owners and sent back after the EF
 step), the messages are all-gathered in row order and every rank reduces
 all of them as one process does.  :func:`aggregate_norm` gives every rank
-one process's ``delta_norm``.
+one process's ``delta_norm``.  Under a model axis every row is this
+rank's columns of it: the same calls run on the columns, and the norm
+adds every model rank's partials (``comm.flat.tree_norm``).
 """
 from __future__ import annotations
 
@@ -141,10 +143,13 @@ def aggregate(part: Participation, deltas: torch.Tensor) -> torch.Tensor:
 
 def aggregate_norm(part: Participation, deltas: torch.Tensor, norm):
     """``norm(aggregate(part, deltas))`` (``rounds``' ``delta_norm``).
-    Under a rank mesh every rank's block of the delta rows goes to rank 0,
-    which aggregates them as one process does and broadcasts the norm: the
-    rows cross ranks once, ``(W - 1) / W`` of the ``[rows, d]`` stack, and
-    rank 0 holds them all."""
+    Under a rank mesh every rank's block of the delta rows goes to rank 0
+    of the client axis, which aggregates them as one process does and
+    broadcasts the norm: the rows cross ranks once, ``(W - 1) / W`` of the
+    ``[rows, d]`` stack, and rank 0 holds them all.  Under a model axis
+    the rows are this rank's columns, and ``norm`` adds the partials of
+    the client-axis rank 0 of every model rank (the ranks that share its
+    data coordinate)."""
     if partition.rank_axis() is None:
         return norm(aggregate(part, deltas))
     rows = part.n if part.idx is None else part.m

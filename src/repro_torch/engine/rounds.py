@@ -72,6 +72,19 @@ aggregates, sigma, the reduce, the server step and the downlink run
 replicated.  Every rank ends each round with one process's ``w``, ``x``,
 averaged-iterate sums and metrics, bit for bit.  The telemetry bus,
 asynchronous rounds, checkpoints and the wire runtime refuse a rank mesh.
+
+With a model axis on the rank mesh (``make_rank_mesh(shape=(D, M),
+axes=("data", "model"))``) the flat state is split by columns as well
+(``comm.flat.columns_for``; the reference's ``constrain_flat`` sites).
+Each model rank still runs its rows' eval and local steps on the whole
+``w``, but cuts each delta row to its columns as soon as it is computed,
+and holds only its columns of ``x``, of the averaged-iterate sum and of
+the residual (the dense stack's or the slot store's pool:
+``partition.FlatShard`` state, client rows x columns on a 2-D mesh).  The
+uplink (EF14, the payloads, the reduce), the server step and the downlink
+run on the columns; the model axis then all-gathers the new ``w`` whole.
+The whole-``[d]`` norms (``delta_norm``, the projection's) add per-rank
+partials (``flat.tree_norm``).
 """
 from __future__ import annotations
 
@@ -101,6 +114,8 @@ class FedState(NamedTuple):
     e_up: object                  # uplink EF residuals: [n_clients, d],
                                   # a scale.slots.SlotStore, or None
     wbar_sum: Optional[torch.Tensor]  # weighted sum of w_t, flat [d]
+    # (under a model axis x, wbar_sum and the residual, or the store's
+    # pool, are partition.FlatShard: this rank's columns)
     wbar_weight: torch.Tensor
     t: int
     gen: torch.Generator          # participation draws (CPU)
@@ -152,19 +167,24 @@ def init_state(params, cfg, device="cuda") -> FedState:
     spec = flat.spec_of(params)
     w = flat.flatten(spec, params).to(dev).contiguous()
     uplink, downlink = transports_for(cfg)
+    cols = flat.columns_for(cfg, spec)
+    split = None if cols is None else cols.split
     e_up = None
     if uplink.needs_residual:
         if cfg.scale.ef_slots:
             slot_store.validate(cfg)
             e_up = slot_store.init(cfg.n_clients, cfg.scale.ef_slots,
-                                   spec.d, spec.dtype, dev)
+                                   spec.d, spec.dtype, dev, split)
         else:
-            e_up = partition.client_zeros((cfg.n_clients, spec.d),
-                                          spec.dtype, dev)
+            e_up = partition.flat_zeros((cfg.n_clients, spec.d),
+                                        spec.dtype, dev, split)
     return FedState(
         # x starts as w itself: no round updates either buffer in place
-        w=w, x=w if downlink.tracks_center else None, e_up=e_up,
-        wbar_sum=torch.zeros_like(w) if cfg.track_wbar else None,
+        # (under a model axis, a copy of this rank's columns)
+        w=w, x=(partition.constrain_flat(w, split)
+                if downlink.tracks_center else None), e_up=e_up,
+        wbar_sum=(partition.flat_zeros((spec.d,), spec.dtype, dev, split)
+                  if cfg.track_wbar else None),
         wbar_weight=torch.zeros((), dtype=torch.float32, device=dev),
         t=0, gen=torch.Generator().manual_seed(cfg.seed), spec=spec,
         sampler=samplers.get_sampler(cfg.fleet.sampler).init(cfg))
@@ -177,7 +197,8 @@ def averaged_iterate(state: FedState) -> dict:
         return flat.unflatten(state.spec, state.w)
     wgt = torch.clamp(state.wbar_weight, min=1e-12)
     return flat.unflatten(state.spec, torch.where(
-        state.wbar_weight > 0, state.wbar_sum / wgt, state.w))
+        state.wbar_weight > 0, partition.whole(state.wbar_sum) / wgt,
+        state.w))
 
 
 def sample_round(state: FedState, cfg, fleet=None):
@@ -238,15 +259,18 @@ def _eval_rows(pairs, total: int, device):
 
 
 def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
-                 n: int, first=None) -> torch.Tensor:
+                 n: int, first=None, cols=None) -> torch.Tensor:
     """Stage 4: E local SGD steps for each of the n rows of ``local_b`` on
     the strategy objective, ``Delta_j = (wf - w_{j,E}) / eta`` as one
-    ``[n, d]`` stack.  ``first(j)``, when given, is row j's first-step
-    gradient (the fused round's backward); the other steps are ordinary
-    forward + backward passes."""
+    ``[n, d]`` stack (under a model axis ``[n, cols.width]``: each row cut
+    to the columns ``cols`` as it is computed).  ``first(j)``, when given,
+    is row j's first-step gradient (the fused round's backward); the other
+    steps are ordinary forward + backward passes."""
     E, eta = cfg.local_steps, cfg.lr
     obj = strat.local_objective(loss_pair, sigma, cfg)
-    deltas = torch.empty((n, spec.d), dtype=wf.dtype, device=wf.device)
+    cut = (lambda v: v) if cols is None else cols.cut
+    deltas = torch.empty((n, spec.d if cols is None else cols.width),
+                         dtype=wf.dtype, device=wf.device)
     for j in range(n):
         batch = client_batch(local_b, j)
         w = wf
@@ -258,7 +282,7 @@ def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
                 (grad,) = torch.autograd.grad(
                     obj(flat.unflatten(spec, leaf), batch), leaf)
             w = w - eta * grad
-        torch.sub(wf, w, out=deltas[j])
+        torch.sub(cut(wf), cut(w), out=deltas[j])
         deltas[j].div_(eta)
     return deltas
 
@@ -306,7 +330,7 @@ def _fused_eval(wf, spec, strat, local_b, loss_pair: Callable, cfg, part,
 
 
 def compute_round(state: FedState, wf, spec, batches, part, strat,
-                  loss_pair: Callable, cfg, fleet=None):
+                  loss_pair: Callable, cfg, fleet=None, cols=None):
     """Stages 2-4 on the flat buffer: the fleet's minibatches (when
     ``fleet`` is given; ``batches`` is then ignored), the constraint query,
     the switch weight and the E local steps over the local rows (all n in
@@ -316,7 +340,8 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
     with the first local step where :func:`fuses` says so.  Returns
     ``(f_part, g_hat, g_full, f_full, sigma, deltas)``; ``deltas`` is
     ``[n, d]`` or ``[m, d]`` (under a rank mesh, this rank's block of
-    them; the eval's rows are gathered before the aggregates)."""
+    them, cut to the columns ``cols`` under a model axis; the eval's rows
+    are gathered before the aggregates)."""
     sparse_eval = part.idx is not None and not cfg.full_eval
     pre_gathered = fleet is not None and sparse_eval
     if fleet is not None:
@@ -343,34 +368,45 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
             sigma, first = strat.switch_weight(aggs[1], cfg), None
     with stage("round.local_deltas"):
         deltas = local_deltas(wf, spec, strat, sigma, local_b, loss_pair,
-                              cfg, n_local, first)
+                              cfg, n_local, first, cols)
     return (*aggs, sigma, deltas)
 
 
 def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
                  e_up, uplink, downlink, samp_state, f_part, g_hat, g_full,
-                 f_full, sigma, slot_stats=None
+                 f_full, sigma, slot_stats=None, cols=None
                  ) -> tuple[FedState, RoundMetrics]:
     """Stages 6-7 + bookkeeping, shared with the asynchronous round: server
     update of the center on the aggregated direction, primal-EF21 downlink
     broadcast, averaged-iterate accounting, metrics (with the telemetry
     record when ``cfg.obs.enabled``; ``slot_stats`` is the slot store's
     :class:`repro_torch.scale.slots.SlotStats` from the uplink call site,
-    None for a dense residual)."""
+    None for a dense residual).  Under a model axis (``cols``) ``v_bar``,
+    ``deltas`` and the transports are the columns': the new ``w`` is
+    all-gathered whole, ``x`` and the averaged-iterate sum stay split."""
+    split = None if cols is None else cols.split
+    w_cols = wf if cols is None else cols.cut(wf)
     with stage("round.server_update"):
-        xf = state.x if state.x is not None else wf
-        x_new = strat.server_update(xf, v_bar, cfg, spec)
+        xf = partition.flat_local(state.x) if state.x is not None \
+            else w_cols
+        x_new = strat.server_update(xf, v_bar, cfg, spec, cols)
     with stage("round.downlink"):
         w_new = downlink.broadcast(
-            wf, x_new, key=transports.WireKey(cfg.seed, state.t,
-                                              transports.DOWNLINK))
+            w_cols, x_new, key=transports.WireKey(cfg.seed, state.t,
+                                                  transports.DOWNLINK))
+        if cols is not None:
+            w_new = partition.whole(partition.FlatShard(w_new, split))
+            x_new = partition.FlatShard(x_new, split)
     alpha = strat.iterate_weight(g_hat, cfg)
-    wbar_sum = (axpy(alpha, state.w, state.wbar_sum)
-                if state.wbar_sum is not None else None)
+    wbar_sum = None
+    if state.wbar_sum is not None:
+        wbar_sum = axpy(alpha, w_cols, partition.flat_local(state.wbar_sum))
+        if cols is not None:
+            wbar_sum = partition.FlatShard(wbar_sum, split)
     dev = wf.device
     delta_norm = torch.zeros((), device=dev) if cfg.lean_metrics else \
         participation.aggregate_norm(part, deltas,
-                                     lambda v: flat.tree_norm(spec, v))
+                                     lambda v: flat.tree_norm(spec, v, cols))
     telemetry = None
     if cfg.obs.enabled:
         with stage("round.telemetry"):
@@ -413,17 +449,32 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
     with stage("round.sample_round"):
         part, samp_state = sample_round(state, cfg, fleet)
     spec, wf = state.spec, state.w
+    cols = flat.columns_for(cfg, spec)
     f_part, g_hat, g_full, f_full, sigma, deltas = compute_round(
-        state, wf, spec, batches, part, strat, loss_pair, cfg, fleet)
-    uplink, downlink = flat_transports_for(cfg, spec)
+        state, wf, spec, batches, part, strat, loss_pair, cfg, fleet, cols)
+    uplink, downlink = flat_transports_for(cfg, spec, cols)
     with stage("round.encode_reduce"):
         v_bar, e_up, slot_stats = participation.transmit(
-            uplink, state.e_up, deltas, part,
+            uplink, partition.map_tensors(partition.flat_local, state.e_up),
+            deltas, part,
             key=transports.WireKey(cfg.seed, state.t, transports.UPLINK),
             t=state.t)
     return finish_round(state, strat, cfg, spec, wf, part, deltas, v_bar,
-                        e_up, uplink, downlink, samp_state, f_part, g_hat,
-                        g_full, f_full, sigma, slot_stats=slot_stats)
+                        _columns_of(e_up, state.e_up), uplink, downlink,
+                        samp_state, f_part, g_hat, g_full, f_full, sigma,
+                        slot_stats=slot_stats, cols=cols)
+
+
+def _columns_of(e_new, e_old):
+    """The residual after the uplink with ``e_old``'s column shards: the
+    residual rows, or the slot store's pool, were updated in place, so the
+    old :class:`partition.FlatShard` holds them."""
+    if isinstance(e_old, partition.FlatShard):
+        return e_old
+    if isinstance(e_old, slot_store.SlotStore) and \
+            isinstance(e_old.pool, partition.FlatShard):
+        return e_new._replace(pool=e_old.pool)
+    return e_new
 
 
 def run_rounds(state: FedState, batch_fn: Callable, loss_pair: Callable,

@@ -6,7 +6,7 @@ A :class:`Strategy` supplies only the round's pluggable math:
 
 * ``switch_weight(g_hat, cfg) -> sigma_t``,
 * ``local_objective(loss_pair, sigma, cfg) -> (params, batch) -> scalar``,
-* ``server_update(x, v_bar, cfg, spec) -> x_{t+1}``,
+* ``server_update(x, v_bar, cfg, spec, cols) -> x_{t+1}``,
 * ``iterate_weight(g_hat, cfg) -> alpha_t``,
 * ``staleness_weight(s, sigma_origin, g_hat, cfg) -> lambda`` (async
   rounds).
@@ -59,9 +59,11 @@ class Strategy:
             return self.blend_values(f, g, sigma, cfg)
         return obj
 
-    def server_update(self, x, v_bar, cfg, spec):
-        """x_{t+1} = Pi_X(x_t - eta * v_bar) on flat buffers."""
-        return flat.project_ball(spec, x - cfg.lr * v_bar, cfg.proj_radius)
+    def server_update(self, x, v_bar, cfg, spec, cols=None):
+        """x_{t+1} = Pi_X(x_t - eta * v_bar) on flat buffers (the columns
+        ``cols`` of them under a model axis)."""
+        return flat.project_ball(spec, x - cfg.lr * v_bar, cfg.proj_radius,
+                                 cols)
 
     def iterate_weight(self, g_hat, cfg):
         raise NotImplementedError

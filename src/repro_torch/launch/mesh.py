@@ -11,9 +11,11 @@ lower nothing and run nothing, they only size each device's share.
 
 :func:`make_rank_mesh` lays the ranks of the default ``torch.distributed``
 group (started by the caller) out as a mesh: each entry is a
-:class:`RankDevice`, a rank and the device it computes on.  Under
-``sharding.partition.activate_mesh`` such a mesh runs the engine's rounds
-across the ranks (the client axis only: every other axis has size 1).
+:class:`RankDevice`, a rank and the device it computes on, rank r at the
+row-major coordinate of r (on a ``(D, M)`` ``("data", "model")`` mesh,
+``(r // M, r % M)``).  Under ``sharding.partition.activate_mesh`` such a
+mesh runs the engine's rounds across the ranks: the client axis over the
+rows of the round, the model axis over the columns of its flat state.
 """
 from __future__ import annotations
 

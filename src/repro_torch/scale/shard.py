@@ -18,6 +18,11 @@ rows back to their owners, which write them in place.  Which row goes where
 follows from host lists of row ids that every rank holds the same, so no
 rank asks another what to send.  In one process :func:`take` and
 :func:`put` are ``index_select`` and ``index_copy_``.
+
+Under a model axis as well, each rank's rows are its columns of them
+(``partition.FlatShard`` state): the rows move over the client axis's
+group only, each rank moving its columns; a fleet (token data, no flat
+axis) is split by rows alone.
 """
 from __future__ import annotations
 

@@ -96,13 +96,16 @@ def validate(cfg) -> None:
             ">= m")
 
 
-def init(n_clients: int, cap: int, d: int, dtype, device) -> SlotStore:
+def init(n_clients: int, cap: int, d: int, dtype, device,
+         split=None) -> SlotStore:
     """An empty store on ``device``: every slot free, no client assigned
-    (under a rank mesh the pool holds this rank's block of slots)."""
+    (under a rank mesh the pool holds this rank's block of slots; under a
+    model axis, as a ``partition.FlatShard``, only its columns of
+    ``split``)."""
     def full(shape, v, dt):
         return torch.full(shape, v, dtype=dt, device=device)
     return SlotStore(
-        pool=partition.client_zeros((cap, d), dtype, device),
+        pool=partition.flat_zeros((cap, d), dtype, device, split),
         owner=full((cap,), -1, torch.int32),
         stamp=full((cap,), -1, torch.int32),
         weight=torch.zeros((cap,), dtype=torch.float32, device=device),

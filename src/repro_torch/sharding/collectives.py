@@ -1,10 +1,18 @@
-"""The rank mesh's collectives: the client axis over the default
-``torch.distributed`` group (the caller starts it: NCCL on cards, gloo on
-the CPU).  Every row movement of a round under a rank mesh goes through
-this module:
+"""The rank mesh's collectives, over the ``torch.distributed`` group of
+one mesh axis (the caller starts the default group: NCCL on cards, gloo on
+the CPU).  Every function takes ``axis``, ``"client"`` (the default) or
+``"model"``, and runs over ``partition.axis_group(axis)``: the ranks that
+share this rank's coordinate on the other axis, or the default group
+itself where the axis holds every rank (so on a ``(W, 1)`` mesh every call
+is the default group's).  Ranks, counts and sources are coordinates on the
+axis.  Every row or column movement of a round under a rank mesh goes
+through this module:
 
 * :func:`all_gather_rows` -- each rank's block of a row list, all blocks to
-  every rank in row order (the per-row eval terms, the wire messages);
+  every rank in row order (the per-row eval terms, the wire messages; a
+  norm's per-leaf partials over the model axis);
+* :func:`all_gather_cols` -- each model rank's column block, all blocks to
+  every rank in column order (the new ``w`` every round);
 * :func:`exchange_rows` -- an all-to-all of row counts known to every rank
   (residual rows to the rank that works on them and back, a fleet's
   sampled rows);
@@ -23,7 +31,7 @@ takes CUDA tensors as they are.
 bytes this rank sent to other ranks and received from them (padding
 included; its own block not), the host seconds spent in this module (the
 wait for the slowest rank included) and, of those, the seconds of the
-staging copies.
+staging copies; :func:`stats_by_axis` the same for each axis's group.
 """
 from __future__ import annotations
 
@@ -31,23 +39,47 @@ import time
 
 import torch
 
-_STATS = {"calls": 0, "bytes_out": 0, "bytes_in": 0, "seconds": 0.0,
-          "stage_seconds": 0.0}
+AXES = ("client", "model")
+_ZERO = {"calls": 0, "bytes_out": 0, "bytes_in": 0, "seconds": 0.0,
+         "stage_seconds": 0.0}
+_STATS = {axis: dict(_ZERO) for axis in AXES}
 
 
 def stats() -> dict:
-    """The counters since the last :func:`reset_stats`."""
-    return dict(_STATS)
+    """The counters since the last :func:`reset_stats`, both axes
+    together."""
+    return {k: sum(_STATS[a][k] for a in AXES) for k in _ZERO}
+
+
+def stats_by_axis() -> dict:
+    """The counters since the last :func:`reset_stats`, per axis."""
+    return {a: dict(_STATS[a]) for a in AXES}
 
 
 def reset_stats() -> None:
-    _STATS.update(calls=0, bytes_out=0, bytes_in=0, seconds=0.0,
-                  stage_seconds=0.0)
+    for a in AXES:
+        _STATS[a].update(_ZERO)
 
 
 def _dist():
     import torch.distributed as dist
     return dist
+
+
+def _group(axis: str):
+    """``axis``'s group (None: the default group), its size and this
+    rank's coordinate in it."""
+    from repro_torch.sharding import partition
+    dist = _dist()
+    group = partition.axis_group(axis)
+    if group is None:
+        return None, dist.get_world_size(), dist.get_rank()
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _global(group, src: int) -> int:
+    """The default group's rank of coordinate ``src`` of ``group``."""
+    return src if group is None else _dist().get_global_rank(group, src)
 
 
 def _staged(x: torch.Tensor) -> bool:
@@ -79,111 +111,138 @@ def _buffer(shape, b: torch.Tensor) -> torch.Tensor:
                        pin_memory=b.is_pinned())
 
 
-def _to_host(b: torch.Tensor) -> torch.Tensor:
+def _to_host(b: torch.Tensor, st: dict) -> torch.Tensor:
     """A CUDA ``uint8`` tensor copied into pinned host memory."""
     t0 = time.perf_counter()
     out = torch.empty(b.shape, dtype=torch.uint8, pin_memory=True).copy_(b)
-    _STATS["stage_seconds"] += time.perf_counter() - t0
+    st["stage_seconds"] += time.perf_counter() - t0
     return out
 
 
-def _from_bytes(b: torch.Tensor, like: torch.Tensor, device) -> torch.Tensor:
+def _from_bytes(b: torch.Tensor, like: torch.Tensor, device,
+                st: dict) -> torch.Tensor:
     """Inverse of :func:`_as_bytes` for rows shaped like ``like``'s, moved
     to ``device``."""
     rows, tail = b.shape[0], tuple(like.shape[1:])
     if b.device != torch.device(device):
         t0 = time.perf_counter()
         b = b.to(device)
-        _STATS["stage_seconds"] += time.perf_counter() - t0
+        st["stage_seconds"] += time.perf_counter() - t0
     if _row_elems(tail) == 0:
         return torch.empty((rows,) + tail, dtype=like.dtype, device=device)
     return b.view(like.dtype).reshape((rows,) + tail)
 
 
 class _Timed:
+    """One call's host seconds into the counters of its axis."""
+
+    def __init__(self, axis: str):
+        self.st = _STATS[axis]
+
     def __enter__(self):
         self.t0 = time.perf_counter()
-        return self
+        return self.st
 
     def __exit__(self, *exc):
-        _STATS["seconds"] += time.perf_counter() - self.t0
-        _STATS["calls"] += 1
+        self.st["seconds"] += time.perf_counter() - self.t0
+        self.st["calls"] += 1
 
 
-def all_gather_rows(x: torch.Tensor, counts) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, counts, axis: str = "client"
+                    ) -> torch.Tensor:
     """Every rank's block of a row list, in rank order: ``x`` is this
     rank's ``[counts[rank], ...]`` block, the result ``[sum(counts),
-    ...]`` on ``x``'s device, the same on every rank.  Blocks are padded to
-    the largest for the collective; where a block is empty, every rank
-    takes rank 0's dtype."""
+    ...]`` on ``x``'s device, the same on every rank of ``axis``.  Blocks
+    are padded to the largest for the collective; where a block is empty,
+    every rank takes rank 0's dtype."""
     dist = _dist()
-    W, me = dist.get_world_size(), dist.get_rank()
+    group, W, me = _group(axis)
     counts = [int(c) for c in counts]
     if x.shape[0] != counts[me]:
         raise ValueError(f"rank {me} holds {x.shape[0]} rows, its block "
                          f"has {counts[me]}")
-    with _Timed():
+    with _Timed(axis) as st:
         if 0 in counts and sum(counts):
             # a rank with no rows cannot know their dtype (the eval's
             # losses): rank 0, which holds the first and longest block,
             # says it
             dtype = [x.dtype]
-            dist.broadcast_object_list(dtype, src=0)
+            dist.broadcast_object_list(dtype, src=_global(group, 0),
+                                       group=group)
             x = x.to(dtype[0])
         b = _as_bytes(x)
         top, B = max(counts), b.shape[1]
         if top == 0 or B == 0:
             return _from_bytes(torch.empty((sum(counts), B),
-                                           dtype=torch.uint8), x, x.device)
+                                           dtype=torch.uint8), x, x.device,
+                               st)
         if b.shape[0] < top:
             b = torch.cat([b, b.new_zeros((top - b.shape[0], B))])
         if _staged(b):
-            b = _to_host(b)
+            b = _to_host(b, st)
         outs = [_buffer((top, B), b) for _ in range(W)]
-        dist.all_gather(outs, b)
+        dist.all_gather(outs, b, group=group)
         full = torch.cat([o[:c] for o, c in zip(outs, counts)],
                          out=_buffer((sum(counts), B), b))
-        _STATS["bytes_out"] += top * B * (W - 1)
-        _STATS["bytes_in"] += top * B * (W - 1)
-        return _from_bytes(full, x, x.device)
+        st["bytes_out"] += top * B * (W - 1)
+        st["bytes_in"] += top * B * (W - 1)
+        return _from_bytes(full, x, x.device, st)
 
 
-def exchange_rows(x: torch.Tensor, send_counts, recv_counts
-                  ) -> torch.Tensor:
+def all_gather_cols(x: torch.Tensor, widths, axis: str = "model"
+                    ) -> torch.Tensor:
+    """Every rank's block of columns, in rank order: ``x`` is this rank's
+    ``[..., widths[rank]]`` block of the trailing axis, the result
+    ``[..., sum(widths)]`` on ``x``'s device, the same on every rank of
+    ``axis``.  The columns cross as the rows of the transposed block (a
+    ``[d]`` vector's columns are its rows: no copy)."""
+    lead = tuple(x.shape[:-1])
+    flat = x.reshape(-1, x.shape[-1])
+    rows = flat.reshape(-1, 1) if flat.shape[0] == 1 else \
+        flat.T.contiguous()
+    full = all_gather_rows(rows, widths, axis)
+    return full.T.reshape(lead + (full.shape[0],)).contiguous()
+
+
+def exchange_rows(x: torch.Tensor, send_counts, recv_counts,
+                  axis: str = "client") -> torch.Tensor:
     """All-to-all of rows: ``x`` holds the rows this rank sends, grouped by
     destination rank in rank order (``send_counts[r]`` rows to rank r); the
     result holds the rows received, grouped by source rank in rank order
     (``recv_counts[r]`` from rank r), on ``x``'s device."""
     dist = _dist()
-    me = dist.get_rank()
+    group, _, me = _group(axis)
     send = [int(c) for c in send_counts]
     recv = [int(c) for c in recv_counts]
-    with _Timed():
+    with _Timed(axis) as st:
         b = _as_bytes(x)
         B = b.shape[1]
         if B == 0:
             return _from_bytes(torch.empty((sum(recv), 0),
-                                           dtype=torch.uint8), x, x.device)
+                                           dtype=torch.uint8), x, x.device,
+                               st)
         if _staged(b):
-            b = _to_host(b)
+            b = _to_host(b, st)
         out = _buffer((sum(recv), B), b)
-        dist.all_to_all_single(out, b, recv, send)
-        _STATS["bytes_out"] += (sum(send) - send[me]) * B
-        _STATS["bytes_in"] += (sum(recv) - recv[me]) * B
-        return _from_bytes(out, x, x.device)
+        dist.all_to_all_single(out, b, recv, send, group=group)
+        st["bytes_out"] += (sum(send) - send[me]) * B
+        st["bytes_in"] += (sum(recv) - recv[me]) * B
+        return _from_bytes(out, x, x.device, st)
 
 
-def broadcast(x: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``x`` on every rank (a new tensor of ``x``'s shape,
-    dtype and device)."""
+def broadcast(x: torch.Tensor, src: int = 0, axis: str = "client"
+              ) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank of ``axis`` (a new tensor of
+    ``x``'s shape, dtype and device)."""
     dist = _dist()
-    with _Timed():
+    group, W, me = _group(axis)
+    with _Timed(axis) as st:
         b = _as_bytes(x.reshape(1, -1))
-        b = _to_host(b) if _staged(b) else b.clone()
-        dist.broadcast(b, src)
-        nbytes = b.numel() * (dist.get_world_size() - 1)
-        if dist.get_rank() == src:
-            _STATS["bytes_out"] += nbytes
+        b = _to_host(b, st) if _staged(b) else b.clone()
+        dist.broadcast(b, _global(group, src), group=group)
+        if me == src:
+            st["bytes_out"] += b.numel() * (W - 1)
         else:
-            _STATS["bytes_in"] += b.numel()
-        return _from_bytes(b, x.reshape(1, -1), x.device).reshape(x.shape)
+            st["bytes_in"] += b.numel()
+        return _from_bytes(b, x.reshape(1, -1), x.device,
+                           st).reshape(x.shape)

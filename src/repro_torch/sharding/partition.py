@@ -19,17 +19,32 @@ Two kinds of mesh:
   :func:`constrain_leading`, :func:`constrain_flat`) stay the identity on
   values -- one process holds whole tensors;
 * a rank mesh (``launch.mesh.make_rank_mesh``: its entries are the ranks
-  of the default ``torch.distributed`` group): the mesh's client axis
-  ("client" -> "data", or ``client_axis``) runs over the ranks, and
-  :func:`rank_axis` gives this process its coordinate.  A tensor whose
-  leading axis is constrained to the client axis becomes a
-  :class:`ClientShard`, this rank's contiguous block of rows
-  (:func:`block`), and :func:`gather_leading` all-gathers the blocks back
-  in row order (``sharding.collectives``).  Only the client axis is
-  ported: a rank mesh with another axis larger than 1 (the ``model``
-  axis: tensor parallelism, ``shard_act`` in the models,
-  ``constrain_flat``) raises ``NotImplementedError``, as does one whose
-  size is not the world's.  A one-rank mesh is one process: nothing calls
+  of the default ``torch.distributed`` group, rank r at the row-major
+  coordinate of r).  Two of its axes run over the ranks:
+
+  - the client axis ("client" -> "data", or ``client_axis``):
+    :func:`rank_axis` gives this process its coordinate.  A tensor whose
+    leading axis is constrained to the client axis becomes a
+    :class:`ClientShard`, this rank's contiguous block of rows
+    (:func:`block`), and :func:`gather_leading` all-gathers the blocks
+    back in row order;
+  - the model axis ("flat" -> "model"): :func:`model_axis` gives this
+    process its coordinate.  :func:`constrain_flat` cuts the trailing axis
+    of the round's flat ``[d]`` / ``[n, d]`` buffers into contiguous
+    column blocks (a :class:`ColumnSplit`; ``comm.flat.columns_for``
+    chooses one whose cuts never divide a compression unit) and gives this
+    rank its block as a :class:`FlatShard`; :func:`whole` all-gathers both
+    kinds of shard back.
+
+  Client-axis traffic runs over the ranks that share a model coordinate,
+  model-axis traffic over the ranks that share a client coordinate: one
+  ``torch.distributed`` group each, built by :func:`activate_mesh` (the
+  default group itself where an axis holds every rank, so a ``(W, 1)``
+  mesh makes the calls of a client axis alone).  The models stay whole on
+  every model rank: ``shard_act`` is the identity (tensor parallelism
+  inside the models is not ported yet).  A ``pod`` axis (or any other)
+  larger than 1 raises ``NotImplementedError``, as does a mesh whose size
+  is not the world's.  A one-rank mesh is one process: nothing calls
   ``torch.distributed``.
 """
 from __future__ import annotations
@@ -59,12 +74,15 @@ DEFAULT_LOGICAL = {
 _ACTIVE_MESH = None
 _LOGICAL: dict = {}
 _RANKS = None
+_MODEL = None
+_GROUPS: dict = {"client": None, "model": None}
 
 
 class RankAxis(NamedTuple):
-    """This process's place on an active rank mesh's client axis."""
-    rank: int               # coordinate on the client axis (= its rank)
-    size: int               # ranks on the axis (= the world)
+    """This process's place on one axis of an active rank mesh."""
+    rank: int               # coordinate on the axis (its rank in the
+                            # axis's group)
+    size: int               # ranks on the axis
     device: str             # this rank's device
 
 
@@ -79,8 +97,9 @@ def activate_mesh(mesh, logical: Optional[dict] = None,
     """Install the mesh and the logical-axis table (``logical`` overrides
     the defaults).  With a mesh, ``client_axis`` (when given) becomes the
     "client" axis, and logical axes that point at axes the mesh lacks are
-    dropped (replicated)."""
-    global _ACTIVE_MESH, _LOGICAL, _RANKS
+    dropped (replicated).  A rank mesh is checked first (nothing changes
+    when it is refused), then its axes' groups are built."""
+    global _ACTIVE_MESH, _LOGICAL, _RANKS, _MODEL, _GROUPS
     table = dict(DEFAULT_LOGICAL)
     if logical:
         table.update(logical)
@@ -92,16 +111,21 @@ def activate_mesh(mesh, logical: Optional[dict] = None,
             axes = v if isinstance(v, tuple) else (v,)
             if any(a is not None and a not in names for a in axes):
                 table[k] = None
-    ranks = _rank_axis(mesh, table["client"])
-    _ACTIVE_MESH, _LOGICAL, _RANKS = mesh, table, ranks
+    ranks, model, groups = _rank_axes(mesh, table["client"], table["flat"])
+    _ACTIVE_MESH, _LOGICAL, _RANKS, _MODEL, _GROUPS = (mesh, table, ranks,
+                                                        model, groups)
 
 
-def _rank_axis(mesh, client) -> Optional[RankAxis]:
-    """The checks of a rank mesh and this rank's :class:`RankAxis` (None
-    for no mesh, a mesh of devices or placeholders, or one rank)."""
+def _rank_axes(mesh, client, model) -> tuple:
+    """The checks of a rank mesh; this rank's client and model
+    :class:`RankAxis` (None for an axis of one rank, and for no mesh or a
+    mesh of devices or placeholders) and each axis's group (None: the
+    default group)."""
     from repro_torch.launch.mesh import is_rank_mesh
+    none = (None, None, {"client": None, "model": None})
     if not is_rank_mesh(mesh):
-        return None
+        return none
+    import numpy as np
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("a rank mesh needs the default process group: "
@@ -112,31 +136,64 @@ def _rank_axis(mesh, client) -> Optional[RankAxis]:
             f"a rank mesh of {mesh.size} ranks in a world of {world}: the "
             "port runs one rank per mesh entry over the whole default group")
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    others = {a: s for a, s in sizes.items() if a != client and s > 1}
-    if client is None or others:
+    others = {a: s for a, s in sizes.items()
+              if a not in (client, model) and s > 1}
+    if others:
         raise NotImplementedError(
-            f"rank mesh axes {sizes} with client axis {client!r}: only the "
-            "client axis runs over ranks; the 'model' axis (tensor "
-            "parallelism, shard_act in the models, constrain_flat, the fsdp "
-            "rules) is not ported yet")
+            f"rank mesh axes {sizes} with client axis {client!r} and model "
+            f"axis {model!r}: only those two run over ranks; a 'pod' axis "
+            "(the multi-pod mesh) is not ported yet")
     entries = list(mesh.devices.flat)
     if [e.rank for e in entries] != list(range(world)):
         raise ValueError("a rank mesh's entries must be the ranks in order")
     if world == 1:
-        return None
-    return RankAxis(me, world, entries[me].device)
+        return none
+    names = list(mesh.axis_names)
+    grid = np.arange(world).reshape(mesh.devices.shape)
+    lead = [names.index(a) for a in (client, model) if a in names]
+    grid = np.moveaxis(grid, lead, list(range(len(lead))))
+    D = sizes.get(client, 1) if client else 1
+    M = sizes.get(model, 1) if model else 1
+    grid = grid.reshape(D, M)
+    i, j = (int(v[0]) for v in np.nonzero(grid == me))
+    groups = {"client": None, "model": None}
+    if D > 1 and M > 1:
+        # every rank builds every group, in the same order
+        for axis, lines in (("client", grid.T), ("model", grid)):
+            for line in lines:
+                g = dist.new_group([int(r) for r in line])
+                if me in line:
+                    groups[axis] = g
+    dev = entries[me].device
+    return (RankAxis(i, D, dev) if D > 1 else None,
+            RankAxis(j, M, dev) if M > 1 else None, groups)
 
 
 def rank_axis() -> Optional[RankAxis]:
-    """This process's :class:`RankAxis` under an active rank mesh of two
-    or more ranks; None otherwise (one process runs the round)."""
+    """This process's place on the client axis of an active rank mesh
+    whose client axis holds two or more ranks; None otherwise (this
+    process runs every row of the round)."""
     return _RANKS
+
+
+def model_axis() -> Optional[RankAxis]:
+    """This process's place on the model axis of an active rank mesh whose
+    model axis holds two or more ranks; None otherwise (this process holds
+    every column of the flat state)."""
+    return _MODEL
+
+
+def axis_group(axis: str):
+    """The ``torch.distributed`` group of the ranks that share this rank's
+    coordinates on every axis but ``axis`` (``"client"`` or ``"model"``):
+    None for the default group (an axis that holds every rank)."""
+    return _GROUPS[axis]
 
 
 def refuse_ranks(what: str) -> None:
     """Raise ``NotImplementedError`` for ``what`` under a rank mesh (the
     parts of the engine that do not run across ranks yet)."""
-    if _RANKS is not None:
+    if _RANKS is not None or _MODEL is not None:
         raise NotImplementedError(
             f"{what} under a rank mesh is not ported yet: run it in one "
             "process (no mesh, or a one-rank mesh)")
@@ -194,7 +251,10 @@ class ClientShard:
 
 
 def local(x):
-    """A :class:`ClientShard`'s own rows; any other value as it is."""
+    """The tensor a shard holds here (a :class:`FlatShard`'s columns of a
+    :class:`ClientShard`'s own rows); any other value as it is."""
+    if isinstance(x, FlatShard):
+        x = x.local
     return x.local if isinstance(x, ClientShard) else x
 
 
@@ -295,10 +355,119 @@ def constrain_leading(tree, logical_name: str):
     return map_tensors(one, tree)
 
 
-def constrain_flat(tree, logical_name: str = "flat"):
+class ColumnSplit(NamedTuple):
+    """Contiguous column blocks of a flat ``[d]`` axis over the model axis:
+    model rank r holds columns ``cuts[r]:cuts[r + 1]``."""
+    cuts: tuple
+
+    @property
+    def d(self) -> int:
+        return self.cuts[-1]
+
+    def widths(self) -> list:
+        return [b - a for a, b in zip(self.cuts, self.cuts[1:])]
+
+    def block(self, rank: Optional[int] = None) -> tuple:
+        """``(lo, hi)``: the columns of ``rank`` (default: this rank's
+        model coordinate; every column without a model axis)."""
+        if rank is None:
+            if _MODEL is None:
+                return 0, self.d
+            rank = _MODEL.rank
+        return self.cuts[rank], self.cuts[rank + 1]
+
+
+class FlatShard:
+    """This model rank's contiguous column block (``split.block()``) of a
+    tensor whose trailing (flat) axis of ``split.d`` columns is split over
+    the model axis: the round's flat state under a rank mesh with a model
+    axis (the server center, the averaged-iterate sum, the uplink residual
+    or the slot store's pool).  ``local`` is a contiguous tensor of its
+    own, or a :class:`ClientShard` of such columns where the leading axis
+    is split over the client axis too."""
+
+    __slots__ = ("local", "split")
+
+    def __init__(self, local, split: ColumnSplit):
+        self.local, self.split = local, split
+
+    def __repr__(self) -> str:
+        lo, hi = self.split.block()
+        return (f"FlatShard(columns {lo}:{hi} of {self.split.d}, "
+                f"{self.local!r})")
+
+
+def constrain_flat(tree, split: Optional[ColumnSplit] = None,
+                   logical_name: str = "flat"):
     """Pin every leaf's trailing axis to a mesh axis: the identity on
-    values."""
-    return tree
+    values; under a rank mesh with a model axis (``logical_name`` on it),
+    each leaf becomes a :class:`FlatShard` holding a copy of this rank's
+    columns of ``split`` (the round's: ``comm.flat.columns_for``;
+    ``ClientShard`` leaves keep their rows; leaves already split, and 0-d
+    leaves, stay)."""
+    if _MODEL is None or _LOGICAL.get(logical_name) is None:
+        return tree
+    lo, hi = _model_block(split)
+
+    def cut(x):
+        # a copy, not a view: clone() lays a column slice out densely
+        return x[..., lo:hi].clone()
+
+    def one(x):
+        if isinstance(x, FlatShard) or (
+                not isinstance(x, ClientShard) and x.dim() == 0):
+            return x
+        if isinstance(x, ClientShard):
+            return FlatShard(ClientShard(cut(x.local), x.n), split)
+        return FlatShard(cut(x), split)
+    return map_tensors(one, tree)
+
+
+def _model_block(split: Optional[ColumnSplit]) -> tuple:
+    if split is None:
+        raise ValueError("under a model axis the flat state needs the "
+                         "round's ColumnSplit (comm.flat.columns_for)")
+    return split.block()
+
+
+def flat_zeros(shape, dtype, device, split: Optional[ColumnSplit] = None):
+    """Zeros of ``shape`` whose trailing axis is the flat axis and whose
+    leading axis, for two or more dims, the client axis
+    (:func:`client_zeros`): under a model axis a :class:`FlatShard` of
+    this rank's columns of ``split``."""
+    import torch
+    shape = tuple(shape)
+    if _MODEL is None:
+        if len(shape) == 1:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return client_zeros(shape, dtype, device)
+    lo, hi = _model_block(split)
+    sub = shape[:-1] + (hi - lo,)
+    inner = torch.zeros(sub, dtype=dtype, device=device) \
+        if len(shape) == 1 else client_zeros(sub, dtype, device)
+    return FlatShard(inner, split)
+
+
+def flat_local(x):
+    """A :class:`FlatShard`'s columns (a tensor or a ``ClientShard``); any
+    other value as it is."""
+    return x.local if isinstance(x, FlatShard) else x
+
+
+def whole(tree):
+    """Every leaf whole on every rank: :class:`FlatShard` leaves
+    all-gathered in column order over the model axis, :class:`ClientShard`
+    leaves in row order over the client axis; other leaves as they are."""
+    from repro_torch.sharding import collectives
+
+    def one(x):
+        if isinstance(x, FlatShard):
+            return collectives.all_gather_cols(one(x.local),
+                                               x.split.widths())
+        if isinstance(x, ClientShard):
+            return collectives.all_gather_rows(x.local, counts(x.n))
+        return x
+    return map_tensors(one, tree)
 
 
 # ---------------------------------------------------------------------------

@@ -1322,3 +1322,75 @@ def test_two_ranks_sharing_the_card_equal_one_process(dev, tmp_path):
                         f"rank {r} {name} {key}"
                 else:
                     assert got[key] == v, f"rank {r} {name} {key}"
+
+
+# the wire kernels on the column blocks of a data x model mesh: phase 3's
+# layouts (smollm-360m whole, pallas top-k 0.1 and 8-bit quant, 4 rows)
+# cut over 2 model ranks as ``comm.flat.column_split`` cuts them
+COLUMN_KERNELS = ["block_topk", "quantize_ef_pack", "scatter_agg",
+                  "unpack_mma", "segment_rows"]
+
+
+@pytest.mark.parametrize("kernel", COLUMN_KERNELS)
+def test_wire_kernels_on_column_blocks(dev, kernel):
+    """Each wire kernel launched on every run of each model rank's column
+    block (``comm.flat.local_layout``: the same blocks, offsets from the
+    block's first column) of phase 3's full-width layouts, n = 4 rows (m =
+    4 of n = 8 for ``segment_rows``), equal to its plain version on the
+    same inputs, bit for bit."""
+    from repro_torch import configs
+    from repro_torch.comm import flat
+    from repro_torch.configs.base import CompressorConfig, FedConfig
+    from repro_torch.models import build, common
+    cfg = configs.get_config("smollm-360m")
+    spec = flat.spec_of(common.meta_tree(build(cfg).param_shapes(cfg)))
+    quant = kernel in ("quantize_ef_pack", "unpack_mma")
+    cc = CompressorConfig(kind="quant", bits=8) if quant else \
+        CompressorConfig(kind="topk", ratio=0.1)
+    fed = FedConfig(comm="pallas", uplink=cc, downlink=cc)
+    fts = flat.flat_transports_for(fed, spec)
+    split = flat.column_split(spec, fts, 2)
+    g = torch.Generator(device=dev).manual_seed(len(kernel))
+    n, w8 = 4, torch.tensor([1.0, 0.0, 0.5, 2.0], device=dev)
+    launched = 0
+    for r in range(2):
+        lo, hi = split.block(r)
+        layout, _ = flat.local_layout(fts[0].codec.layout, lo, hi)
+        assert sum(run.span for run in layout.runs) == hi - lo
+        x = torch.randn((n, hi - lo), generator=g, device=dev)
+        kernels.reset_launches()
+        if kernel == "segment_rows":
+            ids = torch.tensor([1, 2, 5, 7], device=dev)
+            _same(ops.segment_rows(x, ids, 8),
+                  segment_rows_plain(x, ids, 8))
+        for run in layout.runs if kernel != "segment_rows" else ():
+            blocks = flat.run_view(x, run)
+            if kernel == "block_topk":
+                for a, b in zip(ops.block_topk(blocks, run.k),
+                                block_topk_plain(blocks, run.k)):
+                    _same(a, b)
+            elif kernel == "quantize_ef_pack":
+                e = torch.randn(blocks.shape, generator=g, device=dev) * 0.1
+                for a, b in zip(ops.quantize_ef_pack(e, blocks, 8),
+                                quantize_ef_pack_plain(e, blocks, 8)):
+                    _same(a, b)
+            elif kernel == "scatter_agg":
+                vals, idx = block_topk_plain(blocks, run.k)
+                idx = payloads.to_u16(idx)
+                _same(ops.scatter_agg(vals, idx, w8, run.block).view(
+                    torch.int32), scatter_agg_plain(
+                        vals.cpu(), idx.cpu(), w8.cpu(),
+                        run.block).view(torch.int32))
+            else:
+                words, scale, _ = quantize_ef_pack_plain(
+                    torch.zeros_like(blocks), blocks, 8)
+                scale = scale.reshape(words.shape[:-1])
+                _same(ops.quant_agg(words, scale, w8, 8, run.block),
+                      unpack_mma_plain(words, scale, w8, 8, run.block))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        name = "unpack_mma" if kernel == "unpack_mma" else kernel
+        launched += counts[name]
+        assert counts[name] == (1 if kernel == "segment_rows"
+                                else len(layout.runs))
+    assert launched >= 2

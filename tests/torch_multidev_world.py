@@ -1,6 +1,7 @@
 """The worlds of ``tests/test_torch_multidev.py``: gloo process groups of W
 CPU ranks (started by ``spawn``, rendezvous through a ``FileStore``) that
-run the port's rounds under a rank mesh, and the same rounds in one
+run the port's rounds under a rank mesh -- the client axis alone, or a
+``(D, M)`` ``("data", "model")`` mesh -- and the same rounds in one
 process.  This module imports no JAX: the ranks load it by name.
 
 Every case is reduced smollm-360m (seq 16, batch 2) for 2 rounds, except
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import hashlib
 import os
 import time
 
@@ -83,12 +85,37 @@ def _cases() -> dict:
                                            "topk", "--switch", "hard"]),
         "lean-metrics": dict(argv=GATHER + ["--comm", "pallas", "--uplink",
                                             "quant", "--lean-metrics"]),
+        # the projection onto the ball (its norm over every column): on
+        # the dense top-k wire the cuts fall between leaves, on pallas
+        # quant inside them
+        "proj-dense-topk": dict(argv=MASK + ["--comm", "dense", "--uplink",
+                                             "topk"], downlink=True,
+                                fed={"proj_radius": PROJ_RADIUS}),
+        "proj-pallas-quant": dict(argv=GATHER + ["--comm", "pallas",
+                                                 "--uplink", "quant"],
+                                  fed={"proj_radius": PROJ_RADIUS}),
     })
     return out
 
 
+PROJ_RADIUS = 40.0       # below the reduced model's ||w|| (44.5)
 CASES = _cases()
-REFUSALS = ("model-axis", "mesh-size", "obs", "async", "checkpoint", "wire")
+REFUSALS = ("mesh-size", "obs", "async", "checkpoint", "wire")
+# the data x model meshes and the cases each runs
+MESHES = ((1, 2), (2, 2), (1, 4))
+CASES_2D = ("pallas-topk-gather", "pallas-quant-mask", "packed-topk-mask",
+            "packed-quant-gather", "dense-topk-mask", "dense-quant-gather",
+            "slots-evict-topk", "short-cohort-slots", "slots-evict-randk",
+            "fleet-weighted", "mask-3-of-6-topk", "cohorts-2-quant",
+            "proj-dense-topk", "proj-pallas-quant")
+REFUSALS_2D = ("pod", "mesh-size", "obs", "async", "checkpoint", "wire")
+# the wires of the payload checks: (comm, kind)
+PAYLOAD_WIRES = (("pallas", "topk"), ("pallas", "quant"), ("packed", "topk"),
+                 ("packed", "quant"), ("dense", "topk"), ("dense", "quant"),
+                 ("packed", "randk"), ("dense", "natural"))
+# the payload check's tree with a leaf above 2^22 elements (the dense
+# wire's top-k works on it by blocks) between two small leaves
+GIANT_TREE = {"a": (40, 24), "big": (17, 1 << 18), "z": (300,)}
 
 
 def _fleet(fed, cfg, device):
@@ -146,18 +173,21 @@ def _setup(name: str, device: str = "cpu"):
 
 
 def summary(state, hist) -> dict:
-    """A state's tensors (the residual gathered whole) and the metrics."""
+    """A state's tensors (the split ones gathered whole) and the
+    metrics."""
     from repro_torch.scale import slots
     from repro_torch.sharding import partition
-    out = {"w": state.w, "x": state.x, "wbar_sum": state.wbar_sum,
+    whole = partition.whole
+    out = {"w": state.w, "x": whole(state.x),
+           "wbar_sum": whole(state.wbar_sum),
            "wbar_weight": state.wbar_weight, "t": state.t}
     e = state.e_up
     if isinstance(e, slots.SlotStore):
-        out["pool"] = partition.gather_leading(e.pool)
+        out["pool"] = whole(e.pool)
         out.update({f: getattr(e, f) for f in
                     ("owner", "stamp", "weight", "client_slot")})
     elif e is not None:
-        out["e_up"] = partition.gather_leading(e)
+        out["e_up"] = whole(e)
     for f in hist._fields:
         v = getattr(hist, f)
         if v is not None:
@@ -238,6 +268,116 @@ def shard_checks() -> dict:
             "pool_want": store.pool, "owner_same": cs.owner is store.owner}
 
 
+def split_facts(name: str) -> dict:
+    """The column split of a case under the active mesh: its cuts, and
+    whether one falls inside a leaf (then the whole-``[d]`` norms add two
+    ranks' partials of that leaf)."""
+    from repro_torch.comm import flat
+    state, _, _, fed = _setup(name)
+    cols = flat.columns_for(fed, state.spec)
+    if cols is None:
+        return {"cuts": None, "straddles": False}
+    bounds = {ls.offset for ls in state.spec.leaves}
+    return {"cuts": cols.split.cuts,
+            "straddles": any(c not in bounds
+                             for c in cols.split.cuts[1:-1])}
+
+
+def _sha1(x: torch.Tensor) -> str:
+    return hashlib.sha1(x.contiguous().view(torch.uint8).numpy()).hexdigest()
+
+
+def _payload_case(fed, spec, e, deltas, weights, key,
+                  digest: bool = False) -> dict:
+    """``fed``'s uplink EF14 encode of ``e + deltas`` on this rank's columns
+    against one process (no columns): the payload's fields, the new
+    residual and the reduce all-gathered over the model axis, beside the
+    one process's (``digest``: the sha1 of their bytes), and both wire
+    byte counts."""
+    from repro_torch.comm import flat
+    from repro_torch.sharding import collectives
+    cols = flat.columns_for(fed, spec)
+    whole, _ = flat.flat_transports_for(fed, spec)
+    mine, _ = flat.flat_transports_for(fed, spec, cols)
+    want_msgs, want_e = whole.encode(e.clone(), deltas, weights, key)
+    got_msgs, got_e = mine.encode(cols.cut(e).clone(), cols.cut(deltas),
+                                  weights, key)
+    got = [got_msgs] if mine.codec is None else list(got_msgs)
+    want = [want_msgs] if mine.codec is None else list(want_msgs)
+    pair = (lambda a, b: (_sha1(a), _sha1(b))) if digest else \
+        (lambda a, b: (a, b))
+    return {
+        "fields": [pair(collectives.all_gather_cols(_signed(a), ws),
+                        _signed(b))
+                   for a, b, ws in zip(got, want, _field_widths(mine))],
+        "e": pair(collectives.all_gather_cols(got_e, cols.split.widths()),
+                  want_e),
+        "reduce": pair(collectives.all_gather_cols(
+            mine.reduce(got_msgs, weights, 3), cols.split.widths()),
+            whole.reduce(want_msgs, weights, 3)),
+        "wire_bytes": (mine.wire_bytes(), whole.wire_bytes()),
+        "cut_leaves": [ls.size for ls in spec.leaves
+                       if any(ls.offset < c < ls.offset + ls.size
+                              for c in cols.split.cuts)]}
+
+
+def payload_checks() -> dict:
+    """Each wire of :data:`PAYLOAD_WIRES` on this rank's columns against
+    one process (:func:`_payload_case`): an EF14 encode of random ``[4,
+    d]`` stacks of the reduced model's shape (rand-k and natural drawing
+    each row from its stream).  Then ``dense-topk-giant``: the dense
+    wire's top-k on ``[2, d]`` stacks of :data:`GIANT_TREE`, whose leaf
+    above 2^22 elements every split cuts inside (the sort-free blockwise
+    top-k of part of a leaf on each rank), kept as sha1 digests."""
+    from repro_torch.comm import flat, transports
+    from repro_torch.configs.base import CompressorConfig
+    state, _, _, fed = _setup("pallas-topk-mask")
+    spec = state.spec
+    g = torch.Generator().manual_seed(3)
+    e = torch.randn(4, spec.d, generator=g)
+    deltas = torch.randn(4, spec.d, generator=g)
+    weights = torch.tensor([1.0, 0.0, 2.0, 1.0])
+    key = transports.WireKey(7, 1, transports.UPLINK)
+    out = {}
+    for comm, kind in PAYLOAD_WIRES:
+        cc = CompressorConfig(kind=kind, ratio=0.1, bits=4)
+        out[f"{comm}-{kind}"] = _payload_case(
+            fed.replace(comm=comm, uplink=cc, downlink=cc), spec, e, deltas,
+            weights, key)
+    spec = flat.spec_of({k: torch.empty(v, device="meta")
+                         for k, v in GIANT_TREE.items()})
+    cc = CompressorConfig(kind="topk", ratio=0.1)
+    e = torch.randn(2, spec.d, generator=g)
+    deltas = torch.randn(2, spec.d, generator=g)
+    out["dense-topk-giant"] = _payload_case(
+        fed.replace(comm="dense", uplink=cc, downlink=cc), spec, e, deltas,
+        torch.tensor([1.0, 2.0]), key, digest=True)
+    return out
+
+
+def _signed(x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.comm import transports
+    signed = transports.SIGNED_VIEWS.get(x.dtype)
+    return x if signed is None else x.view(signed)
+
+
+def _field_widths(ft) -> list:
+    """Per message field of a column transport ``ft``, every model rank's
+    width of it: the columns on a dense wire, the slots of values and
+    offsets, the words and scales of quant."""
+    from repro_torch.comm import flat
+    split = ft.cols.split
+    if ft.codec is None:
+        return [split.widths()]
+    layout = flat.wire_layout(ft.spec, ft.cfg)
+    cuts = [flat.local_layout(layout, *split.block(r))[1]
+            for r in range(len(split.cuts) - 1)]
+    names = ("words", "blocks") if isinstance(ft.codec, flat._QuantCodec) \
+        else ("slots", "slots")
+    return [[getattr(c, f)[1] - getattr(c, f)[0] for c in cuts]
+            for f in names]
+
+
 def refusal(what: str, W: int) -> bool:
     """Whether ``what`` raises ``NotImplementedError`` under the active
     rank mesh of ``W`` ranks (the mesh stays active)."""
@@ -249,12 +389,14 @@ def refusal(what: str, W: int) -> bool:
     from repro_torch.wire import coordinator
     active = partition.current_mesh()
     try:
-        if what == "model-axis":
+        if what == "pod":
             partition.activate_mesh(mesh.make_rank_mesh(
-                "cpu", shape=(W // 2, 2), axes=("data", "model")))
+                "cpu", shape=(2, W // 4, 2), axes=("pod", "data", "model")))
         elif what == "mesh-size":
-            partition.activate_mesh(mesh.make_rank_mesh("cpu",
-                                                        shape=(W - 1,)))
+            shape = (W - 1,) if active is None or \
+                len(active.axis_names) == 1 else (1, W - 1)
+            partition.activate_mesh(mesh.make_rank_mesh(
+                "cpu", shape=shape, axes=("data", "model")[:len(shape)]))
         else:
             state, batch_fn, loss_pair, fed = _setup("pallas-topk-mask")
             if what == "obs":
@@ -275,13 +417,80 @@ def refusal(what: str, W: int) -> bool:
     return False
 
 
+TRACED = ("all_gather", "all_to_all_single", "broadcast",
+          "broadcast_object_list", "new_group")
+# the cases whose collective calls on a (W, 1) mesh are pinned
+LOG_CASES = ("pallas-topk-mask", "dense-quant-gather", "short-cohort-slots",
+             "fleet-weighted", "mask-3-of-6-topk")
+
+
+def _describe(value):
+    """A call argument as plain data: a tensor's shape and dtype, a list's
+    entries, a number or string as it is."""
+    if isinstance(value, torch.Tensor):
+        return (tuple(value.shape), str(value.dtype))
+    if isinstance(value, (list, tuple)):
+        return [_describe(v) for v in value]
+    if isinstance(value, (int, float, str, bool)):
+        return value
+    return type(value).__name__
+
+
+def call_log(names, W: int, device: str = "cpu") -> dict:
+    """Each case of ``names`` run under a ``(W, 1)`` ``("data", "model")``
+    rank mesh with the ``torch.distributed`` calls of :data:`TRACED`
+    recorded, the mesh's activation included (in the first case's log):
+    every call's function and its bound arguments (tensors as shape and
+    dtype, arguments left at None dropped, so a call on the default group
+    reads the same whether or not it names it)."""
+    import inspect
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import partition
+    log: list = []
+    saved = {name: getattr(dist, name) for name in TRACED}
+
+    def wrap(name, fn):
+        sig = inspect.signature(fn)
+
+        def traced(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs).arguments
+            log.append((name, {k: _describe(v) for k, v in bound.items()
+                               if v is not None}))
+            return fn(*args, **kwargs)
+        return traced
+    out = {}
+    try:
+        for name, fn in saved.items():
+            setattr(dist, name, wrap(name, fn))
+        partition.activate_mesh(mesh.make_rank_mesh(
+            device, shape=(W, 1), axes=("data", "model")))
+        for case in names:
+            run_case(case, device)
+            out[case] = repr(log)
+            log.clear()
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    return out
+
+
 def world_main(rank: int, W: int, store_path: str, out_dir: str,
                np_path, timeout_s: float, device: str = "cpu",
-               names=None) -> None:
-    """One rank: every case under a rank mesh of W ranks on ``device``, the
-    reference's ``multidev`` configuration, the refusals and the shard
-    checks (``names``: those cases only, on a card shared by the ranks);
-    the results to ``out_dir/rank<r>.pt``."""
+               names=None, shape=None) -> None:
+    """One rank: every case under a rank mesh of W ranks on ``device`` --
+    the client axis alone, or the ``("data", "model")`` mesh ``shape`` --
+    and the checks of that world (``names``: those cases only, on a card
+    shared by the ranks); the results to ``out_dir/rank<r>.pt``.
+
+    * a client axis: every case of :data:`CASES`, the reference's
+      ``multidev`` configuration, the refusals, the shard checks and the
+      collective calls of :data:`LOG_CASES` on a ``(W, 1)`` mesh;
+    * a data x model mesh: the cases of :data:`CASES_2D`, each one's
+      column split, the payload checks and, on ``(2, 2)``, the
+      ``multidev`` configuration and the refusals of
+      :data:`REFUSALS_2D`."""
     import torch.distributed as dist
     from repro_torch.launch import mesh
     from repro_torch.sharding import collectives, partition
@@ -292,19 +501,32 @@ def world_main(rank: int, W: int, store_path: str, out_dir: str,
         "gloo", store=dist.FileStore(store_path, W), rank=rank,
         world_size=W, timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        partition.activate_mesh(mesh.make_rank_mesh(device))
-        assert partition.rank_axis().rank == rank
+        if shape is None:
+            partition.activate_mesh(mesh.make_rank_mesh(device))
+            assert partition.rank_axis().rank == rank
+        else:
+            partition.activate_mesh(mesh.make_rank_mesh(
+                device, shape=shape, axes=("data", "model")))
         out = {"cases": {}, "seconds": {}}
         collectives.reset_stats()
-        for name in names or CASES:
+        for name in names or (CASES if shape is None else CASES_2D):
             t0 = time.perf_counter()
             out["cases"][name] = run_case(name, device)
             out["seconds"][name] = time.perf_counter() - t0
         out["collectives"] = collectives.stats()
-        if names is None:
+        out["collectives_by_axis"] = collectives.stats_by_axis()
+        if names is None and shape is None:
             out["cases"]["np-multidev"] = run_np(np_path)
             out["shard"] = shard_checks()
             out["refusals"] = {what: refusal(what, W) for what in REFUSALS}
+            out["call_log"] = call_log(LOG_CASES, W, device)
+        elif names is None:
+            out["splits"] = {name: split_facts(name) for name in CASES_2D}
+            out["payloads"] = payload_checks()
+            if tuple(shape) == (2, 2):
+                out["cases"]["np-multidev"] = run_np(np_path)
+                out["refusals"] = {what: refusal(what, W)
+                                   for what in REFUSALS_2D}
         partition.activate_mesh(None)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -314,16 +536,18 @@ def world_main(rank: int, W: int, store_path: str, out_dir: str,
 
 def spawn_world(W: int, folder: str, np_path=None,
                 timeout_s: float = 240.0, device: str = "cpu",
-                names=None) -> list:
+                names=None, shape=None) -> list:
     """Start W ranks by ``spawn`` and wait for them (at most ``timeout_s``
     seconds: then every rank is killed and ``TimeoutError`` raised; a rank
-    that fails raises here); :func:`world_main` gives what they run.
-    Returns each rank's results, in rank order."""
+    that fails raises here); :func:`world_main` gives what they run (on
+    the data x model mesh ``shape`` when given).  Returns each rank's
+    results, in rank order."""
     import torch.multiprocessing as mp
     os.makedirs(folder, exist_ok=True)
     store = os.path.join(folder, "store")
     ctx = mp.start_processes(world_main, args=(W, store, folder, np_path,
-                                               timeout_s, device, names),
+                                               timeout_s, device, names,
+                                               shape),
                              nprocs=W, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=5):
