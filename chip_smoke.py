@@ -287,19 +287,35 @@ Phases, each fatal on failure (nonzero exit):
    "model"))``), in phase 21's world after its cells, on the same
    one-process runs: (a) 21(b)'s cell, mamba2-130m whole, gather 4 of 8,
    pallas top-k up and down (``block_topk`` up and down, ``scatter_agg``
-   and ``segment_rows`` on each rank's column blocks); (b) 21(c)'s cell,
-   smollm-360m whole, mask quant (``quantize_ef_pack`` and ``unpack_mma``
-   on the column blocks); each model rank runs every client's eval and
-   local steps on the whole ``w``, holds its columns of the residual and
-   the server state, and all-gathers the new ``w`` each round; on every
-   rank the digests of what it holds (``w``, every metric, its column
-   block of ``x``, of the averaged-iterate sum and of each residual row)
-   bit-equal to the one process's, the launches its column block's wire
-   runs demand, its peak below the one process's, the collectives' bytes
-   and host seconds per group, one round profiled and one whose every
-   wire-kernel launch is held against its plain version.
+   and ``segment_rows`` on each rank's column blocks): no leaf split, so
+   each model rank runs every client's eval and local steps on the whole
+   ``w`` (one all-gather of its columns a round), and the digests of what
+   it holds (``w``, every metric, its column block of ``w``, ``x``, the
+   averaged-iterate sum and each residual row) are the one process's, bit
+   for bit; (b) 21(c)'s cell, smollm-360m whole, mask quant
+   (``quantize_ef_pack`` and ``unpack_mma`` on the column blocks) under
+   the split plan (``sharding.partition.tensor_plan``: its MLP and tied
+   vocab split over the 2 model ranks, its attention whole, 5 kv heads):
+   the ranks share each client's forward and backward, the new ``w``'s
+   columns go into each rank's tensor layout and each delta row back to
+   the columns (``comm.flat.TensorLayout``), held against phase 5's run by
+   :data:`TP_LAW`; both: the plan's split and whole leaves and bytes, the
+   launches its column block's wire runs demand, its peak below the one
+   process's, the collectives' bytes and host seconds per group, one
+   round profiled and one whose every wire-kernel launch is held against
+   its plain version;
+23. tensor parallelism at qwen3-4b's published widths, cut to 2 of 36
+   layers, pallas top-k up, mask 2 of 2, fused: :data:`TP_ROUNDS` rounds
+   in one process, then in phase 22's world on the ``(1, 2)`` mesh (every
+   leaf split but the norms: GQA at 4 q heads per kv group, qk-norm
+   under a head split, the untied vocab-parallel head), held by
+   :data:`TP_LAW`, the metrics the same bits on every rank, each rank's
+   peak below the one process's, every wire-kernel launch of the checked
+   round equal to plain; (b) only where asked (``rank_phase(...,
+   phases=("23b",))``) and 4 cards exist, qwen3-4b whole (36 layers) on a
+   ``(1, 4)`` NCCL mesh, one rank a card.
 
-In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and 22 the
+In phases 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22 and 23 the
 launch counts are zeroed just before each part and read just after: each kernel must have launched
 exactly as often per round as the wire layout demands (on ``comm="pallas"`` the
 encode kernel once per wire run and direction, and once more for a slot
@@ -812,10 +828,12 @@ def setup_phase(torch, argv, downlink: bool, cfg=None, **fed_over):
         train.parser().parse_args(argv), cfg)
     fed = fed.replace(**fed_over)
     if downlink:
+        from repro_torch.sharding import partition
         fed = fed.replace(downlink=fed.uplink)
-        params = flat.unflatten(state.spec, state.w)
+        params = flat.unflatten(state.spec, partition.whole(state.w))
+        plan = state.plan
         del state
-        state = rounds.init_state(params, fed, device=dev)
+        state = rounds.init_state(params, fed, device=dev, plan=plan)
         del params
     return state, batch_fn, loss_pair, fed, dev
 
@@ -905,6 +923,7 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     counts = kernels.launch_counts()
     per_round = [b - a for a, b in zip(stamps, stamps[1:])]
     final = state_digest(torch, state, hist, fed) if digest else None
+    samples = state_samples(torch, state, hist) if digest else None
     rec = {"phase": name, "d": state.spec.d, "comm": fed.comm,
            "clients": fed.n_clients, "participating": fed.m,
            "participation": fed.participation, "full_eval": fed.full_eval,
@@ -929,6 +948,7 @@ def train_phase(torch, name: str, argv, T: int, downlink: bool = False,
     print(json.dumps(rec), flush=True)
     if final is not None:
         rec["digest"] = final
+        rec["samples"] = samples
     if not (all(math.isfinite(v) for v in rec["f"])
             and all(math.isfinite(v) for v in rec["g_hat"])):
         raise AssertionError(f"{name}: non-finite f or g_hat")
@@ -1218,12 +1238,14 @@ def zipf_token_fleet(torch, cfg):
 # on an H100, so they are cut to keep the phase near a minute (and the
 # whole script, with phase 11, near half its time limit); Figure 1 from 60
 # to 40 when phase 16 came (a Figure-1 round took 0.16-0.31 s, the whole
-# script 652-1080 s, on H100 hosts of different speeds), and all three
-# parts halved again (20 / 10 / 10) when phase 21 came
+# script 652-1080 s, on H100 hosts of different speeds), all three parts
+# halved again (20 / 10 / 10) when phase 21 came, and again (10 / 5 / 5)
+# when phase 23 came (the gates: finite values, gather == mask, the
+# launches, card == CPU on the check's rounds)
 NP_CHECK_ROUNDS = 2
-NP_FIGURE1_ROUNDS = 20
-NP_SWEEP_ROUNDS = 10
-NP_ENGINE_ROUNDS = 10
+NP_FIGURE1_ROUNDS = 10
+NP_SWEEP_ROUNDS = 5
+NP_ENGINE_ROUNDS = 5
 
 
 def np_phase(torch, dev) -> dict:
@@ -1645,9 +1667,10 @@ def paper_phase(torch, dev) -> tuple:
 # phase 12: asynchronous buffered rounds with the telemetry bus.  2 rounds
 # a part at full width (6 until phase 22 came: the parks, deliveries and
 # expiries the phase must see come from 12(c) as well); the checks of
-# 12(c) at 2 layers, 3 rounds
+# 12(c) at 2 layers, 2 rounds (3 until phase 23 came: (ii)'s parks and
+# merges come in rounds 0 and 1, (iv)'s expiries in round 1, on an H100)
 ASYNC_ROUNDS = 2
-ASYNC_CHECK_ROUNDS = 3
+ASYNC_CHECK_ROUNDS = 2
 CARD_CPU_ROUNDS = 2            # 12(c)(iv): parks in round 0, expiries in 1
 ASYNC_COUNTERS = ("fresh", "departed", "merged", "dropped", "occupancy",
                   "max_age")
@@ -2188,8 +2211,10 @@ def async_phase(torch, dev, T: int = ASYNC_ROUNDS) -> tuple:
 
 
 # phase 13: population scale-out and checkpoints.  The checks of 13(a) at
-# 2 layers, full width otherwise; 13(b) and 13(c) T rounds at full width
-SCALE_CHECK_ROUNDS = 3
+# 2 layers, full width otherwise (2 rounds a run, 3 until phase 23 came:
+# the evictions, departures and merges their gates need come in its first
+# two rounds on an H100); 13(b) and 13(c) T rounds at full width
+SCALE_CHECK_ROUNDS = 2
 SCALE_CLIENTS, SCALE_SLOTS = 32, 8          # 13(b): n and the store's cap
 EVICT_CLIENTS, EVICT_SLOTS = 12, 4          # 13(a): the evicting store
 # 13(a): the evicting store's cohorts (4 of 12): disjoint, so round 1 takes
@@ -2415,7 +2440,7 @@ def scale_checks(torch, dev, T: int = SCALE_CHECK_ROUNDS,
         ok = (bits_equal(torch, np, state_of(sd), state_of(ss))
               and bits_equal(torch, np, hd, hs) and rows_ok
               and sorted(j for j in owner if j >= 0)
-              == sorted({j for c in TIERED_COHORTS for j in c}))
+              == sorted({j for c in TIERED_COHORTS[:T] for j in c}))
         key = f"slots cap {N_GATHER} >= n == dense, {kind} on {comm}"
         out[key] = ok
         report({"scale_check": key, "layers": layers, "rounds": T,
@@ -4893,12 +4918,58 @@ RANK_CELLS = [
 ]
 # phase 22: the mesh's model axis -- the flat state split by columns over
 # a data x model rank mesh of RANK_MODEL model ranks, in phase 21's world
-# after its cells: 22(a) is 21(b)'s cell, 22(b) 21(c)'s, held against the
-# same one-process digests (their column blocks)
+# after its cells: 22(a) is 21(b)'s cell (mamba2: no leaf split, held
+# against the same one-process digests, their column blocks), 22(b)
+# 21(c)'s (smollm-360m under the split plan: its MLP and tied vocab split,
+# its attention whole; held against phase 5's run by TP_LAW)
 MODEL_CELLS = [("22a mamba2-130m",) + RANK_CELLS[1][1:],
                ("22b smollm-360m",) + RANK_CELLS[2][1:]]
+# phase 23: tensor parallelism at qwen3-4b's published widths (d_model
+# 2,560, 32 heads / 8 kv, head_dim 128, d_ff 9,728, vocab 151,936 untied,
+# qk-norm), depth cut to 2 of 36 layers (d = 979,776,512: a fused 2-client
+# round of the one process holds about 14 fp32 copies of d), pallas top-k
+# up, mask 2 of 2, fused: in one process here, then in phase 22's world
+# (every leaf split but the norms).  TP_ROUNDS rounds (the checked round
+# after them)
+TP_CELLS = [("23 qwen3-4b", "qwen3-4b",
+             ["--clients", "2", "--comm", "pallas", "--uplink", "topk"],
+             False, None)]
+TP_ROUNDS = 2
+# depth cuts of a cell's config
+CELL_CUTS = {"23 qwen3-4b": {"n_layers": 2}}
+# 23(b), where RANK_FULL_CARDS or more cards exist: qwen3-4b whole (36
+# layers, 4,411,424,256 parameters) on a (1, RANK_FULL_CARDS) NCCL mesh,
+# one rank a card, TP_ROUNDS rounds (no one process holds it)
+TP_FULL_CELL = ("23b qwen3-4b whole", "qwen3-4b", TP_CELLS[0][2], False,
+                None)
+RANK_FULL_CARDS = 4
 # the phases that keep their final state's digest for phases 21 and 22
 RANK_FROM = {cell[4] for cell in RANK_CELLS if cell[4] is not None}
+# a split plan's ranks against one process (the tolerances of
+# tests/test_torch_tensor_parallel.py): the metrics f, g_hat, sigma,
+# f_full, g_full and delta_norm within rtol 1e-5, feasible and the wire
+# bytes equal; all but 0.1% of w within rtol 1e-4 / atol 1e-6 (every entry
+# within rtol 1e-5 / atol 1e-7 on an uncompressed wire); each residual
+# row's difference from the one process's row (the norm of a - b) within
+# "row_gap" of that row's norm.  The residual's entries are not held one
+# by one: a quant level flipped at a near-tie moves its entry by a whole
+# level, twice a residual entry's bound, and the flips cascade over the
+# rounds.  On the CPU's reduced rounds (2) the rows end 0.7-1.7% apart and
+# the tests hold 5%.  At smollm-360m's full width on an H100, after
+# 22(b)'s 3 rounds, the one process's own rounds from w moved by one ulp
+# (residual_witness: every entry up, every entry down, every other entry
+# up) end 20.5-31.8% of the norm from the unmoved run's, as 22(b)'s ranks
+# end 24.5-32.0% from it; the control (a row shifted by one sample: its
+# norm equal, its entries not) ends 140-144% from it.  The limit, 60%,
+# lies between: about twice the witness's largest, well below the
+# control's least; every rank held by it also checks that it refuses the
+# control (row_control).
+# Held on every SAMPLE_W-th entry of w and every SAMPLE_ROW-th of each
+# residual row (strides prime to the wire's blocks)
+TP_LAW = {"metric_rtol": 1e-5, "w_rtol": 1e-4, "w_atol": 1e-6,
+          "w_far": 1e-3, "exact_rtol": 1e-5, "exact_atol": 1e-7,
+          "row_gap": 0.6}
+SAMPLE_W, SAMPLE_ROW = 11, 101
 RANK_SHARED = 2                # ranks sharing the one card over gloo
 RANK_NCCL_MAX = 4              # ranks over NCCL, one a card, where 2+ cards
 RANK_MODEL = 2                 # phase 22's model ranks
@@ -4907,15 +4978,18 @@ RANK_DEVICE = "cuda"
 
 
 def rank_cell_setup(torch, cell):
-    """``(state, batch_fn, loss_pair, fed)`` of a phase-21 cell on the
-    current card, under whatever mesh is active (``init_state`` splits the
-    residual over the ranks)."""
+    """``(state, batch_fn, loss_pair, fed)`` of a phase-21, 22 or 23 cell
+    on the current card, under whatever mesh is active (``init_state``
+    splits the residual over the ranks; the launcher's setup gives the
+    model's plan)."""
     from repro_torch import configs, resolve_device
-    _, arch, argv, downlink, _ = cell
+    name, arch, argv, downlink, _ = cell
     if arch is not None:
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  **CELL_CUTS.get(name, {}))
         state, batch_fn, pair, fed, _ = setup_phase(
             torch, ["--arch", arch, "--device", RANK_DEVICE] + argv,
-            downlink, configs.get_config(arch))
+            downlink, cfg)
         return state, batch_fn, pair, fed
     from repro_torch.configs.base import (CompressorConfig, FedConfig,
                                           ScaleConfig, SwitchConfig)
@@ -4965,8 +5039,9 @@ def state_digest(torch, state, hist, fed) -> dict:
     """sha1 of every field of a round state and of its metrics; the residual
     (the dense stack's or the slot store's pool) row by row, keyed by row
     id: under a rank mesh, the rows this rank holds.  The fields split by
-    columns under a model axis (x, the averaged-iterate sum, each residual
-    row) are digested per column block of :func:`digest_split`, keyed
+    columns under a model axis (w, x, the averaged-iterate sum, each
+    residual row) are digested per column block of :func:`digest_split`,
+    keyed
     ``"<name> cols <lo>:<hi>"``: in one process every block, on a model
     rank (a ``partition.FlatShard``) its own."""
     from repro_torch.scale import slots
@@ -4985,8 +5060,8 @@ def state_digest(torch, state, hist, fed) -> dict:
         if x.split != split:
             raise AssertionError(f"columns {x.split} against {split}")
         return x.split.block()
-    fields = {f: getattr(state, f) for f in ("w", "wbar_weight")}
-    for f in ("x", "wbar_sum"):
+    fields = {"wbar_weight": state.wbar_weight}
+    for f in ("w", "x", "wbar_sum"):
         v = getattr(state, f)
         if v is not None:
             fields.update(blocks(f, partition.flat_local(v), own(v)))
@@ -5012,6 +5087,197 @@ def state_digest(torch, state, hist, fed) -> dict:
 # where a column cut falls inside a leaf, delta_norm adds two ranks' partial
 # sums of that leaf (comm.flat.tree_norm): within this rtol of one process
 NORM_RTOL = 1e-6
+
+
+def _sampled(x, lo: int, hi: int, stride: int) -> tuple:
+    """``(k0, values)``: the entries of the flat columns ``lo:hi`` (``x``
+    holds them) at the positions ``k * stride``, from ``k0``, copied to
+    the host (a later round updates the residual in place)."""
+    k0 = -(-lo // stride)
+    return k0, x[..., k0 * stride - lo::stride].float().cpu().numpy().copy()
+
+
+def state_samples(torch, state, hist) -> dict:
+    """What :data:`TP_LAW` holds of a round state: the metrics, every
+    :data:`SAMPLE_W`-th entry of w and every :data:`SAMPLE_ROW`-th of each
+    residual row (the dense stack's), by flat position -- in one process
+    of the whole buffer, on a model rank of its columns (``hist`` None: no
+    metrics)."""
+    from repro_torch.sharding import partition
+
+    def span(x):
+        if isinstance(x, partition.FlatShard):
+            return partition.flat_local(x), *x.split.block()
+        return x, 0, state.spec.d
+    w, lo, hi = span(state.w)
+    out = {"metrics": {} if hist is None else {
+        f: [float(v) for v in getattr(hist, f)]
+        for f in ("f", "g_hat", "sigma", "f_full", "g_full", "delta_norm",
+                  "feasible", "up_bytes", "down_bytes")},
+           "w": _sampled(w, lo, hi, SAMPLE_W), "rows": {}}
+    if state.e_up is not None and not hasattr(state.e_up, "pool"):
+        e, lo, hi = span(state.e_up)
+        first = 0
+        if isinstance(e, partition.ClientShard):
+            first, e = partition.block(e.n)[0], e.local
+        for i in range(e.shape[0]):
+            out["rows"][first + i] = _sampled(e[i], lo, hi, SAMPLE_ROW)
+    return out
+
+
+def samples_mismatch(got: dict, want: dict, exact: bool) -> tuple:
+    """``(problems, counts)``: where a rank's :func:`state_samples` breaks
+    :data:`TP_LAW` against the one process's (``exact``: the uncompressed
+    wire's law), and the measured counts."""
+    import numpy as np
+    law, bad, counts = TP_LAW, [], {}
+    for f, vals in got["metrics"].items():
+        ref = want["metrics"][f]
+        if f in ("feasible", "up_bytes", "down_bytes"):
+            ok = vals == ref
+        else:
+            ok = np.allclose(vals, ref, rtol=law["metric_rtol"], atol=0)
+        if not ok:
+            bad.append(f"{f} {vals} against {ref}")
+    k0, a = got["w"]
+    b = want["w"][1][k0:k0 + a.shape[-1]]
+    if exact:
+        far = ~np.isclose(a, b, rtol=law["exact_rtol"],
+                          atol=law["exact_atol"])
+        limit = 0.0
+    else:
+        far = ~np.isclose(a, b, rtol=law["w_rtol"], atol=law["w_atol"])
+        limit = law["w_far"]
+    counts["w_far"] = [int(far.sum()), int(far.size)]
+    counts["w_max_abs"] = float(np.abs(a - b).max()) if a.size else 0.0
+    if far.mean() > limit:
+        bad.append(f"w: {int(far.sum())} of {far.size} sampled entries "
+                   "beyond the law")
+    counts["row_norm"], counts["row_gap"] = {}, {}
+    for r, (k0, a) in got["rows"].items():
+        b = want["rows"][r][1][k0:k0 + a.shape[-1]]
+        gap = float(np.linalg.norm((a - b).astype(np.float64)))
+        size = float(np.linalg.norm(b.astype(np.float64)))
+        mine = float(np.linalg.norm(a.astype(np.float64)))
+        counts["row_norm"][r] = [mine, size]
+        counts["row_gap"][r] = gap / size if size else gap
+        if gap > law["row_gap"] * size:
+            bad.append(f"residual row {r}: {gap} from the one process's, "
+                       f"whose norm is {size}")
+    return bad, counts
+
+
+def shifted_rows(samples: dict) -> dict:
+    """The control of :data:`TP_LAW`'s residual gate: ``samples`` with
+    each residual row's sampled entries shifted by one place (each row's
+    norm unchanged, its entries not), which the gate must refuse."""
+    import numpy as np
+    return {**samples, "rows": {r: (k0, np.roll(a, 1))
+                                for r, (k0, a) in samples["rows"].items()}}
+
+
+def row_control(samples: dict) -> dict:
+    """:func:`shifted_rows` of ``samples`` against ``samples`` itself: each
+    row's gap (a share of its norm); raises unless the gate refuses every
+    row."""
+    bad, counts = samples_mismatch(shifted_rows(samples), samples, False)
+    refused = [b for b in bad if b.startswith("residual row")]
+    if len(refused) != len(samples["rows"]):
+        raise AssertionError(f"the residual gate passed a shifted row: "
+                             f"{counts['row_gap']}")
+    return counts["row_gap"]
+
+
+def residual_witness(torch, T: int = 3) -> dict:
+    """The witness of :data:`TP_LAW`'s residual limit: 21(c)'s cell
+    (smollm-360m whole, mask quant, 22(b)'s rounds) in one process on the
+    card, T rounds from its seeded ``w`` and T from each of three nudges
+    of it (every entry one ulp up, every entry one ulp down, every other
+    entry one ulp up); after each round, each residual row's gap between
+    a nudged run and the unmoved one (a share of its norm), ``w``'s
+    samples beyond the law, and the control's gaps (each unmoved row
+    shifted by one sample, which the gate must refuse).  Run alone; its
+    record is printed and returned."""
+    import math
+    from repro_torch.engine import rounds
+
+    def up(w):
+        return torch.nextafter(w, torch.full_like(w, math.inf))
+
+    def down(w):
+        return torch.nextafter(w, torch.full_like(w, -math.inf))
+
+    def even_up(w):
+        return torch.where(torch.arange(w.shape[0], device=w.device) % 2
+                           == 0, up(w), w)
+    nudges = {"none": None, "every entry one ulp up": up,
+              "every entry one ulp down": down,
+              "every other entry one ulp up": even_up}
+    cell = RANK_CELLS[2]
+    runs = {}
+    for what, nudge in nudges.items():
+        state, batch_fn, pair, fed = rank_cell_setup(torch, cell)
+        if nudge is not None:
+            state = state._replace(w=nudge(state.w))
+        dev = rounds.state_device(state)
+        gen = torch.Generator().manual_seed(fed.seed + 1)
+        runs[what] = []
+        for t in range(T):
+            state, _ = rounds.round_step(state, batch_fn(t, gen), pair, fed,
+                                         device=dev)
+            runs[what].append(state_samples(torch, state, None))
+        del state
+        free_card(torch)
+    base = runs.pop("none")
+    rec = {"phase": "22(b) residual witness", "cell": cell[0], "rounds": T,
+           "control_row_gap": [row_control(s) for s in base],
+           "nudges": {}}
+    for what, per in runs.items():
+        rec["nudges"][what] = []
+        for t in range(T):
+            _, counts = samples_mismatch(per[t], base[t], False)
+            rec["nudges"][what].append({
+                k: counts[k] for k in ("row_gap", "row_norm", "w_far",
+                                       "w_max_abs")})
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def whole_grad_sha1(torch, state, batch_fn, pair, fed) -> dict:
+    """Under a split plan, one client's loss pair and gradient of f at the
+    state's ``w`` on this model rank (its tensor layout): the sha1 of f,
+    g and of the gradient of every whole leaf (the norms, and attention
+    kept whole), which must be the same bits on every model rank (each
+    "f" in place)."""
+    from repro_torch.comm import flat
+    from repro_torch.engine import rounds
+    from repro_torch.sharding import partition
+    cols = flat.columns_for(fed, state.spec)
+    lay = flat.tensor_layout(state.spec, cols, state.plan)
+    w = lay.to_tensor(partition.flat_local(state.w)).requires_grad_(True)
+    batch = rounds.client_batch(batch_fn(0, torch.Generator().manual_seed(7)),
+                                0)
+    f, g = pair(flat.unflatten(lay.spec, w), batch)
+    f.backward()
+    whole = [w.grad[ls.offset:ls.offset + ls.size]
+             for ls, d in zip(lay.spec.leaves, state.plan.dims) if d is None]
+    out = _sha1_all(torch, {"f": f.detach().reshape(1),
+                            "g": g.detach().reshape(1),
+                            "whole_grads": torch.cat(whole)})
+    out["whole_leaves"] = len(whole)
+    return out
+
+
+def replicated_sha1(torch, hist) -> str:
+    """sha1 of a run's metrics (f, g_hat, sigma, the wire bytes, ...):
+    the same bits on every rank of a world."""
+    import numpy as np
+    h = hashlib.sha1()
+    for f in hist._fields:
+        v = getattr(hist, f)
+        if v is not None:
+            h.update(np.ascontiguousarray(np.asarray(v)).tobytes())
+    return h.hexdigest()
 
 
 def straddles(split, spec) -> bool:
@@ -5068,24 +5334,51 @@ def rank_expected(fed, runs: int, rank=None) -> tuple:
     return want, rows * fed.local_steps + (0 if fused else evals)
 
 
-def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
-    """A phase-21 or 22 cell's T rounds on this card through
+def rank_cell_run(torch, cell, T: int, ref=None, keep_digest: bool = True
+                  ) -> dict:
+    """A phase-21, 22 or 23 cell's T rounds on this card through
     ``run_rounds``, in one process or (under an active rank mesh) as one
     rank: s/round, peak GB, launches and ``loss_pair`` calls against what
     the layout demands, the collectives' bytes and host seconds per round
-    (both axes, and each axis's group), the state's digest (held against
-    ``want_digest`` when given, every field, row and column block this
-    rank holds), then one more round profiled and, on a rank, one whose
-    every wire-kernel launch is held against its plain version."""
+    (both axes, and each axis's group), the model's plan (its split and
+    whole leaves and their bytes; under a model axis the tensor layout's
+    exchange bytes), the state's digest and samples; on a rank held
+    against the one process's ``ref`` when given (``{"digest",
+    "samples"}``): a plan with no split leaf by the digest, every field,
+    row and column block this rank holds bit for bit, a split plan by
+    :data:`TP_LAW` on the samples.  Then one more round profiled and, on a
+    rank, one whose every wire-kernel launch is held against its plain
+    version.  The digest (sha1 of every column block: seconds at full
+    width) is taken only where it is read: with ``keep_digest`` (a
+    one-process run a world is held against by it), or on a rank held by
+    it."""
     import torch.distributed as dist
     from repro_torch import kernels
     from repro_torch.comm import flat
     from repro_torch.engine import rounds
     from repro_torch.sharding import collectives, partition
     ra, ma = partition.rank_axis(), partition.model_axis()
+    t_cell = time.time()
+
+    def progress(what):
+        # where a world stands (a rank that stops in a collective leaves
+        # its peers waiting until the group's timeout)
+        if ra is not None or ma is not None:
+            print(json.dumps({"rank_progress": cell[0],
+                              "rank": dist.get_rank(), "at": what,
+                              "s": time.time() - t_cell,
+                              "gb": torch.cuda.max_memory_allocated() / 1e9}),
+                  flush=True)
     state, batch_fn, pair, fed = rank_cell_setup(torch, cell)
-    dev = state.w.device
+    progress("setup")
+    dev = rounds.state_device(state)
     cols = flat.columns_for(fed, state.spec)
+    split_plan = state.plan is not None and state.plan.split
+    plan_rec = None if state.plan is None else \
+        partition.plan_record(state.spec, state.plan)
+    if plan_rec is not None and cols is not None:
+        plan_rec["exchange_bytes"] = flat.tensor_layout(
+            state.spec, cols, state.plan).exchange_bytes()
     up, _ = flat.flat_transports_for(fed, state.spec, cols)
     runs = len(up.codec.layout.runs) if up.codec is not None else \
         len(flat.wire_layout(state.spec, fed.uplink).runs)
@@ -5100,6 +5393,7 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
     def timed_batches(t, gen):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        progress(f"round {t}")
         return batch_fn(t, gen)
 
     torch.cuda.reset_peak_memory_stats()
@@ -5107,6 +5401,7 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
     collectives.reset_stats()
     state, hist = rounds.run_rounds(state, timed_batches, loss_pair, fed,
                                     T=T, device=dev)
+    progress("rounds")
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     coll = collectives.stats()
@@ -5128,6 +5423,7 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
            "model_rank": None if ma is None else ma.rank,
            "mesh": None if partition.current_mesh() is None else
            list(partition.current_mesh().devices.shape),
+           "plan": plan_rec, "split_plan": split_plan,
            "columns": None if cols is None else [cols.lo, cols.hi],
            "split": None if cols is None else list(cols.split.cuts),
            "wire_runs": runs,
@@ -5148,10 +5444,24 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
            "collectives_per_round_by_axis": {
                a: {k: v / T for k, v in st.items()}
                for a, st in coll_axes.items()}}
-    digest = state_digest(torch, state, hist, fed)
+    digest = state_digest(torch, state, hist, fed) if (
+        keep_digest if ref is None else not split_plan) else None
+    samples = state_samples(torch, state, hist)
+    rec["replicated_sha1"] = replicated_sha1(torch, hist)
     rec["straddles"] = cols is not None and straddles(cols.split,
                                                        state.spec)
-    if want_digest is not None:
+    if ref is not None and split_plan:
+        exact = fed.uplink.kind == "none" and fed.downlink.kind == "none"
+        bad, rec["law_counts"] = samples_mismatch(samples, ref["samples"],
+                                                  exact)
+        rec["law"] = "exact wire" if exact else "0.1% law"
+        rec["law_counts"]["row_gap_control"] = row_control(ref["samples"])
+        if bad:
+            raise AssertionError(f"{rec['phase']}: beyond the split plan's "
+                                 f"law against one process: {bad}")
+        rec["within_law_of_one_process"] = True
+    elif ref is not None:
+        want_digest = ref["digest"]
         bad = digest_mismatch(digest, want_digest, rec["straddles"])
         rec["delta_norm"] = [digest["delta_norm"],
                              want_digest["delta_norm"]]
@@ -5179,9 +5489,13 @@ def rank_cell_run(torch, cell, T: int, want_digest=None) -> dict:
     rec["profile"]["collectives_by_axis"] = collectives.stats_by_axis()
     if ranked:
         rec.update(plain_check_record(state, hist, batch_fn, pair, fed, dev))
+    if split_plan:
+        rec["whole_grad_sha1"] = whole_grad_sha1(torch, state, batch_fn,
+                                                 pair, fed)
     if cell[1] is None and ra is not None:
         rec["shard_check"] = rank_shard_check(torch, dev)
     rec["digest"] = digest
+    rec["samples"] = samples
     del state
     free_card(torch)
     return rec
@@ -5242,16 +5556,22 @@ def gloo_cuda_probe(torch, dist) -> dict:
     return out
 
 
-def rank_main(rank: int, world: int, backend: str, T: int, digests: list,
-              out_dir: str, phases=(21, 22)) -> None:
+# the records of each phase's cells in a rank's output
+RANK_KEYS = {21: "cells", 22: "model_cells", 23: "tp_cells", "23b": "full"}
+
+
+def rank_main(rank: int, world: int, backend: str, T: int, wants: dict,
+              out_dir: str, phases=(21, 22, 23)) -> None:
     """One rank of a phase-21 world (started by ``spawn``): its card, the
     default group (rendezvous through a file store in ``out_dir``), under
     gloo the probe of its collectives on CUDA tensors, then (phase 21)
-    each cell of :data:`RANK_CELLS` under the rank mesh of the client axis
-    and (phase 22) each of :data:`MODEL_CELLS` under the ``(world /
-    RANK_MODEL, RANK_MODEL)`` data x model mesh, held against its
-    one-process ``digests``; its records to ``out_dir/rank<r>.json``.  A
-    failure raises (and fails the world)."""
+    each cell of :data:`RANK_CELLS` under the rank mesh of the client axis,
+    (phase 22) each of :data:`MODEL_CELLS` and (phase 23, its cells at
+    :data:`TP_ROUNDS` rounds) each of :data:`TP_CELLS` under the ``(world
+    / RANK_MODEL, RANK_MODEL)`` data x model mesh, held against its
+    one-process ``wants`` (``{"digest", "samples"}``), or ("23b")
+    :data:`TP_FULL_CELL` on a ``(1, world)`` mesh; its records to
+    ``out_dir/rank<r>.json``.  A failure raises (and fails the world)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -5265,23 +5585,28 @@ def rank_main(rank: int, world: int, backend: str, T: int, digests: list,
                             timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
     try:
         out = {"probe": gloo_cuda_probe(torch, dist)
-               if backend == "gloo" else None, "cells": [],
-               "model_cells": [], "seconds": {}}
+               if backend == "gloo" else None, "seconds": {},
+               **{key: [] for key in RANK_KEYS.values()}}
+        model_mesh = mesh.make_rank_mesh(
+            RANK_DEVICE, shape=(world // RANK_MODEL, RANK_MODEL),
+            axes=("data", "model")) if world % RANK_MODEL == 0 else None
         meshes = {21: (RANK_CELLS, mesh.make_rank_mesh(RANK_DEVICE)),
-                  22: (MODEL_CELLS, mesh.make_rank_mesh(
-                      RANK_DEVICE, shape=(world // RANK_MODEL, RANK_MODEL),
+                  22: (MODEL_CELLS, model_mesh), 23: (TP_CELLS, model_mesh),
+                  "23b": ([TP_FULL_CELL], mesh.make_rank_mesh(
+                      RANK_DEVICE, shape=(1, world),
                       axes=("data", "model")))}
         for phase in phases:
             cells, rank_mesh = meshes[phase]
-            key = "cells" if phase == 21 else "model_cells"
             for cell in cells:
                 t0 = time.time()
                 partition.activate_mesh(rank_mesh)
-                rec = rank_cell_run(torch, cell, T, digests[cell[4] or
-                                                            cell[0]])
+                rec = rank_cell_run(
+                    torch, cell, TP_ROUNDS if phase in (23, "23b") else T,
+                    wants.get(cell[4] or cell[0]), keep_digest=False)
                 rec.pop("digest")
+                rec.pop("samples")
                 partition.activate_mesh(None)
-                out[key].append(rec)
+                out[RANK_KEYS[phase]].append(rec)
                 out["seconds"][cell[0]] = time.time() - t0
         pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -5289,8 +5614,8 @@ def rank_main(rank: int, world: int, backend: str, T: int, digests: list,
         dist.destroy_process_group()
 
 
-def rank_world(backend: str, world: int, T: int, digests: dict,
-               phases=(21, 22)) -> list:
+def rank_world(backend: str, world: int, T: int, wants: dict,
+               phases=(21, 22, 23)) -> list:
     """Spawn a world of ``world`` ranks over ``backend`` that runs every
     cell of ``phases`` (:func:`rank_main`); each rank's records (a rank
     that fails raises here).  The ranks' folder (their rendezvous and
@@ -5300,7 +5625,7 @@ def rank_world(backend: str, world: int, T: int, digests: dict,
     import torch.multiprocessing as mp
     out_dir = tempfile.mkdtemp(prefix="ranks-")
     try:
-        mp.start_processes(rank_main, args=(world, backend, T, digests,
+        mp.start_processes(rank_main, args=(world, backend, T, wants,
                                             out_dir, phases),
                            nprocs=world, join=True, start_method="spawn")
         return [json.loads(pathlib.Path(out_dir, f"rank{r}.json").read_text())
@@ -5314,84 +5639,122 @@ ONE_PROCESS_KEYS = ("phase", "d", "rounds", "s_per_round",
                     "loss_pair_per_round", "launches", "profile")
 
 
-def rank_phase(torch, dev, T: int, earlier=None, phases=(21, 22),
+def rank_phase(torch, dev, T: int, earlier=None, phases=(21, 22, 23),
                backends=("gloo", "nccl")) -> tuple:
-    """Phases 21 and 22: each cell of :data:`RANK_CELLS` in one process:
-    21(b) and (c) from the earlier phase the cell names (``earlier``: that
-    phase's record and its final state's digest, T rounds as here),
-    otherwise run here, its memory freed after it (21(a); every cell when
-    the phase runs alone); then one world that runs every cell of
-    ``phases`` over ranks (phase 22's cells on the same one-process runs
-    as 21(b), (c)): :data:`RANK_SHARED` ranks sharing the card over gloo
-    (CUDA tensors, collectives staged through the host) and, where 2 or
-    more cards exist, one rank per card over NCCL (up to
-    :data:`RANK_NCCL_MAX`); every rank bit-equal to the one process, and
-    in phase 22 each rank's peak below the one process's.  ``backends``:
-    the worlds to run of these two.  Returns ``(records, launch
-    records)``."""
+    """Phases 21, 22 and 23: each cell of :data:`RANK_CELLS` and
+    :data:`TP_CELLS` in one process: 21(b) and (c) from the earlier phase
+    the cell names (``earlier``: that phase's record and its final
+    state's digest and samples, T rounds as here), otherwise run here, its
+    memory freed after it (21(a), 23; every cell when the phase runs
+    alone); then one world that runs every cell of ``phases`` over ranks
+    (phase 22's cells on the same one-process runs as 21(b), (c)):
+    :data:`RANK_SHARED` ranks sharing the card over gloo (CUDA tensors,
+    collectives staged through the host) and, where 2 or more cards
+    exist, one rank per card over NCCL (up to :data:`RANK_NCCL_MAX`);
+    every rank held against the one process (bit for bit, or by
+    :data:`TP_LAW` under a split plan), the same metrics' bits on every
+    rank, and in phases 22 and 23 each rank's peak below the one
+    process's.  "23b", only where asked and :data:`RANK_FULL_CARDS` cards
+    exist: qwen3-4b whole over NCCL, one rank a card (not a default phase:
+    its one 4-card run passed its time limit, the cause not found).
+    ``backends``: the worlds to run of these two.  Returns ``(records,
+    launch records)``."""
     t_phase = time.time()
     cards = torch.cuda.device_count()
-    cells, digests, launches, seconds = [], {}, [], {}
-    wanted = [c for c in RANK_CELLS if 21 in phases or c[4] is not None]
+    cells, wants, launches, seconds = [], {}, [], {}
+    wanted = [c for c in RANK_CELLS if 21 in phases or
+              (22 in phases and c[4] is not None)]
+    wanted += TP_CELLS if 23 in phases else []
     for cell in wanted:
         t0 = time.time()
         rec = (earlier or {}).get(cell[4])
+        rounds_ = TP_ROUNDS if cell in TP_CELLS else T
         if rec is None:
-            one = rank_cell_run(torch, cell, T)
+            one = rank_cell_run(torch, cell, rounds_,
+                                keep_digest=cell not in TP_CELLS)
+            launches.append({"phase": one["phase"],
+                             "launches": one["launches"]})
         else:
             if rec["rounds"] != T:
                 raise AssertionError(f"{cell[0]}: {cell[4]} ran "
                                      f"{rec['rounds']} rounds, not {T}")
             one = {k: rec[k] for k in ONE_PROCESS_KEYS}
             one["digest"] = rec.pop("digest")
-        digests[cell[4] or cell[0]] = one.pop("digest")
+            one["samples"] = rec.pop("samples")
+        wants[cell[4] or cell[0]] = {"digest": one.pop("digest"),
+                                     "samples": one.pop("samples")}
         print(json.dumps({"rank_cell": cell[0], **one}), flush=True)
         cells.append({"cell": cell[0], "from": cell[4], "one_process": one,
                       "worlds": {}})
         seconds[f"{cell[0]} one process"] = time.time() - t0
-    model_cells = [{"cell": cell[0], "from": cell[4], "worlds": {},
-                    "one_process": next(c["one_process"] for c in cells
-                                        if c["from"] == cell[4])}
-                   for cell in (MODEL_CELLS if 22 in phases else [])]
-    cells_21 = cells if 21 in phases else []
-    worlds = [("gloo", RANK_SHARED)] if "gloo" in backends else []
-    if cards >= 2 and "nccl" in backends:
-        worlds.append(("nccl", min(cards, RANK_NCCL_MAX)))
+    by_from = {c["from"] or c["cell"]: c["one_process"] for c in cells}
+    groups = {21: cells if 21 in phases else [],
+              22: [{"cell": c[0], "from": c[4], "worlds": {},
+                    "one_process": by_from[c[4]]}
+                   for c in (MODEL_CELLS if 22 in phases else [])],
+              23: [c for c in cells if c["cell"] in
+                   {t[0] for t in TP_CELLS}],
+              "23b": [{"cell": TP_FULL_CELL[0], "from": None, "worlds": {},
+                       "one_process": None}] if "23b" in phases else []}
+    groups[21] = [c for c in groups[21] if c not in groups[23]]
+    base = tuple(p for p in phases if p != "23b")
+    worlds = [("gloo", RANK_SHARED, base)] if "gloo" in backends and base \
+        else []
+    if cards >= 2 and "nccl" in backends and base:
+        worlds.append(("nccl", min(cards, RANK_NCCL_MAX), base))
+    if cards >= RANK_FULL_CARDS and "nccl" in backends and "23b" in phases:
+        worlds.append(("nccl", RANK_FULL_CARDS, ("23b",)))
     probe = None
-    for backend, world in worlds:
+    for backend, world, run in worlds:
         t0 = time.time()
-        ranks = rank_world(backend, world, T, digests, phases)
+        ranks = rank_world(backend, world, T, wants, run)
         label = f"{backend} x{world}"
         seconds[label] = time.time() - t0
         for key, value in ranks[0]["seconds"].items():
             seconds[f"{label} {key}"] = value
         probe = probe or ranks[0]["probe"]
-        for recs, key in ((cells_21, "cells"), (model_cells,
-                                                "model_cells")):
-            for i, rec in enumerate(recs):
-                rec["worlds"][label] = [r[key][i] for r in ranks]
-                for r in ranks:
-                    print(json.dumps({"rank_cell": rec["cell"],
-                                      **r[key][i]}), flush=True)
-                    launches.append({"phase": r[key][i]["phase"],
-                                     "launches": r[key][i]["launches"]})
-    for rec in model_cells:
-        one = rec["one_process"]["peak_mem_gb"]
-        for label, recs in rec["worlds"].items():
-            peaks = [r["peak_mem_gb"] for r in recs]
-            if not all(p < one for p in peaks):
-                raise AssertionError(f"{rec['cell']} {label}: peaks "
-                                     f"{peaks} GB, one process {one} GB")
+        for phase in run:
+            for i, rec in enumerate(groups[phase]):
+                recs = [r[RANK_KEYS[phase]][i] for r in ranks]
+                rec["worlds"][label] = recs
+                for r in recs:
+                    print(json.dumps({"rank_cell": rec["cell"], **r}),
+                          flush=True)
+                    launches.append({"phase": r["phase"],
+                                     "launches": r["launches"]})
+                sha = {r["replicated_sha1"] for r in recs}
+                if len(sha) != 1:
+                    raise AssertionError(f"{rec['cell']} {label}: the "
+                                         f"ranks' metrics differ: {sha}")
+                grads = {json.dumps(r.get("whole_grad_sha1"),
+                                    sort_keys=True) for r in recs}
+                if len(grads) != 1:
+                    raise AssertionError(f"{rec['cell']} {label}: the "
+                                         "ranks' f, g or whole leaves' "
+                                         f"gradients differ: {grads}")
+    for phase in (22, 23):
+        for rec in groups[phase]:
+            one = rec["one_process"]["peak_mem_gb"]
+            for label, recs in rec["worlds"].items():
+                peaks = [r["peak_mem_gb"] for r in recs]
+                if not all(p < one for p in peaks):
+                    raise AssertionError(f"{rec['cell']} {label}: peaks "
+                                         f"{peaks} GB, one process {one} GB")
     nccl = None if cards >= 2 else (
         f"not run: {cards} card; NCCL cannot put two ranks on one card, "
         "and a one-rank group calls no collective")
+    full = "23(b) not run: only where asked (phases=(\"23b\",))" \
+        if "23b" not in phases else None if cards >= RANK_FULL_CARDS else (
+            f"23(b) not run: {cards} card(s); qwen3-4b whole needs "
+            f"{RANK_FULL_CARDS} cards over NCCL, one rank a card")
     seconds["phase"] = time.time() - t_phase
     print(json.dumps({"rank_seconds": seconds, "cards": cards,
-                      "gloo_on_cuda_tensors": probe, "nccl": nccl}),
-          flush=True)
-    return {"cells": cells_21, "model_cells": model_cells,
+                      "gloo_on_cuda_tensors": probe, "nccl": nccl,
+                      "qwen3_whole": full}), flush=True)
+    return {"cells": groups[21], "model_cells": groups[22],
+            "tp_cells": groups[23], "full": groups["23b"],
             "gloo_on_cuda_tensors": probe, "nccl": nccl,
-            "seconds": seconds}, launches
+            "qwen3_whole": full, "seconds": seconds}, launches
 
 
 def profile_round(torch, state, batch_fn, loss_pair, fed, dev, s_round):
@@ -5557,7 +5920,7 @@ def run_phases(torch, args, dev, card: str, t_start: float, sweep) -> int:
     rank_rec, rank_launches = rank_phase(
         torch, dev, args.rounds,
         {r["phase"]: r for r in phases + family_rec["cells"]})
-    done("21, 22 ranks")
+    done("21-23 ranks")
     # launches on the main paths: each phase's count (phases 21 and 22's
     # rank by rank), and their sum
     counted = phases + [{"phase": "np quickstart",

@@ -54,6 +54,24 @@ one-process payload, the dense wire compresses leaf by leaf or block by
 block, and the random kinds draw the whole buffer from the one-process
 generator and keep their columns.  :func:`tree_norm` adds the per-leaf
 partials of every rank.
+
+Under a plan that splits the model's leaves (``partition.tensor_plan``)
+the model computes on each rank's tensor-local buffer instead
+(:class:`TensorLayout`): the leaves in the reference's order at their
+local shapes (:func:`local_spec`).  The wire keeps the column layout,
+whose blocks are the reference's ravel order.  Once a round the new
+``w``'s columns go into every rank's tensor-local buffer
+(:meth:`TensorLayout.to_tensor`: one ``all_to_all_single`` for the split
+leaves, one all-gather of the whole leaves' columns), and each delta row
+comes back to the columns as soon as it is computed
+(:meth:`TensorLayout.to_columns`: one ``all_to_all_single`` a row; a
+whole leaf's row is the same on every rank, so each column owner keeps
+its own part).  The maps are index arithmetic on the leaf shapes: a split
+leaf of shape ``[A, n, B]`` (split on the middle dim into M blocks) is a
+list of ``A * M`` rows of ``n / M * B`` elements, row ``a * M + t`` held
+by rank t, so a column range meets each rank in at most a partial row, a
+run of rows M apart and another partial row, and lands in that rank's
+buffer as one contiguous range.
 """
 from __future__ import annotations
 
@@ -451,6 +469,315 @@ def columns_for(cfg, spec: FlatSpec) -> "Columns | None":
     split = column_split(spec, flat_transports_for(cfg, spec), ma.size)
     lo, hi = split.block(ma.rank)
     return Columns(split, lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# The tensor layout under a split plan
+# ---------------------------------------------------------------------------
+
+def local_spec(spec: FlatSpec, plan) -> FlatSpec:
+    """``spec`` with each leaf at its local shape under ``plan`` (a
+    ``partition.TensorPlan``), in the same order, offsets recounted."""
+    leaves, off = [], 0
+    for i, ls in enumerate(spec.leaves):
+        shape = plan.local_shape(i, ls.shape)
+        size = math.prod(shape)
+        leaves.append(LeafSpec(shape, ls.dtype, off, size))
+        off += size
+    return spec._replace(leaves=tuple(leaves), d=off)
+
+
+def _row_geometry(shape: tuple, dim: int, M: int) -> int:
+    """The row length of a leaf split on ``dim`` into M blocks: its
+    elements as rows of ``shape[dim] / M * prod(shape[dim + 1:])``."""
+    return shape[dim] // M * math.prod(shape[dim + 1:])
+
+
+def _segments(u: int, v: int, L: int, M: int, t: int) -> list:
+    """The elements of a split leaf's range ``u:v`` (leaf-relative) that
+    rank ``t`` holds, as ``(start, rows, width)``: ``rows`` runs of
+    ``width`` elements from ``start``, ``M * L`` apart (rows of length
+    ``L``, row ``r`` held by rank ``r % M``), in order."""
+    out = []
+    if u >= v:
+        return out
+    r = u // L
+    if u % L:                                   # a partial first row
+        end = min(v, (r + 1) * L)
+        if r % M == t:
+            out.append((u, 1, end - u))
+        u, r = end, r + 1
+        if u >= v:
+            return out
+    r1 = v // L                                 # whole rows r .. r1 - 1
+    first = r + (t - r) % M
+    if first < r1:
+        out.append((first * L, (r1 - 1 - first) // M + 1, L))
+    if v % L and r1 % M == t:                   # a partial last row
+        out.append((r1 * L, 1, v - r1 * L))
+    return out
+
+
+def _local_at(g: int, L: int, M: int) -> int:
+    """The position in its rank's shard of a split leaf's element ``g``."""
+    return (g // L // M) * L + g % L
+
+
+def _rows(x: torch.Tensor, start: int, n: int, width: int,
+          stride: int) -> torch.Tensor:
+    """``[n, width]`` view of the 1-D contiguous ``x``: rows from
+    ``start``, ``stride`` apart."""
+    if n == 1:
+        return x[start:start + width].view(1, width)
+    return x.as_strided((n, width), (stride, 1), x.storage_offset() + start)
+
+
+def _merge(ops: list) -> list:
+    """Copies ``(src, dst, n)`` with each one that continues the last in
+    both buffers folded into it."""
+    out = []
+    for a, b, n in ops:
+        if out and out[-1][0] + out[-1][2] == a and \
+                out[-1][1] + out[-1][2] == b:
+            out[-1] = (out[-1][0], out[-1][1], out[-1][2] + n)
+        elif n:
+            out.append((a, b, n))
+    return out
+
+
+class TensorLayout:
+    """One model rank's maps between its column block ``cols`` of the flat
+    buffer and its tensor-local buffer under ``plan`` (module docstring):
+
+    * ``spec`` -- the tensor-local :class:`FlatSpec` (:func:`local_spec`);
+    * :meth:`to_tensor` -- every rank's columns -> this rank's local
+      buffer (the round's ``w``);
+    * :meth:`to_columns` -- every rank's local buffer -> this rank's
+      columns (a delta row).
+
+    Under a plan with no split leaf the local buffer is the whole ``[d]``
+    buffer: :meth:`to_tensor` is one all-gather of the columns, and
+    :meth:`to_columns` a copy of this rank's columns."""
+
+    def __init__(self, spec: FlatSpec, cols: Columns, plan, rank: int):
+        self.whole_spec, self.cols, self.plan, self.rank = \
+            spec, cols, plan, rank
+        self.spec = local_spec(spec, plan)
+        M = plan.size
+        blocks = [cols.split.block(q) for q in range(M)]
+        geo = {}
+        for i, (ls, dim) in enumerate(zip(spec.leaves, plan.dims)):
+            if dim is not None:
+                geo[i] = _row_geometry(ls.shape, dim, M)
+
+        def parts(q):
+            lo, hi = blocks[q]
+            return pieces(spec, lo, hi)
+
+        # to_tensor, split leaves: what this rank sends each rank t (reads
+        # from its columns), and where what each rank q sends lands here
+        lo = cols.lo
+        self._send_t, self._send_t_counts = [], []
+        for t in range(M):
+            ops, n = [], 0
+            for i, a, b in parts(rank):
+                if i not in geo:
+                    continue
+                off = spec.leaves[i].offset
+                for g, rows, width in _segments(a - off, b - off, geo[i], M,
+                                                t):
+                    ops.append((off + g - lo, rows, width, M * geo[i], n))
+                    n += rows * width
+            self._send_t.append(ops)
+            self._send_t_counts.append(n)
+        self._recv_t, self._recv_t_counts, pos = [], [], 0
+        for q in range(M):
+            n = 0
+            for i, a, b in parts(q):
+                if i not in geo:
+                    continue
+                off, L = spec.leaves[i].offset, geo[i]
+                segs = _segments(a - off, b - off, L, M, rank)
+                size = sum(r * w for _, r, w in segs)
+                if size:
+                    dst = self.spec.leaves[i].offset + _local_at(segs[0][0],
+                                                                 L, M)
+                    self._recv_t.append((pos + n, dst, size))
+                n += size
+            self._recv_t_counts.append(n)
+            pos += n
+        self._recv_t = _merge(self._recv_t)
+        # whole leaves: every rank's columns of them, all-gathered, and
+        # placed; this rank's own part of a delta row
+        self._whole_counts, self._whole_place, pos = [], [], 0
+        self._whole_mine, self._own = [], []
+        for q in range(M):
+            n = 0
+            for i, a, b in parts(q):
+                if i in geo:
+                    continue
+                off = spec.leaves[i].offset
+                dst = self.spec.leaves[i].offset + a - off
+                self._whole_place.append((pos + n, dst, b - a))
+                if q == rank:
+                    self._whole_mine.append((a - lo, n, b - a))
+                    self._own.append((dst, a - lo, b - a))
+                n += b - a
+            self._whole_counts.append(n)
+            pos += n
+        self._whole_place = _merge(self._whole_place)
+        self._whole_mine = _merge(self._whole_mine)
+        self._own = _merge(self._own)
+        # to_columns, split leaves: this rank's local ranges for each
+        # column owner q, and the strided writes of what each rank t sends
+        self._send_c, self._send_c_counts = [], []
+        for q in range(M):
+            ops, n = [], 0
+            for i, a, b in parts(q):
+                if i not in geo:
+                    continue
+                off, L = spec.leaves[i].offset, geo[i]
+                segs = _segments(a - off, b - off, L, M, rank)
+                size = sum(r * w for _, r, w in segs)
+                if size:
+                    ops.append((self.spec.leaves[i].offset
+                                + _local_at(segs[0][0], L, M), n, size))
+                n += size
+            self._send_c.append(_merge(ops))
+            self._send_c_counts.append(n)
+        self._recv_c, self._recv_c_counts, pos = [], [], 0
+        for t in range(M):
+            n = 0
+            for i, a, b in parts(rank):
+                if i not in geo:
+                    continue
+                off = spec.leaves[i].offset
+                for g, rows, width in _segments(a - off, b - off, geo[i], M,
+                                                t):
+                    self._recv_c.append((pos + n, off + g - lo, rows, width,
+                                         M * geo[i]))
+                    n += rows * width
+            self._recv_c_counts.append(n)
+            pos += n
+        self.any_split = plan.split
+        self.any_whole = any(self._whole_counts)
+
+    def exchange_bytes(self) -> dict:
+        """Bytes this rank sends to other ranks and receives from them in
+        a :meth:`to_tensor` and a :meth:`to_columns` (the all-gather's
+        padding left out)."""
+        item = torch.empty((), dtype=self.whole_spec.dtype).element_size()
+        me, M = self.rank, self.plan.size
+        whole = self._whole_counts
+        return {
+            "to_tensor_out": item * (sum(self._send_t_counts)
+                                     - self._send_t_counts[me]
+                                     + whole[me] * (M - 1)),
+            "to_tensor_in": item * (sum(self._recv_t_counts)
+                                    - self._recv_t_counts[me]
+                                    + sum(whole) - whole[me]),
+            "to_columns_out": item * (sum(self._send_c_counts)
+                                      - self._send_c_counts[me]),
+            "to_columns_in": item * (sum(self._recv_c_counts)
+                                     - self._recv_c_counts[me])}
+
+    # -- the two directions, each: pack, the collectives, unpack ----------
+
+    def pack_tensor(self, x: torch.Tensor) -> tuple:
+        """:meth:`to_tensor`'s sends: ``(split, whole)``, the split leaves'
+        elements grouped by destination rank (``_send_t_counts``) and this
+        rank's columns of the whole leaves."""
+        split = x.new_empty(sum(self._send_t_counts))
+        base = 0
+        for t, ops in enumerate(self._send_t):
+            for src, rows, width, stride, at in ops:
+                split[base + at:base + at + rows * width].view(
+                    rows, width).copy_(_rows(x, src, rows, width, stride))
+            base += self._send_t_counts[t]
+        if len(self._whole_mine) == 1 and \
+                self._whole_mine[0][2] == x.shape[0]:
+            return split, x
+        whole = x.new_empty(self._whole_counts[self.rank])
+        for a, b, n in self._whole_mine:
+            whole[b:b + n] = x[a:a + n]
+        return split, whole
+
+    def unpack_tensor(self, recv: torch.Tensor, full: torch.Tensor
+                      ) -> torch.Tensor:
+        """:meth:`to_tensor`'s result from what arrived: ``recv`` the split
+        leaves' elements grouped by source rank, ``full`` every rank's
+        whole-leaf columns in rank order."""
+        if not self.any_split and self._whole_place == [(0, 0,
+                                                        self.spec.d)]:
+            return full
+        out = full.new_empty(self.spec.d)
+        for a, b, n in self._whole_place:
+            out[b:b + n] = full[a:a + n]
+        for a, b, n in self._recv_t:
+            out[b:b + n] = recv[a:a + n]
+        return out
+
+    def to_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's columns ``[cols.width]`` of a flat buffer (every
+        rank calling with its own) -> this rank's tensor-local buffer
+        ``[spec.d]``: one ``all_to_all_single`` of the split leaves, one
+        all-gather of the whole leaves' columns."""
+        from repro_torch.sharding import collectives
+        split, whole = self.pack_tensor(x.contiguous())
+        recv = collectives.exchange_rows(
+            split, self._send_t_counts, self._recv_t_counts,
+            axis="model") if self.any_split else split
+        full = collectives.all_gather_rows(
+            whole, self._whole_counts, axis="model") if self.any_whole \
+            else whole
+        return self.unpack_tensor(recv, full)
+
+    def pack_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`to_columns`'s send: the split leaves' local elements
+        grouped by column owner (``_send_c_counts``)."""
+        send = x.new_empty(sum(self._send_c_counts))
+        base = 0
+        for q, ops in enumerate(self._send_c):
+            for a, b, n in ops:
+                send[base + b:base + b + n] = x[a:a + n]
+            base += self._send_c_counts[q]
+        return send
+
+    def unpack_columns(self, x: torch.Tensor, recv: torch.Tensor,
+                       out: torch.Tensor) -> torch.Tensor:
+        """:meth:`to_columns`'s result into ``out``: this rank's own part
+        of the whole leaves from ``x``, the split leaves' columns from
+        ``recv`` (grouped by source rank)."""
+        for a, b, n in self._own:
+            out[b:b + n] = x[a:a + n]
+        for src, dst, rows, width, stride in self._recv_c:
+            _rows(out, dst, rows, width, stride).copy_(
+                recv[src:src + rows * width].view(rows, width))
+        return out
+
+    def to_columns(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor-local buffer ``[spec.d]`` (every rank calling
+        with its own) -> ``out``, this rank's columns ``[cols.width]``: one
+        ``all_to_all_single`` of the split leaves."""
+        from repro_torch.sharding import collectives
+        recv = None
+        if self.any_split:
+            recv = collectives.exchange_rows(
+                self.pack_columns(x), self._send_c_counts,
+                self._recv_c_counts, axis="model")
+        return self.unpack_columns(x, recv, out)
+
+
+def tensor_layout(spec: FlatSpec, cols: Columns, plan) -> TensorLayout:
+    """This model rank's :class:`TensorLayout` of ``spec`` between the
+    columns ``cols`` and the tensor layout of ``plan`` (None: no leaf
+    split), computed on each call (index arithmetic on the leaves' shapes:
+    well under a millisecond at qwen3-4b's widths)."""
+    from repro_torch.sharding import partition
+    ma = partition.model_axis()
+    if plan is None:
+        plan = partition.TensorPlan((None,) * len(spec.leaves), ma.size)
+    return TensorLayout(spec, cols, plan, ma.rank)
 
 
 # ---------------------------------------------------------------------------

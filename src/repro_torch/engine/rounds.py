@@ -75,16 +75,25 @@ asynchronous rounds, checkpoints and the wire runtime refuse a rank mesh.
 
 With a model axis on the rank mesh (``make_rank_mesh(shape=(D, M),
 axes=("data", "model"))``) the flat state is split by columns as well
-(``comm.flat.columns_for``; the reference's ``constrain_flat`` sites).
-Each model rank still runs its rows' eval and local steps on the whole
-``w``, but cuts each delta row to its columns as soon as it is computed,
-and holds only its columns of ``x``, of the averaged-iterate sum and of
-the residual (the dense stack's or the slot store's pool:
-``partition.FlatShard`` state, client rows x columns on a 2-D mesh).  The
-uplink (EF14, the payloads, the reduce), the server step and the downlink
-run on the columns; the model axis then all-gathers the new ``w`` whole.
-The whole-``[d]`` norms (``delta_norm``, the projection's) add per-rank
-partials (``flat.tree_norm``).
+(``comm.flat.columns_for``; the reference's ``constrain_flat`` sites):
+each model rank holds only its columns of ``w``, ``x``, the
+averaged-iterate sum and the residual (the dense stack's or the slot
+store's pool: ``partition.FlatShard`` state, client rows x columns on a
+2-D mesh).  The uplink (EF14, the payloads, the reduce), the server step
+and the downlink run on the columns.  The model computes in the tensor
+layout of the state's plan (``init_state(..., plan=...)``, from
+``models.build(cfg).tensor_plan``; ``comm.flat.TensorLayout``): at the
+start of each round the new ``w``'s columns go into each rank's
+tensor-local buffer, the model ranks share each client's forward and
+backward (the dense family's heads, ffn and vocab split over them; the
+other leaves, and every leaf of a plan with no split, whole on each
+rank), and each delta row goes back to the columns as soon as it is
+computed.  Under a plan with no split leaf the tensor layout is the whole
+``w`` (one all-gather of the columns a round) and every rank ends each
+round with one process's state, bit for bit; a split plan adds the
+row-parallel sums in another order (allclose).  The whole-``[d]`` norms
+(``delta_norm``, the projection's) add per-rank partials
+(``flat.tree_norm``).
 """
 from __future__ import annotations
 
@@ -114,14 +123,17 @@ class FedState(NamedTuple):
     e_up: object                  # uplink EF residuals: [n_clients, d],
                                   # a scale.slots.SlotStore, or None
     wbar_sum: Optional[torch.Tensor]  # weighted sum of w_t, flat [d]
-    # (under a model axis x, wbar_sum and the residual, or the store's
-    # pool, are partition.FlatShard: this rank's columns)
+    # (under a model axis w, x, wbar_sum and the residual, or the
+    # store's pool, are partition.FlatShard: this rank's columns)
     wbar_weight: torch.Tensor
     t: int
     gen: torch.Generator          # participation draws (CPU)
     spec: flat.FlatSpec
     sampler: object = None        # client-sampler state (None for the
                                   # stateless laws)
+    plan: object = None           # partition.TensorPlan of the model's
+                                  # leaves under a model axis (None: no
+                                  # leaf split)
 
 
 class RoundMetrics(NamedTuple):
@@ -156,12 +168,16 @@ def transports_for(cfg):
             transports.get_transport(cfg.downlink, backend))
 
 
-def init_state(params, cfg, device="cuda") -> FedState:
+def init_state(params, cfg, device="cuda", plan=None) -> FedState:
     """Round-0 state: the flattened ``params`` on ``device`` (``cuda``
     unless the caller asks for the CPU) and the zero uplink residual --
     the dense ``[n, d]`` stack, or with ``cfg.scale.ef_slots`` an empty
     :class:`repro_torch.scale.slots.SlotStore` of that capacity (after
-    ``slots.validate``)."""
+    ``slots.validate``).  ``plan``: the model's
+    :class:`~repro_torch.sharding.partition.TensorPlan` under a model axis
+    (``models.build(model_cfg).tensor_plan(flat.spec_of(params))``), the
+    leaves its layers split; None or a plan with no split leaf: the model
+    whole on every rank."""
     dev = resolve_device(device)
     check_ported(cfg)
     spec = flat.spec_of(params)
@@ -169,6 +185,12 @@ def init_state(params, cfg, device="cuda") -> FedState:
     uplink, downlink = transports_for(cfg)
     cols = flat.columns_for(cfg, spec)
     split = None if cols is None else cols.split
+    if plan is not None and plan.split and (
+            cols is None or plan.size != len(split.cuts) - 1
+            or len(plan.dims) != len(spec.leaves)):
+        raise ValueError(f"a plan that splits {plan.size} ways needs a "
+                         "model axis of that size and the params' leaves")
+    w = partition.constrain_flat(w, split)
     e_up = None
     if uplink.needs_residual:
         if cfg.scale.ef_slots:
@@ -180,25 +202,31 @@ def init_state(params, cfg, device="cuda") -> FedState:
                                         spec.dtype, dev, split)
     return FedState(
         # x starts as w itself: no round updates either buffer in place
-        # (under a model axis, a copy of this rank's columns)
-        w=w, x=(partition.constrain_flat(w, split)
-                if downlink.tracks_center else None), e_up=e_up,
+        # (under a model axis, this rank's columns of it)
+        w=w, x=w if downlink.tracks_center else None, e_up=e_up,
         wbar_sum=(partition.flat_zeros((spec.d,), spec.dtype, dev, split)
                   if cfg.track_wbar else None),
         wbar_weight=torch.zeros((), dtype=torch.float32, device=dev),
         t=0, gen=torch.Generator().manual_seed(cfg.seed), spec=spec,
-        sampler=samplers.get_sampler(cfg.fleet.sampler).init(cfg))
+        sampler=samplers.get_sampler(cfg.fleet.sampler).init(cfg),
+        plan=plan)
+
+
+def state_device(state: FedState) -> torch.device:
+    """The device the state lives on."""
+    return partition.flat_local(state.w).device
 
 
 def averaged_iterate(state: FedState) -> dict:
     """w_bar, the theorems' averaged iterate over the weighted rounds, as
-    parameter views (w_t itself before any round carried weight)."""
+    parameter views (w_t itself before any round carried weight); under a
+    model axis gathered whole on every rank."""
+    w = partition.whole(state.w)
     if state.wbar_sum is None:
-        return flat.unflatten(state.spec, state.w)
+        return flat.unflatten(state.spec, w)
     wgt = torch.clamp(state.wbar_weight, min=1e-12)
     return flat.unflatten(state.spec, torch.where(
-        state.wbar_weight > 0, partition.whole(state.wbar_sum) / wgt,
-        state.w))
+        state.wbar_weight > 0, partition.whole(state.wbar_sum) / wgt, w))
 
 
 def sample_round(state: FedState, cfg, fleet=None):
@@ -206,7 +234,7 @@ def sample_round(state: FedState, cfg, fleet=None):
     reads the fleet's host counts).  Returns ``(part, sampler state)``."""
     mask, weights, samp_state = samplers.get_sampler(
         cfg.fleet.sampler).sample(state.gen, cfg, state.sampler, fleet=fleet)
-    return (participation.finalize(mask, weights, cfg, state.w.device),
+    return (participation.finalize(mask, weights, cfg, state_device(state)),
             samp_state)
 
 
@@ -262,14 +290,15 @@ def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
                  n: int, first=None, cols=None) -> torch.Tensor:
     """Stage 4: E local SGD steps for each of the n rows of ``local_b`` on
     the strategy objective, ``Delta_j = (wf - w_{j,E}) / eta`` as one
-    ``[n, d]`` stack (under a model axis ``[n, cols.width]``: each row cut
-    to the columns ``cols`` as it is computed).  ``first(j)``, when given,
-    is row j's first-step gradient (the fused round's backward); the other
-    steps are ordinary forward + backward passes."""
+    ``[n, d]`` stack.  Under a model axis ``cols`` is this rank's
+    :class:`comm.flat.TensorLayout`: ``wf`` and ``spec`` are the tensor
+    layout's, and each row goes to the columns (``[n, cols.cols.width]``)
+    as soon as it is computed.  ``first(j)``, when given, is row j's
+    first-step gradient (the fused round's backward); the other steps are
+    ordinary forward + backward passes."""
     E, eta = cfg.local_steps, cfg.lr
     obj = strat.local_objective(loss_pair, sigma, cfg)
-    cut = (lambda v: v) if cols is None else cols.cut
-    deltas = torch.empty((n, spec.d if cols is None else cols.width),
+    deltas = torch.empty((n, spec.d if cols is None else cols.cols.width),
                          dtype=wf.dtype, device=wf.device)
     for j in range(n):
         batch = client_batch(local_b, j)
@@ -282,8 +311,11 @@ def local_deltas(wf, spec, strat, sigma, local_b, loss_pair: Callable, cfg,
                 (grad,) = torch.autograd.grad(
                     obj(flat.unflatten(spec, leaf), batch), leaf)
             w = w - eta * grad
-        torch.sub(cut(wf), cut(w), out=deltas[j])
-        deltas[j].div_(eta)
+        if cols is None:
+            torch.sub(wf, w, out=deltas[j])
+            deltas[j].div_(eta)
+        else:
+            cols.to_columns(torch.sub(wf, w).div_(eta), deltas[j])
     return deltas
 
 
@@ -340,8 +372,10 @@ def compute_round(state: FedState, wf, spec, batches, part, strat,
     with the first local step where :func:`fuses` says so.  Returns
     ``(f_part, g_hat, g_full, f_full, sigma, deltas)``; ``deltas`` is
     ``[n, d]`` or ``[m, d]`` (under a rank mesh, this rank's block of
-    them, cut to the columns ``cols`` under a model axis; the eval's rows
-    are gathered before the aggregates)."""
+    them; the eval's rows are gathered before the aggregates).  Under a
+    model axis ``wf`` and ``spec`` are the tensor layout ``cols``'s (a
+    :class:`comm.flat.TensorLayout`) and the rows of ``deltas`` its
+    columns."""
     sparse_eval = part.idx is not None and not cfg.full_eval
     pre_gathered = fleet is not None and sparse_eval
     if fleet is not None:
@@ -382,10 +416,11 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
     record when ``cfg.obs.enabled``; ``slot_stats`` is the slot store's
     :class:`repro_torch.scale.slots.SlotStats` from the uplink call site,
     None for a dense residual).  Under a model axis (``cols``) ``v_bar``,
-    ``deltas`` and the transports are the columns': the new ``w`` is
-    all-gathered whole, ``x`` and the averaged-iterate sum stay split."""
+    ``deltas`` and the transports are the columns': the new ``w``, ``x``
+    and the averaged-iterate sum stay split by columns (``wf`` is then the
+    tensor layout's buffer, read by the telemetry only)."""
     split = None if cols is None else cols.split
-    w_cols = wf if cols is None else cols.cut(wf)
+    w_cols = wf if cols is None else partition.flat_local(state.w)
     with stage("round.server_update"):
         xf = partition.flat_local(state.x) if state.x is not None \
             else w_cols
@@ -395,7 +430,7 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
             w_cols, x_new, key=transports.WireKey(cfg.seed, state.t,
                                                   transports.DOWNLINK))
         if cols is not None:
-            w_new = partition.whole(partition.FlatShard(w_new, split))
+            w_new = partition.FlatShard(w_new, split)
             x_new = partition.FlatShard(x_new, split)
     alpha = strat.iterate_weight(g_hat, cfg)
     wbar_sum = None
@@ -423,7 +458,8 @@ def finish_round(state: FedState, strat, cfg, spec, wf, part, deltas, v_bar,
     new_state = FedState(
         w=w_new, x=x_new if downlink.tracks_center else None, e_up=e_up,
         wbar_sum=wbar_sum, wbar_weight=state.wbar_weight + alpha,
-        t=state.t + 1, gen=state.gen, spec=spec, sampler=samp_state)
+        t=state.t + 1, gen=state.gen, spec=spec, sampler=samp_state,
+        plan=state.plan)
     return new_state, metrics
 
 
@@ -440,9 +476,9 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
     returned state holds it.  In gather mode the local steps run over the m
     participants only."""
     dev = resolve_device(device)
-    if state.w.device != dev:
+    if state_device(state) != dev:
         raise ValueError(f"round_step on {dev}: the state lives on "
-                         f"{state.w.device}")
+                         f"{state_device(state)}")
     check_ported(cfg)
     strat = strategies.get_strategy(cfg.strategy)
     fleet = batches if isinstance(batches, provision.Fleet) else None
@@ -450,8 +486,17 @@ def round_step(state: FedState, batches, loss_pair: Callable, cfg,
         part, samp_state = sample_round(state, cfg, fleet)
     spec, wf = state.spec, state.w
     cols = flat.columns_for(cfg, spec)
+    layout, mspec = None, spec
+    if cols is not None:
+        # the model computes in the tensor layout: the new w's columns
+        # into this rank's tensor-local buffer
+        layout = flat.tensor_layout(spec, cols, state.plan)
+        with stage("round.to_tensor"):
+            wf = layout.to_tensor(partition.flat_local(state.w))
+        mspec = layout.spec
     f_part, g_hat, g_full, f_full, sigma, deltas = compute_round(
-        state, wf, spec, batches, part, strat, loss_pair, cfg, fleet, cols)
+        state, wf, mspec, batches, part, strat, loss_pair, cfg, fleet,
+        layout)
     uplink, downlink = flat_transports_for(cfg, spec, cols)
     with stage("round.encode_reduce"):
         v_bar, e_up, slot_stats = participation.transmit(

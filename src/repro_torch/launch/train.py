@@ -100,6 +100,7 @@ import time
 import torch
 
 from repro_torch import checkpoint, configs, resolve_device
+from repro_torch.comm import flat
 from repro_torch.configs.base import (AsyncConfig, CompressorConfig,
                                       FedConfig, FleetConfig, ObsConfig,
                                       ScaleConfig, SwitchConfig)
@@ -297,7 +298,10 @@ def setup(args, cfg=None):
     # MoE models take the router's load imbalance as the constraint g
     loss_pair = lm.make_loss_pair(fns.forward, cfg, budget=6.0,
                                   aux_constraint=cfg.moe is not None)
-    state = rounds.init_state(params, fed, device=dev)
+    # under a rank mesh with a model axis, the leaves the model's layers
+    # split over it (none outside the dense family)
+    plan = fns.tensor_plan(flat.spec_of(params))
+    state = rounds.init_state(params, fed, device=dev, plan=plan)
     del params                  # the state's flat buffer is the model now
     if args.fleet:
         fleet = lm.make_fleet(torch.Generator().manual_seed(1),

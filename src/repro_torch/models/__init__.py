@@ -3,15 +3,22 @@
 (the transformer, homogeneous or patterned, with interleaved
 cross-attention layers), ``moe`` (MLA, routed experts, MTP), ``ssm``,
 ``hybrid`` and ``audio`` (the whisper encoder-decoder); serving is
-prefill, one-token decode and their caches."""
+prefill, one-token decode and their caches.  Under a rank mesh with a
+model axis, ``ModelFns.tensor_plan`` gives the leaves the dense family's
+layers split over it (``sharding.partition.tensor_plan``): the round
+engine takes the plan (``engine.rounds.init_state(..., plan=...)``), and
+the layers read their local head counts and blocks from the shapes they
+are given."""
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import partition
 
 
 class ModelFns(NamedTuple):
@@ -27,6 +34,10 @@ class ModelFns(NamedTuple):
     init_decode_cache: object  # (cfg, batch, cache_len[, media, params,
                                # device]) -> cache
     param_rules: object      # [(path regex, logical axes)] (models.rules)
+    tensor_plan: object      # (spec[, size]) -> sharding.partition.
+                             # TensorPlan: the leaves the model axis of
+                             # the active rank mesh splits (none outside
+                             # the dense family)
 
 
 def build(cfg: ModelConfig) -> ModelFns:
@@ -48,7 +59,8 @@ def build(cfg: ModelConfig) -> ModelFns:
     else:
         raise ValueError(f"unknown family {cfg.family}")
     return ModelFns(m.init, m.forward, m.param_shapes, m.prefill,
-                    m.decode_step, m.init_decode_cache, rules(cfg))
+                    m.decode_step, m.init_decode_cache, rules(cfg),
+                    functools.partial(partition.tensor_plan, cfg))
 
 
 def params_from_numpy(tree, device=None):

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import common
+from repro_torch.sharding import collectives
 
 
 class KVCache(NamedTuple):
@@ -82,13 +83,25 @@ def causal_bias(q_pos, kv_pos, window: int = 0, kv_valid=None):
 
 def self_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,
                    window: int = 0, qk_norm: bool = False,
-                   norm_eps: float = 1e-6):
+                   norm_eps: float = 1e-6, split: bool = False):
     """Full-sequence causal attention (training / scoring); ``qk_norm``
-    RMS-normalises q and k over ``head_dim`` before RoPE."""
+    RMS-normalises q and k over ``head_dim`` before RoPE.
+
+    ``split``: ``p`` holds this model rank's heads (``n_heads`` and
+    ``n_kv`` its local counts, whole kv groups): q, k and v are
+    column-parallel, ``x`` enters through "f", and ``wo`` is row-parallel,
+    its partials summed by "g".  The qk-norm gains (``[hd]``, whole) act
+    on the local heads only, so they enter through "f" too: their
+    gradient sums every rank's heads."""
+    if split:
+        x = collectives.copy_in(x)
+        if qk_norm:
+            p = dict(p, q_norm=collectives.copy_in(p["q_norm"]),
+                     k_norm=collectives.copy_in(p["k_norm"]))
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
                            qk_norm, norm_eps)
     out = attend(q, k, v, causal_bias(positions, positions, window))
-    return out @ p["wo"]
+    return collectives.reduce_sum(out @ p["wo"]) if split else out @ p["wo"]
 
 
 def prefill_attention(p, x, *, n_heads, n_kv, head_dim, positions, theta,

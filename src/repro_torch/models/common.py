@@ -1,10 +1,17 @@
-"""Shared model building blocks (port of ``repro.models.common``)."""
+"""Shared model building blocks (port of ``repro.models.common``).
+
+Under a plan that splits a model over the model axis of a rank mesh
+(``sharding.partition.tensor_plan``) :func:`swiglu` runs on a rank's ffn
+block and :func:`cross_entropy` on its vocab block of the logits, with
+the axis's collectives (``sharding.collectives``)."""
 from __future__ import annotations
 
 import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding import collectives, partition
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
@@ -215,21 +222,57 @@ def meta_tree(shapes):
     return torch.empty(tuple(shapes), device="meta")
 
 
-def swiglu(x, w_gate, w_up, w_down):
+def swiglu(x, w_gate, w_up, w_down, split: bool = False):
+    """The SwiGLU MLP; ``split``: the weights are this model rank's ffn
+    block (``w_gate`` / ``w_up`` by columns, ``w_down`` by rows), so ``x``
+    enters through "f" and the row-parallel product's partials are summed
+    by "g"."""
+    if split:
+        x = collectives.copy_in(x)
     h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    return collectives.reduce_sum(h @ w_down) if split else h @ w_down
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
     return gelu(x @ w_in + b_in) @ w_out + b_out
 
 
+def vocab_block(vocab: int, width: int):
+    """The first vocab id of this model rank's block of logits (or
+    embedding rows) ``width`` of ``vocab`` wide; None when they are
+    whole."""
+    ma = partition.model_axis()
+    if width == vocab or ma is None:
+        return None
+    return ma.rank * width
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean next-token CE; logits ``[B, S, V]``, targets ``[B, S]``."""
+                  mask: torch.Tensor | None = None,
+                  vocab_lo: int | None = None) -> torch.Tensor:
+    """Mean next-token CE; logits ``[B, S, V]``, targets ``[B, S]``.
+
+    ``vocab_lo`` (:func:`vocab_block`): the logits are this model rank's
+    vocab block from that id.  The logsumexp's shift is the maximum over
+    the ranks, the sum of its exponentials is summed over them ("g"), and
+    each target's logit comes from the rank that holds it (zero elsewhere,
+    summed): the same value on every rank, within rounding of the whole
+    logits' (the sums add in another order)."""
     lf = logits.to(torch.float32)
-    logz = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, targets[..., None].to(torch.int64))[..., 0]
+    if vocab_lo is None:
+        logz = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, targets[..., None].to(torch.int64))[..., 0]
+    else:
+        V = lf.shape[-1]
+        shift = collectives.reduce_max(lf.detach().amax(dim=-1))
+        total = collectives.reduce_sum(
+            torch.exp(lf - shift[..., None]).sum(dim=-1))
+        logz = torch.log(total) + shift
+        local = targets.to(torch.int64) - vocab_lo
+        inside = (local >= 0) & (local < V)
+        ll = torch.gather(lf, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+        ll = collectives.reduce_sum(torch.where(inside, ll,
+                                                torch.zeros_like(ll)))
     nll = logz - ll
     if mask is None:
         return nll.mean()

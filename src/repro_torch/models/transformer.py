@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common
+from repro_torch.sharding import collectives
 
 
 def _is_patterned(cfg: ModelConfig) -> bool:
@@ -116,16 +117,25 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     return common.init_tree(gen, param_shapes(cfg), device)
 
 
-def _attn_kw(cfg: ModelConfig) -> dict:
-    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                head_dim=cfg.resolved_head_dim, theta=cfg.rope_theta,
-                qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+def _attn_kw(cfg: ModelConfig, attn=None) -> dict:
+    """The attention's head keywords; with a train layer's ``attn``
+    parameters that hold a model rank's heads (a split plan), its local
+    head counts and ``split``."""
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+              head_dim=cfg.resolved_head_dim, theta=cfg.rope_theta,
+              qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+    hd = cfg.resolved_head_dim
+    if attn is not None and attn["wq"].shape[-1] != cfg.n_heads * hd:
+        kw.update(n_heads=attn["wq"].shape[-1] // hd,
+                  n_kv=attn["wk"].shape[-1] // hd, split=True)
+    return kw
 
 
 def _mlp_block(lp, cfg: ModelConfig, h):
     mlp = lp["mlp"]
     return h + common.swiglu(common.rms_norm(h, lp["ln2"], cfg.norm_eps),
-                             mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+                             mlp["w_gate"], mlp["w_up"], mlp["w_down"],
+                             split=mlp["w_gate"].shape[-1] != cfg.d_ff)
 
 
 def _apply_layer(lp, cfg: ModelConfig, h, plan, *, positions=None,
@@ -149,7 +159,7 @@ def _apply_layer(lp, cfg: ModelConfig, h, plan, *, positions=None,
                                       n_heads=cfg.n_heads, head_dim=hd)
         new_cache = media_kv
     else:
-        kw = _attn_kw(cfg)
+        kw = _attn_kw(cfg, lp["attn"] if mode == "train" else None)
         w = plan["window"]
         if mode == "train":
             a = attention.self_attention(lp["attn"], hn, positions=positions,
@@ -193,12 +203,29 @@ def _media_embed(params, media):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens] * math.sqrt(float(cfg.d_model))
+    """The token embedding; where ``embed`` is this model rank's vocab
+    block (a split plan), each rank looks up the tokens its rows hold,
+    zeros the others, and "g" sums the blocks (one term and zeros: the
+    whole table's values, exactly)."""
+    table = params["embed"]
+    lo = common.vocab_block(cfg.vocab, table.shape[0])
+    if lo is None:
+        return table[tokens] * math.sqrt(float(cfg.d_model))
+    local = tokens.to(torch.int64) - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    h = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return collectives.reduce_sum(h * math.sqrt(float(cfg.d_model)))
 
 
 def _logits(params, cfg: ModelConfig, h):
+    """The head: ``[B, S, V]`` logits, or under a split plan this model
+    rank's vocab block ``[B, S, V / M]`` (column-parallel; ``h`` enters
+    through "f"), tied or untied."""
     h = common.rms_norm(h, params["ln_f"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if w.shape[-1] != cfg.vocab:
+        h = collectives.copy_in(h)
     return h @ w
 
 

@@ -16,12 +16,32 @@ through this module:
 * :func:`exchange_rows` -- an all-to-all of row counts known to every rank
   (residual rows to the rank that works on them and back, a fleet's
   sampled rows);
-* :func:`broadcast` -- one rank's tensor to all (a scalar metric).
+* :func:`broadcast` -- one rank's tensor to all (a scalar metric);
+* the tensor-parallel layers' three (``models.transformer``,
+  ``models.common``), each a ``torch.autograd.Function``:
+  :func:`reduce_sum` ("g" in Megatron's terms: the sum over the axis's
+  ranks, whose backward is the identity; after a row-parallel product),
+  :func:`copy_in` ("f": the identity, whose backward is that sum; where a
+  replicated activation enters a split region) and :func:`reduce_max`
+  (the maximum, no gradient: the logsumexp's shift).  Each all-gathers the
+  ranks' tensors and folds them in rank order, so every rank holds the
+  same bits, added in one fixed order at any number of ranks; without the
+  axis each is the identity.  One ``all_reduce`` would move less at four
+  ranks (a ring's 1.5 copies of the tensor each way against the gather's
+  3) and also hands every rank the same bits, but gloo's adds at four
+  ranks in an order of its own, and under it the reduced smollm-360m's
+  pallas-quant rounds on a ``(1, 4)`` mesh end their residual rows 12-32%
+  of their norm from one process's, beyond the 5% that
+  ``tests/test_torch_tensor_parallel.py`` holds and rank order meets (one
+  step's gradient meets that file's law under either order: quant levels
+  flipped at near-ties cascade over the rounds, more under some orders
+  than others).
 
 Gloo takes no 16-bit integer and no unsigned 32-bit type (``all_gather``
 of a ``uint16``, ``int16`` or ``uint32`` tensor fails with "Invalid scalar
-type"), and NCCL no 16-bit integer, so every tensor crosses ranks as
-``uint8`` rows (``[rows, row bytes]``) and is viewed back on arrival.
+type"), and NCCL no 16-bit integer, so every tensor of the row and column
+movements crosses ranks as ``uint8`` rows (``[rows, row bytes]``) and is
+viewed back on arrival; the layers' float activations cross as they are.
 Under gloo a CUDA tensor is staged through the host: copied out into
 pinned memory, moved as a CPU tensor, copied back from pinned memory (the
 caching host allocator keeps the pinned blocks for the next round).  NCCL
@@ -246,3 +266,108 @@ def broadcast(x: torch.Tensor, src: int = 0, axis: str = "client"
             st["bytes_in"] += b.numel()
         return _from_bytes(b, x.reshape(1, -1), x.device,
                            st).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel layers' collectives
+# ---------------------------------------------------------------------------
+
+def _active(axis: str) -> bool:
+    """Whether ``axis`` holds two or more ranks of an active rank mesh."""
+    from repro_torch.sharding import partition
+    ra = partition.model_axis() if axis == "model" else partition.rank_axis()
+    return ra is not None
+
+
+def _gathered(x: torch.Tensor, axis: str) -> list:
+    """Every rank's ``x`` (same shape and dtype on every rank of
+    ``axis``), in rank order, on ``x``'s device."""
+    dist = _dist()
+    group, W, _ = _group(axis)
+    with _Timed(axis) as st:
+        src = x.detach().contiguous()
+        if _staged(src):
+            t0 = time.perf_counter()
+            src = torch.empty(src.shape, dtype=src.dtype,
+                              pin_memory=True).copy_(src)
+            st["stage_seconds"] += time.perf_counter() - t0
+        outs = [torch.empty(src.shape, dtype=src.dtype, device=src.device,
+                            pin_memory=src.is_pinned()) for _ in range(W)]
+        dist.all_gather(outs, src, group=group)
+        nbytes = src.numel() * src.element_size() * (W - 1)
+        st["bytes_out"] += nbytes
+        st["bytes_in"] += nbytes
+        if src.device != x.device:
+            t0 = time.perf_counter()
+            outs = [o.to(x.device) for o in outs]
+            st["stage_seconds"] += time.perf_counter() - t0
+        return outs
+
+
+def _fold(x: torch.Tensor, axis: str, op) -> torch.Tensor:
+    outs = _gathered(x, axis)
+    acc = outs[0]
+    for o in outs[1:]:
+        acc = op(acc, o)
+    return acc
+
+
+class _SumOver(torch.autograd.Function):
+    """"g": the sum over the axis's ranks; the backward is the identity
+    (the consumer is replicated, so each rank's term takes the whole
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _fold(x, axis, torch.add)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """"f": the identity; the backward sums the ranks' partial
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _fold(grad, ctx.axis, torch.add), None
+
+
+class _MaxOver(torch.autograd.Function):
+    """The maximum over the axis's ranks, no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        out = _fold(x, axis, torch.maximum)
+        ctx.mark_non_differentiable(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+
+def reduce_sum(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """"g": the sum of every rank's ``x`` over ``axis`` (added in rank
+    order, the same bits on every rank); its backward is the identity.
+    Without the axis, ``x`` itself."""
+    return _SumOver.apply(x, axis) if _active(axis) else x
+
+
+def copy_in(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """"f": ``x`` itself; its backward sums the gradient over ``axis``.
+    Without the axis, ``x`` itself."""
+    return _CopyIn.apply(x, axis) if _active(axis) else x
+
+
+def reduce_max(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x`` over ``axis``, with no
+    gradient.  Without the axis, ``x`` detached."""
+    return _MaxOver.apply(x, axis) if _active(axis) else x.detach()

@@ -40,12 +40,32 @@ Two kinds of mesh:
   model-axis traffic over the ranks that share a client coordinate: one
   ``torch.distributed`` group each, built by :func:`activate_mesh` (the
   default group itself where an axis holds every rank, so a ``(W, 1)``
-  mesh makes the calls of a client axis alone).  The models stay whole on
-  every model rank: ``shard_act`` is the identity (tensor parallelism
-  inside the models is not ported yet).  A ``pod`` axis (or any other)
-  larger than 1 raises ``NotImplementedError``, as does a mesh whose size
-  is not the world's.  A one-rank mesh is one process: nothing calls
-  ``torch.distributed``.
+  mesh makes the calls of a client axis alone).  A ``pod`` axis (or any
+  other) larger than 1 raises ``NotImplementedError``, as does a mesh
+  whose size is not the world's.  A one-rank mesh is one process: nothing
+  calls ``torch.distributed``.
+
+Tensor parallelism inside the models.  The reference's activation
+constraints (``shard_act`` on q by ``"heads"``, k by ``"kv_heads"``, the
+MLP's output, the embedding, the logits by ``"vocab"``) are GSPMD's cue to
+run the layers tensor-parallel; the port runs them so explicitly.
+:func:`tensor_plan` turns a model config and its ``FlatSpec`` into a
+:class:`TensorPlan`: the dim of each leaf split over the model axis, read
+from the family's rules (``models.rules``) through the active logical
+table.  For the dense transformer family (``family == "dense"``) it
+splits ``ffn`` and ``vocab`` where the dim divides by the model axis's
+size M, and the attention leaves (``heads``, ``kv_heads``) only where
+``n_kv_heads % M == 0``, so that every rank keeps whole heads with their
+kv group (smollm-360m's 5 kv heads keep its attention whole at M = 2 and
+4, although its 960-wide ``wq`` divides; the dry run's spec trees,
+:func:`make_specs`, stay the reference's).  Every other family, and a
+logical table that maps those axes to None, gives a plan with no split
+leaf.  The layers then run on each rank's local shapes
+(``models.transformer``, ``models.common``) with the model axis's "f"
+and "g" collectives (``sharding.collectives``), and ``comm.flat``'s
+:class:`~repro_torch.comm.flat.TensorLayout` moves the round's state
+between the column layout and the tensor layout.  ``shard_act`` itself
+stays the identity on values.
 """
 from __future__ import annotations
 
@@ -288,8 +308,92 @@ def resolve(*logical_names) -> tuple:
 
 
 def shard_act(x, *logical_names):
-    """Sharding constraint by logical names: the identity on values."""
+    """Sharding constraint by logical names: the identity on values (under
+    a rank mesh the dense family's layers split their own work: see the
+    module docstring and :func:`tensor_plan`)."""
     return x
+
+
+# the logical axes a model splits over the model axis of a rank mesh, and
+# the families whose layers run split (``models.transformer``'s dense
+# stack: the vlm's cross layers, and every other family, are not split yet)
+TENSOR_AXES = ("heads", "kv_heads", "ffn", "vocab")
+TENSOR_FAMILIES = ("dense",)
+
+
+class TensorPlan(NamedTuple):
+    """Per leaf of a ``FlatSpec``, the dim split over the model axis into
+    ``size`` equal blocks (rank r holds block r), or None: the leaf is
+    whole on every model rank."""
+    dims: tuple
+    size: int
+
+    @property
+    def split(self) -> bool:
+        """Whether any leaf is split."""
+        return any(d is not None for d in self.dims)
+
+    def local_shape(self, i: int, shape) -> tuple:
+        """Leaf ``i``'s shape on one model rank."""
+        shape, d = tuple(shape), self.dims[i]
+        if d is None:
+            return shape
+        return shape[:d] + (shape[d] // self.size,) + shape[d + 1:]
+
+
+def tensor_plan(cfg, spec, size: Optional[int] = None) -> TensorPlan:
+    """The :class:`TensorPlan` of model config ``cfg`` over a model axis of
+    ``size`` ranks (default: the active rank mesh's, 1 without one) for
+    the leaves of ``spec`` (a ``comm.flat.FlatSpec``): a leaf's first
+    logical axis of :data:`TENSOR_AXES` that the active logical table (the
+    defaults without a mesh) maps to the model axis is split where it
+    divides -- attention (``heads`` and ``kv_heads`` both on the model
+    axis) only where ``cfg.n_kv_heads % size == 0``.  Families outside
+    :data:`TENSOR_FAMILIES` and a model axis of one rank split nothing."""
+    from repro_torch.models import rules as model_rules
+    M = int(size) if size is not None else (_MODEL.size if _MODEL else 1)
+    dims = [None] * len(spec.leaves)
+    if M <= 1 or cfg.family not in TENSOR_FAMILIES:
+        return TensorPlan(tuple(dims), M)
+    table = _LOGICAL or DEFAULT_LOGICAL
+    axis = table.get("flat") or "model"
+    on = {name: table.get(name) == axis for name in TENSOR_AXES}
+    heads = on["heads"] and on["kv_heads"] and cfg.n_kv_heads % M == 0
+    rules = model_rules.dense_rules(cfg)
+    for i, (path, ls) in enumerate(zip(spec.paths, spec.leaves)):
+        name = "/".join(str(k) for k in path)
+        ndim = len(ls.shape)
+        for pat, logical in rules:
+            if not re.search(pat, name):
+                continue
+            logical = tuple(logical)[-ndim:] if len(logical) > ndim else \
+                (None,) * (ndim - len(logical)) + tuple(logical)
+            for dim, lg in enumerate(logical):
+                if lg not in TENSOR_AXES or not on[lg]:
+                    continue
+                ok = heads if lg in ("heads", "kv_heads") else \
+                    ls.shape[dim] % M == 0
+                if ok:
+                    dims[i] = dim
+                break
+            break
+    return TensorPlan(tuple(dims), M)
+
+
+def plan_record(spec, plan: TensorPlan) -> dict:
+    """A plan's account: split and whole leaves, their counts and bytes
+    (at the spec's dtype), and the path of every whole leaf."""
+    import torch
+    item = torch.empty((), dtype=spec.dtype).element_size()
+    rec = {"model_ranks": plan.size, "split_leaves": 0, "whole_leaves": 0,
+           "split_bytes": 0, "whole_bytes": 0, "whole": []}
+    for path, ls, dim in zip(spec.paths, spec.leaves, plan.dims):
+        kind = "whole" if dim is None else "split"
+        rec[f"{kind}_leaves"] += 1
+        rec[f"{kind}_bytes"] += ls.size * item
+        if dim is None:
+            rec["whole"].append("/".join(str(k) for k in path))
+    return rec
 
 
 def sharding_for(*logical_names) -> Optional[NamedSharding]:

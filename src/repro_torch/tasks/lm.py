@@ -62,14 +62,18 @@ def make_loss_pair(model_forward, cfg: ModelConfig, budget: float = 0.0,
         out = out[:, :-1]
         targets = batch.tokens[:, 1:]
         mmask = batch.minority_mask[:, 1:]
-        f = common.cross_entropy(out, targets, mask=1.0 - mmask)
+        # under a split plan the logits are this model rank's vocab block
+        lo = common.vocab_block(cfg.vocab, out.shape[-1])
+        f = common.cross_entropy(out, targets, mask=1.0 - mmask,
+                                 vocab_lo=lo)
         if mtp_logits is not None:
             f = f + mtp_weight * common.cross_entropy(mtp_logits[:, :-1],
                                                       targets[:, 1:])
         if aux_constraint and aux is not None:
             g = aux - budget
         else:
-            g = common.cross_entropy(out, targets, mask=mmask) - budget
+            g = common.cross_entropy(out, targets, mask=mmask,
+                                     vocab_lo=lo) - budget
         return f, g
 
     return loss_pair

@@ -1324,6 +1324,29 @@ def test_two_ranks_sharing_the_card_equal_one_process(dev, tmp_path):
                     assert got[key] == v, f"rank {r} {name} {key}"
 
 
+def test_split_plan_round_on_shared_card_matches_cpu(dev, tmp_path):
+    """Two ranks sharing the card over gloo on a ``(1, 2)`` data x model
+    mesh run reduced qwen3-4b's rounds under the split plan (heads, ffn
+    and the untied vocab over the model axis; pallas top-k up and down,
+    gather, the separate eval): every rank against the same rounds in one
+    process on the CPU, from the same weights and tokens (drawn on the
+    CPU), by the law of ``test_torch_tensor_parallel.py`` (the card's
+    matmuls and the split's sums add in other orders), and the same bits
+    on both ranks."""
+    import torch_multidev_world as world_mod
+    name = "qwen3-topk-gather"
+    want = world_mod.run_tp_case(name, "cpu")
+    ranks = world_mod.spawn_tp_world((1, 2), str(tmp_path), timeout_s=600,
+                                     device="cuda", names=[name])
+    for res in ranks:
+        got = dict(res["cases"][name])
+        assert got.pop("split_plan")
+        world_mod.tp_law(got, {k: v for k, v in want.items()
+                               if k != "split_plan"}, False)
+        assert res["digests"] == ranks[0]["digests"]
+        assert res["collectives_by_axis"]["model"]["bytes_out"] > 0
+
+
 # the wire kernels on the column blocks of a data x model mesh: phase 3's
 # layouts (smollm-360m whole, pallas top-k 0.1 and 8-bit quant, 4 rows)
 # cut over 2 model ranks as ``comm.flat.column_split`` cuts them
